@@ -1,0 +1,93 @@
+"""Träff's circulant collectives over a communicator (the wrapper layer).
+
+Ported from ``repro/core/collectives.py``: every function here assembles
+a :class:`CollectiveSpec` and executes its cached plan, so the round
+loops live in ``core.plan`` only.  Each takes ``xs``, the list of
+per-rank tensors of the ranks ``comm`` holds in this process, and returns
+the list of per-rank results.  Every round is exactly one
+``comm.shift``: ``ceil(log2 p)`` per reduce-scatter or allgather and
+twice that per allreduce (Theorems 1 and 2).
+
+New code should hold a spec and call ``plan()`` directly::
+
+    spec = CollectiveSpec(schedule="power2", use_fused_kernel=True)
+    shards = plan(spec, p=comm.p).reduce_scatter(xs, comm)
+
+The reference's ring / recursive-halving / xla baselines, alltoall(v),
+broadcast and the hierarchical and pipelined forms are not ported yet
+(ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from .plan import plan
+from .spec import CollectiveSpec, as_spec
+
+Tensors = Sequence[torch.Tensor]
+
+
+def _circulant_spec(**kw) -> CollectiveSpec:
+    return CollectiveSpec(kind="circulant", **kw)
+
+
+def circulant_reduce_scatter(xs: Tensors, comm, *, schedule: str = "halving",
+                             op: str | Callable = "add",
+                             group: int | None = None,
+                             use_fused_kernel: bool | None = None
+                             ) -> list[torch.Tensor]:
+    """Paper Algorithm 1.  Each rank's input has a leading dim n divisible
+    by p; rank r gets its reduced block ``(n/p, *rest)``:
+    ``out_r = ⊕_i x_i[r-th block]``.  Round k sends ``R[s_k : s_{k-1}]``
+    to ``r + s_k`` and folds the received blocks into
+    ``R[0 : s_{k-1} - s_k]``; exactly p-1 blocks are sent, received and
+    folded per rank (Theorem 1).  ``use_fused_kernel`` routes each
+    round's fold and next-send layout through one kernel launch."""
+    spec = _circulant_spec(schedule=schedule, op=op, group=group,
+                           use_fused_kernel=use_fused_kernel)
+    return plan(spec, p=comm.p).reduce_scatter(xs, comm)
+
+
+def circulant_allgather(xs: Tensors, comm, *, schedule: str = "halving",
+                        group: int | None = None,
+                        use_fused_kernel: bool | None = None
+                        ) -> list[torch.Tensor]:
+    """Gather rank blocks in rank order: each rank's ``(blk, *rest)`` to
+    ``(p*blk, *rest)``, identical on every rank.  Replays the
+    reduce-scatter skips in reverse; p-1 blocks communicated per rank."""
+    spec = _circulant_spec(schedule=schedule, group=group,
+                           use_fused_kernel=use_fused_kernel)
+    return plan(spec, p=comm.p).allgather(xs, comm)
+
+
+def circulant_allreduce(xs: Tensors, comm, *, schedule: str = "halving",
+                        op: str | Callable = "add",
+                        group: int | None = None,
+                        use_fused_kernel: bool | None = None
+                        ) -> list[torch.Tensor]:
+    """Paper Algorithm 2: reduce-scatter + reversed allgather;
+    2*ceil(log2 p) exchanges, 2(p-1) blocks moved, p-1 folds per rank."""
+    spec = _circulant_spec(schedule=schedule, op=op, group=group,
+                           use_fused_kernel=use_fused_kernel)
+    return plan(spec, p=comm.p).allreduce(xs, comm)
+
+
+def reduce_scatter(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
+                   **kw) -> list[torch.Tensor]:
+    """Reduce-scatter dispatcher: ``spec=CollectiveSpec(...)`` or bare
+    spec kwargs."""
+    return plan(as_spec(spec, **kw), p=comm.p).reduce_scatter(xs, comm)
+
+
+def allgather(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
+              **kw) -> list[torch.Tensor]:
+    """Allgather dispatcher — see :func:`reduce_scatter`."""
+    return plan(as_spec(spec, **kw), p=comm.p).allgather(xs, comm)
+
+
+def allreduce(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
+              **kw) -> list[torch.Tensor]:
+    """Allreduce dispatcher — see :func:`reduce_scatter`."""
+    return plan(as_spec(spec, **kw), p=comm.p).allreduce(xs, comm)

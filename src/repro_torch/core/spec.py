@@ -1,0 +1,86 @@
+"""`CollectiveSpec` — the declarative half of the plan/execute collective API.
+
+A spec captures everything planning needs (kind, skip schedule, ⊕,
+kernel choice) and nothing execution provides (the payload, the
+communicator).  Specs are frozen and hashable so ``plan()`` can memoize
+on them.
+
+The port implements the uniform circulant kind.  The reference's other
+fields and kinds (``counts`` for Corollary 3 and alltoallv,
+``wire_dtype="int8"``, ``broadcast`` and the ring / recursive-halving /
+xla baselines) are accepted by name and raise ``NotImplementedError``
+pointing at ROADMAP.md's queue 1, so a request for them is never
+silently ignored.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+#: implementation families the reference knows (``repro.core.spec.KINDS``).
+KINDS = ("circulant", "broadcast", "ring", "recursive_halving", "xla")
+
+#: the kinds this port can plan.
+PORTED_KINDS = ("circulant",)
+
+#: default elements per quantization group of the reference's int8 wire.
+DEFAULT_WIRE_GROUP = 512
+
+_TODO = "not ported yet; see ROADMAP.md queue 1"
+
+
+@dataclass(frozen=True)
+class CollectiveSpec:
+    """Everything needed to *plan* a collective, nothing needed to run it.
+
+    kind:             implementation family; only ``circulant`` is ported.
+    schedule:         Corollary-2 skip schedule name.
+    group:            intra-group size for the ``two_level`` schedule.
+    op:               reduction ⊕ — ``add``/``max``/``min`` or a callable
+                      (the eager backend only; named ops unlock the fused
+                      kernel).
+    wire_dtype:       must be ``None`` (the int8 wire is not ported).
+    wire_group:       elements per quantization group (validated only).
+    use_fused_kernel: ``None`` = auto (the CUDA kernel when the payload
+                      lies on a card), ``True``/``False`` explicit.
+    counts:           must be ``None`` (Corollary 3 is not ported).
+    """
+
+    kind: str = "circulant"
+    schedule: str = "halving"
+    group: int | None = None
+    op: str | Callable = "add"
+    wire_dtype: str | None = None
+    wire_group: int = DEFAULT_WIRE_GROUP
+    use_fused_kernel: bool | None = None
+    counts: tuple | None = None
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown kind {self.kind!r}; have {KINDS}")
+        if self.kind not in PORTED_KINDS:
+            raise NotImplementedError(f"kind={self.kind!r} is {_TODO}")
+        if self.wire_dtype is not None:
+            raise NotImplementedError(
+                f"wire_dtype={self.wire_dtype!r} is {_TODO} (item 6)")
+        if self.counts is not None:
+            raise NotImplementedError(
+                f"counts= (Corollary 3 / alltoallv) is {_TODO} (items 7-8)")
+        if self.wire_group < 1:
+            raise ValueError(f"wire_group must be >= 1, got {self.wire_group}")
+
+
+def as_spec(spec_or_kind: "CollectiveSpec | str | None" = None,
+            **kw) -> CollectiveSpec:
+    """Coerce loose inputs into a ``CollectiveSpec``: an existing spec
+    (returned as-is; ``kw`` must be empty), a kind string, or bare
+    kwargs."""
+    if isinstance(spec_or_kind, CollectiveSpec):
+        if kw:
+            raise TypeError(
+                f"cannot combine an existing CollectiveSpec with extra "
+                f"kwargs {sorted(kw)}")
+        return spec_or_kind
+    if isinstance(spec_or_kind, str):
+        kw = dict(kw, kind=spec_or_kind)
+    return CollectiveSpec(**kw)

@@ -1,0 +1,116 @@
+"""Training launcher of the port, ported from ``repro/launch/train.py``.
+
+Runs on the card unless asked for the CPU::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --mesh 3x1 --mode zero1 --grad-sync circulant --steps 4 \\
+        --seq-len 2048 --global-batch 3
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --scale-down --device cpu --mesh 3x1 --mode zero1 --steps 2 \\
+        --seq-len 16 --global-batch 3
+
+The flags are the reference's plus ``--device``, less
+those of the int8 wire's extras (``--compress``,
+``--no-error-feedback``) and ``--ckpt-every``.  Checkpointing, the
+watchdog and failure injection belong to a later slice (ROADMAP.md
+queue 1 item 11): ``--ckpt-dir`` and ``--fail-at-step`` raise if given,
+as do the flags of the other features not ported yet (``--wire-dtype``,
+``--bucket-bytes``, ``--grad-sync`` other than circulant, ``--mode
+fsdp_auto``, ``--mesh`` with a model axis, ``--moe-dispatch``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..configs import ALIASES
+from . import bootstrap
+
+
+class TrainRun(NamedTuple):
+    """What a run returns: per-step losses and wall seconds (each step
+    timed to the end of its work on the device)."""
+    losses: list
+    step_seconds: list
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", choices=sorted(ALIASES), required=True)
+    ap.add_argument("--scale-down", action="store_true",
+                    help="reduced same-family config (CPU runs)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM (data x model); M must be 1 for now")
+    ap.add_argument("--mode", default=None,
+                    choices=[None, "single", "zero1", "fsdp_auto"])
+    ap.add_argument("--grad-sync", default="circulant",
+                    choices=["circulant", "ring", "xla", "allreduce"])
+    ap.add_argument("--schedule", default="halving")
+    ap.add_argument("--wire-dtype", default=None, choices=[None, "int8"])
+    ap.add_argument("--bucket-bytes", type=int, default=None)
+    ap.add_argument("--fused-kernel", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="fused_round CUDA kernel for every reduce-scatter "
+                         "round (auto = on when the run is on the card)")
+    ap.add_argument("--moe-dispatch", default=None,
+                    choices=[None, "global", "rowwise", "ep"])
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--fail-at-step", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    return ap
+
+
+def main(argv=None) -> TrainRun:
+    """Parse ``argv``, build the session, train; returns a :class:`TrainRun`."""
+    args = _parser().parse_args(argv)
+    for flag, val in (("--ckpt-dir", args.ckpt_dir),
+                      ("--fail-at-step", args.fail_at_step)):
+        if val is not None:
+            raise SystemExit(f"{flag} is not ported yet (ROADMAP.md queue 1 "
+                             f"item 11)")
+    d, m = (int(x) for x in args.mesh.split("x"))
+    try:
+        sess = bootstrap.build_session(
+            arch=args.arch, scale_down=args.scale_down, steps=args.steps,
+            seq_len=args.seq_len, global_batch=args.global_batch,
+            dp=d, mp=m, mode=args.mode, grad_sync=args.grad_sync,
+            schedule=args.schedule, wire_dtype=args.wire_dtype,
+            use_fused_kernel={"auto": None, "on": True,
+                              "off": False}[args.fused_kernel],
+            bucket_bytes=args.bucket_bytes, moe_dispatch=args.moe_dispatch,
+            lr=args.lr, warmup=args.warmup, device=args.device)
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e)) from e
+
+    cuda = sess.device.type == "cuda"
+    losses, times = [], []
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        metrics = bootstrap.run_step(sess, step)
+        loss = float(metrics["loss"])
+        if cuda:
+            torch.cuda.synchronize(sess.device)
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        times.append(dt)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d}  loss {loss:.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):.3f}  "
+                  f"lr {float(metrics['lr']):.2e}  {dt * 1e3:.0f}ms",
+                  flush=True)
+    print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
+    return TrainRun(losses=losses, step_seconds=times)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,112 @@
+"""Shared neural building blocks, ported from ``repro/models/layers.py``.
+
+Same expressions in the same order as the reference (float32 norms and
+RoPE, SwiGLU, float32 cross-entropy).  Initializers take an explicit
+``torch.Generator``: they do not reproduce ``jax.random``'s bits, so
+tests that compare the two packages carry the reference's weights across
+with ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    """The parameter dtype named by ``cfg.dtype``."""
+    try:
+        return _DTYPES[cfg.dtype]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {cfg.dtype!r}") from None
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int,
+               device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init (LeCun-ish): ``fan_in**-0.5 * N(0,1)``
+    cut at ±2 (stacked layer weights pass the per-layer fan-in)."""
+    std = fan_in ** -0.5
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (std * w).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype, device=None
+               ) -> torch.Tensor:
+    """``0.02 * N(0, 1)``."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm over the last axis, computed in float32."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * gamma.to(torch.float32)).to(x.dtype)
+
+
+def head_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float
+                 ) -> torch.Tensor:
+    """Per-head qk-norm (qwen3): x (..., H, dh), gamma (dh,)."""
+    return rmsnorm(x, gamma, eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    """Inverse frequencies, in float64 as the reference computes them."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: (..., S) integer."""
+    dh = x.shape[-1]
+    freqs = torch.tensor(rope_frequencies(dh, theta), dtype=torch.float32,
+                         device=x.device)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, dh/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x W_gate) * (x W_up)) W_down``."""
+    gate = F.silu(x @ params["w_gate"])
+    return (gate * (x @ params["w_up"])) @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32.  logits (..., V), targets (...)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

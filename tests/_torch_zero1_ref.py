@@ -1,0 +1,81 @@
+"""Subprocess worker: the reference's 4-step ZeRO-1 trajectory for the
+port's parity test (``test_torch_zero1.py``).
+
+Drives ``repro.optim.zero1.zero1_step`` directly under
+``repro.compat.shard_map`` on a ``("data",)`` mesh of 3 fake CPU devices,
+the model built with ``recipe=None`` and ``check_vma=False``: the
+reference's step function without its launcher (whose zero1 mode does
+not run on JAX 0.9's explicit mesh axes).  qwen3-1.7b scaled down,
+seq 16, global batch 3, the launcher's AdamW defaults, circulant
+halving sync on the jnp backend.  Writes ``<out.npz>``: the initial
+parameters (``init/<path>``), the per-step losses and the parameters
+after the last step (``final/<path>``).
+
+Run: python tests/_torch_zero1_ref.py <out.npz>
+"""
+import os
+import re
+import sys
+
+_inherited = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
+                    os.environ.get("XLA_FLAGS", ""))
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=3 "
+                           + _inherited)
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro import compat  # noqa: E402
+from repro.configs import get_config  # noqa: E402
+from repro.data import for_model  # noqa: E402
+from repro.models import build  # noqa: E402
+from repro.optim.adamw import AdamWConfig  # noqa: E402
+from repro.optim.zero1 import (GradSyncConfig, init_zero1_state,  # noqa: E402
+                               zero1_state_specs, zero1_step)
+
+STEPS, SEQ, BATCH, WORLD = 4, 16, 3, 3
+
+
+def _flat(prefix, tree):
+    return {prefix + "/".join(k.key for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def main(dst):
+    cfg = get_config("qwen3-1.7b").scaled_down()
+    model = build(cfg, recipe=None)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0))
+    out = _flat("init/", params)
+    sync = GradSyncConfig(use_fused_kernel=False)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=STEPS)
+    mesh = compat.make_mesh((WORLD,), ("data",))
+
+    def inner(prm, opt, batch):
+        return zero1_step(jax.value_and_grad(model.loss), prm, opt, batch,
+                          axis_names=("data",), opt_cfg=opt_cfg, sync=sync)
+
+    pspec = jax.tree.map(lambda _: P(), params)
+    ospec = zero1_state_specs(params, WORLD, sync, ("data",))
+    bspec = {"tokens": P("data"), "targets": P("data")}
+    step = jax.jit(compat.shard_map(
+        inner, mesh=mesh, in_specs=(pspec, ospec, bspec),
+        out_specs=(pspec, ospec, {"loss": P(), "grad_norm": P(), "lr": P()}),
+        check_vma=False))
+    opt = init_zero1_state(params, WORLD, sync)
+    pipe = for_model(cfg, seq_len=SEQ, global_batch=BATCH)
+    losses = []
+    for s in range(STEPS):
+        batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(s).items()}
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    out.update(_flat("final/", params))
+    out["losses"] = np.asarray(losses, np.float64)
+    np.savez(dst, **out)
+    print("REFERENCE OK", losses)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

@@ -1,0 +1,79 @@
+"""The port stands alone: no JAX, nothing of ``repro``; and its launcher runs.
+
+* every ``repro_torch`` module imports in a subprocess where
+  ``sys.modules["jax"]`` and ``sys.modules["repro"]`` are ``None`` (any
+  import of either fails there);
+* an AST scan finds no ``jax`` or ``repro`` import in
+  ``src/repro_torch/`` or ``chip_smoke.py``;
+* the train CLI runs the zero1 main path on the CPU at a tiny size.
+"""
+import ast
+import math
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    return env
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PKG.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "print('IMPORTED', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        bad += [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                         "repro")]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_train_cli_zero1_on_cpu():
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
+           "--mesh", "3x1", "--mode", "zero1", "--steps", "2",
+           "--seq-len", "16", "--global-batch", "3", "--log-every", "1"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=_env(),
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    losses = [float(x) for x in re.findall(r"loss (\S+)", proc.stdout)]
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+
+
+@pytest.mark.parametrize("extra", [["--ckpt-dir", "x"], ["--fail-at-step", "1"],
+                                   ["--mesh", "2x2"], ["--wire-dtype", "int8"]])
+def test_train_cli_refuses_unported_flags(extra):
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
+                    "--mesh", "3x1", "--steps", "1", "--seq-len", "8",
+                    "--global-batch", "3", *extra])
