@@ -13,11 +13,19 @@ Phases (any failure exits non-zero; none is caught):
 2. kernel vs plain version on the card: ``fused_round`` against
    ``fused_round_ref`` bitwise, NaN-aware, over dtypes, ops,
    ragged shapes and every round shape of the main path, and timed at the
-   main path's shapes beside its byte bound and the plain version;
+   main path's shapes beside its byte bound and the plain version; then
+   the int8 wire's kernels (``quantize``, ``fused_round_dq``,
+   ``dequant_add``) and ``block_reduce`` against their plain versions
+   bitwise (finite inputs; ``block_reduce`` NaN-aware) over f32/bf16
+   inputs, add/max/min, ragged columns and rows, groups below and equal
+   to the row width, and every wire-round shape of both wire paths
+   below, timed at the main path's shapes (``block_reduce`` beside
+   ``torch.add`` as its library yardstick);
 3. collectives on the card: circulant reduce-scatter and allreduce of
    64M-element float32 payloads per rank on a ``LocalComm``, p in
-   {3, 4, 8}, fused bitwise equal to eager, with exact exchange and
-   launch counts;
+   {3, 4, 8}, exact and on the int8 wire, fused bitwise equal to eager,
+   with exact exchange and launch counts and, on the wire, exactly
+   ``rows * wire_width`` bytes per round;
 4. the main path: ``python -m repro_torch.launch.train --arch qwen3-1.7b
    --mesh 3x1 --mode zero1 --grad-sync circulant --steps 4 --seq-len 2048
    --global-batch 3`` (full width, 28 layers, bf16 parameters, random
@@ -26,7 +34,20 @@ Phases (any failure exits non-zero; none is caught):
    seed, which must agree bitwise; the kernel-on session then takes one
    unprofiled and one profiled warm step (``torch.profiler``, device
    activity only: device busy and idle share of that step, time by
-   kernel).
+   kernel);
+5. the int8 wire through the launcher's own argv, full width and 28
+   layers: (a) phase 4's command with ``--wire-dtype int8
+   --no-error-feedback`` (exact launch counts of ``quantize`` and
+   ``fused_round_dq``, none of ``fused_round``; sync bytes per step
+   beside phase 4's; one step each with the kernels on and off, bitwise
+   equal on every rank; a warm step profiled as phase 4's, in a process
+   of its own, ``chip_smoke.py --profile-wire-step``), and (b) ``--mesh
+   2x1 --global-batch 2 --wire-dtype int8`` with error feedback on
+   (exact launch counts, finite losses).
+
+A profiled step counts only if its profile holds every launch of the
+port's kernels that the step made; otherwise its device time is printed
+as not measured.
 
 Prints the card line, one ``{"kernels": [...]}`` JSON line and, last, the
 verdict ``{"ok": true, "device": {...}}``.
@@ -36,6 +57,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +69,25 @@ MAIN_ARGV = ["--arch", "qwen3-1.7b", "--mesh", "3x1", "--mode", "zero1",
              "--grad-sync", "circulant", "--steps", "4", "--seq-len", "2048",
              "--global-batch", "3", "--log-every", "1", "--device", "cuda"]
 STEPS, P_MAIN = 4, 3
+P_EF = 2
+
+
+def argv_with(argv: list, **flags) -> list:
+    """``argv`` with the values of ``--flag-name`` replaced (``flag_name``
+    keywords; a new flag is appended, ``True`` for a bare switch)."""
+    out = list(argv)
+    for key, val in flags.items():
+        flag = "--" + key.replace("_", "-")
+        if flag in out:
+            out[out.index(flag) + 1] = str(val)
+        else:
+            out += [flag] if val is True else [flag, str(val)]
+    return out
+
+
+WIRE_A_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", no_error_feedback=True)
+WIRE_B_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", mesh=f"{P_EF}x1",
+                        global_batch=P_EF)
 
 
 def fail(msg: str) -> None:
@@ -62,13 +103,32 @@ def check(cond: bool, msg: str) -> None:
 def bits(t):
     import torch
     return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
-                   torch.int32: torch.int32}[t.dtype])
+                   torch.int32: torch.int32, torch.int8: torch.int8}[t.dtype])
 
 
 def same_bits(a, b) -> bool:
     import torch
+    a, b = a.contiguous(), b.contiguous()
     return a.shape == b.shape and a.dtype == b.dtype and \
         torch.equal(bits(a), bits(b))
+
+
+def counters():
+    """Every kernel wrapper of the port, by name (each has ``.launches``)."""
+    from repro_torch import kernels as K
+    return {"fused_round": K.fused_round, "quantize": K.quantize,
+            "quantize_rows": K.quantize_rows,
+            "fused_round_dq": K.fused_round_dq,
+            "dequant_add": K.dequant_add, "block_reduce": K.block_reduce}
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -109,9 +169,11 @@ def phase_card_and_build():
     print(f"build: {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s (set-up)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, spill bytes {max(spills)} at most (ptxas -v)")
     return smi.splitlines()[0]
 
 
@@ -130,24 +192,37 @@ def _rand(shape, dtype, gen, nan: bool):
     return x
 
 
+def wire_leaves(p: int):
+    """``(leaf, shape, cols, padded cols, g)`` of every zero leaf's
+    reduce-scatter at ``p`` ranks: the columns of one block and, on the
+    int8 wire, the same padded to whole groups of ``g =
+    min(DEFAULT_GROUP, cols)``."""
+    from repro_torch.configs import get_config
+    from repro_torch import tree as T
+    from repro_torch.kernels import DEFAULT_GROUP
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim.zero1 import is_zero_leaf
+    out = []
+    for path, shape in T.flatten(param_shapes(get_config("qwen3-1.7b"))):
+        if not is_zero_leaf(shape, p, 1024):
+            continue
+        ld_pad = shape[0] + (-shape[0]) % p
+        cols = ld_pad // p * math.prod(shape[1:])
+        g = min(DEFAULT_GROUP, cols)
+        out.append((".".join(path), shape, cols, -(-cols // g) * g, g))
+    return out
+
+
 def main_path_rounds():
     """Every ``(leaf, lo, nb, next_lo, cols)`` fused_round launch shape of
     one main-path step on one rank (f32 payload, halving at p = 3)."""
-    from repro_torch.configs import get_config
-    from repro_torch import tree as T
     from repro_torch.core import reduce_scatter_plan
-    from repro_torch.models.transformer import param_shapes
-    from repro_torch.optim.zero1 import is_zero_leaf
     rounds = reduce_scatter_plan(P_MAIN)
     out = []
-    for path, shape in T.flatten(param_shapes(get_config("qwen3-1.7b"))):
-        if not is_zero_leaf(shape, P_MAIN, 1024):
-            continue
-        ld_pad = shape[0] + (-shape[0]) % P_MAIN
-        cols = ld_pad // P_MAIN * math.prod(shape[1:])
+    for leaf, _, cols, _, _ in wire_leaves(P_MAIN):
         for k, rnd in enumerate(rounds):
             nxt = rounds[k + 1].lo if k + 1 < len(rounds) else rnd.lo
-            out.append((".".join(path), rnd.lo, rnd.nblocks, nxt, cols))
+            out.append((leaf, rnd.lo, rnd.nblocks, nxt, cols))
     return out
 
 
@@ -269,6 +344,229 @@ def phase_kernel_vs_plain():
     return max_err, step
 
 
+def wire_launches(p: int):
+    """Every kernel launch of one rank's wire step at ``p``: ``("quantize",
+    leaf, rows, cols, g)`` for round 0's send and ``("fused_round_dq",
+    leaf, lo, nb, next_lo, cols, g)`` per round."""
+    from repro_torch.core import reduce_scatter_plan
+    rounds = reduce_scatter_plan(p)
+    out = []
+    for leaf, _, _, cols, g in wire_leaves(p):
+        out.append(("quantize", leaf, rounds[0].hi - rounds[0].lo, cols, g))
+        for k, rnd in enumerate(rounds):
+            nxt = rounds[k + 1].lo if k + 1 < len(rounds) else rnd.lo
+            out.append(("fused_round_dq", leaf, rnd.lo, rnd.nblocks, nxt,
+                        cols, g))
+    return out
+
+
+class Errors:
+    """Largest |kernel - plain| seen per kernel (float outputs, codes as
+    integers; NaN positions left out), over every comparison."""
+
+    def __init__(self):
+        self.max = {}
+
+    def note(self, name, got, want):
+        import torch
+        d = (got.float() - want.float()).abs()
+        d = d[~torch.isnan(d)]
+        err = float(d.max()) if d.numel() else 0.0
+        self.max[name] = max(self.max.get(name, 0.0), err)
+
+
+def phase_wire_kernels():
+    """The int8 wire's kernels and ``block_reduce`` against their plain
+    versions, bitwise, then timed at the main path's shapes."""
+    import torch
+    from repro_torch.kernels import (block_reduce, dequant_add,
+                                     dq_round_bytes, fused_round_dq, quantize,
+                                     ref)
+    from repro_torch.kernels.block_reduce import block_reduce_bytes
+    from repro_torch.kernels.quantize import (DEFAULT_GROUP,
+                                              dequant_add_bytes,
+                                              quantize_bytes)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = Errors()
+    n = {"quantize": 0, "dequant_add": 0, "fused_round_dq": 0,
+         "block_reduce": 0}
+
+    def randn(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    def same(name, got, want, what):
+        ok = same_bits(got, want)
+        if not ok:
+            print(describe_mismatch(got.contiguous(), want.contiguous(), ()))
+        check(ok, f"{name} differs from its plain version: {what}")
+        errs.note(name, got, want)
+
+    def check_quantize(x, g, what):
+        codes, scales = quantize(x, group=g)
+        want = ref.quantize_ref(x, group=g)
+        torch.cuda.synchronize()
+        same("quantize", codes, want[0], what + " codes")
+        same("quantize", scales, want[1], what + " scales")
+        n["quantize"] += 1
+        return codes, scales
+
+    def check_dq(live, codes, scales, nb, nxt, op, g, what):
+        keep, send = fused_round_dq(live, codes, scales, nb=nb, next_lo=nxt,
+                                    op=op, group=g)
+        wk, ws = ref.fused_round_dq_ref(live, codes, scales, nb=nb,
+                                        next_lo=nxt, op=op, group=g)
+        torch.cuda.synchronize()
+        check((send is None) == (ws is None), f"send presence: {what}")
+        same("fused_round_dq", keep, wk, what + " keep")
+        if send is not None:
+            same("fused_round_dq", send[0], ws[0], what + " send codes")
+            same("fused_round_dq", send[1], ws[1], what + " send scales")
+        n["fused_round_dq"] += 1
+
+    ragged = [(3, 7), (130, 515), (5, 130), (7, 515), (1, 1), (9, 4),
+              (2, 1 << 20), (4, 4096)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, cols in ragged:
+            for grp in sorted({4, 128, 512, min(cols, 4096)}):
+                g = min(grp, cols)
+                what = f"{dtype} ({rows}, {cols}) g={g}"
+                x = randn((rows, cols), 2.0, dtype)
+                codes, scales = check_quantize(x, g, what)
+                acc = randn((rows, cols), 1.0, dtype)
+                same("dequant_add", dequant_add(acc, codes, scales, group=g),
+                     ref.dequant_add_ref(acc, codes, scales, group=g), what)
+                n["dequant_add"] += 1
+    for what, x in (
+            ("zero group", torch.zeros((2, 64), device="cuda")),
+            ("denormal", randn((3, 64), 1e-38)),
+            ("near the f32 range", randn((3, 64), 1e37))):
+        check_quantize(x, 32, what)
+    geometries = [(8, 4, 4), (8, 4, 2), (7, 3, 2), (5, 1, 4), (6, 2, 4),
+                  (2, 1, 1), (4, 4, 4), (1, 1, 1)]
+    for op in ("add", "max", "min"):
+        for lo, nb, nxt in geometries:
+            for cols, g in ((16, 4), (512, 128), (36, 12), (10, 5),
+                            (64, 64), (1 << 20, 512)):
+                live = randn((lo, cols))
+                codes, scales = ref.quantize_ref(randn((nb, cols), 3.0),
+                                                 group=g)
+                check_dq(live, codes.contiguous(), scales, nb, nxt, op, g,
+                         f"{op} ({lo},{nb},{nxt}) cols={cols} g={g}")
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for op in ("add", "max", "min"):
+            for shape in ((3, 7), (130, 515), (1, 1), (2, 1 << 20)):
+                nan = op != "add" and dtype != torch.int32
+                a, b = (_rand(shape, dtype, gen, nan) for _ in range(2))
+                got = block_reduce(a, b, op=op)
+                want = ref.block_reduce_ref(a, b, op=op)
+                torch.cuda.synchronize()
+                ok, _ = nan_aware_equal(got, want)
+                check(ok, f"block_reduce differs: {dtype} {op} {shape}")
+                if dtype != torch.int32:
+                    errs.note("block_reduce", got, want)
+                n["block_reduce"] += 1
+    print(f"wire kernels vs plain: {n} cases bitwise equal")
+
+    # Every wire-round shape of both wire paths: bitwise, and those of path
+    # (a) timed (f32 add); path (b)'s EF quantize at every leaf shape.
+    steps = {}
+    rows_out = []
+    for p in (P_MAIN, P_EF):
+        per = {"quantize": [0.0, 0.0, 0], "fused_round_dq": [0.0, 0.0, 0]}
+        for launch in wire_launches(p):
+            if launch[0] == "quantize":
+                _, leaf, rows, cols, g = launch
+                x = randn((rows, cols))
+                check_quantize(x, g, f"p={p} {leaf} round-0 send")
+                fn = lambda: quantize(x, group=g)            # noqa: E731
+                pf = lambda: ref.quantize_ref(x, group=g)    # noqa: E731
+                nb_ = quantize_bytes(rows, cols, 4, g)
+            else:
+                _, leaf, lo, nb, nxt, cols, g = launch
+                live = randn((lo, cols))
+                codes, scales = ref.quantize_ref(randn((nb, cols), 3.0),
+                                                 group=g)
+                codes = codes.contiguous()
+                check_dq(live, codes, scales, nb, nxt, "add", g,
+                         f"p={p} {leaf} lo={lo}")
+                fn = lambda: fused_round_dq(live, codes, scales,  # noqa: E731
+                                            nb=nb, next_lo=nxt, group=g)
+                pf = lambda: ref.fused_round_dq_ref(  # noqa: E731
+                    live, codes, scales, nb=nb, next_lo=nxt, group=g)
+                nb_ = dq_round_bytes(lo, nb, nxt, cols, g)
+            if p == P_MAIN:
+                reps = 10 if cols > (1 << 24) else 50
+                t_k, t_p = time_ms(fn, reps), time_ms(pf, reps)
+                acc = per[launch[0]]
+                acc[0] += t_k
+                acc[1] += t_p
+                acc[2] += nb_
+                rows_out.append((launch[0], leaf, launch[2:], nb_, t_k, t_p))
+            torch.cuda.empty_cache()
+        if p == P_MAIN:
+            for name, (t_k, t_p, b) in per.items():
+                steps[name] = {"ms": p * t_k, "plain_ms": p * t_p,
+                               "bytes": p * b,
+                               "bound_ms": p * b / HBM_BYTES_PER_S * 1e3}
+    for leaf, shape, _, _, _ in wire_leaves(P_EF):
+        rows = shape[0] if len(shape) > 1 else 1
+        x = randn((rows, math.prod(shape) // rows))
+        check_quantize(x, min(DEFAULT_GROUP, x.shape[1]), f"EF {leaf}")
+        del x
+    torch.cuda.empty_cache()
+    print("main-path wire launches (one rank, one step of path (a); f32 "
+          "add):")
+    print(f"  {'kernel':14s} {'leaf':22s} {'shape':>24s} {'MB':>8s} "
+          f"{'kernel_ms':>9s} {'bound_ms':>8s} {'plain_ms':>8s} {'GB/s':>6s}")
+    for name, leaf, shape, nb_, t_k, t_p in rows_out:
+        print(f"  {name:14s} {leaf:22s} {str(shape):>24s} {nb_ / 1e6:8.1f} "
+              f"{t_k:9.4f} {nb_ / HBM_BYTES_PER_S * 1e3:8.4f} {t_p:8.4f} "
+              f"{nb_ / t_k / 1e6:6.0f}")
+    for name, st in steps.items():
+        print(f"per wire step (a) ({P_MAIN} ranks), {name}: "
+              f"{st['bytes'] / 1e9:.3f} GB, kernel {st['ms']:.3f} ms, bound "
+              f"{st['bound_ms']:.3f} ms, plain {st['plain_ms']:.3f} ms")
+
+    # Off the main path: dequant_add at a round-0 receive of the FFN leaf
+    # (the compressed (+) of one row) and block_reduce at its fold (f32
+    # add), each beside its plain version; block_reduce also beside the
+    # one PyTorch call that computes it (torch.add).
+    leaf, _, _, cols, g = max(wire_leaves(P_MAIN), key=lambda r: r[3])
+    acc = randn((1, cols))
+    codes, scales = quantize(randn((1, cols), 3.0), group=g)
+    same("dequant_add", dequant_add(acc, codes, scales, group=g),
+         ref.dequant_add_ref(acc, codes, scales, group=g), f"{leaf} receive")
+    nb_ = dequant_add_bytes(1, cols, 4, g)
+    steps["dequant_add"] = {
+        "ms": time_ms(lambda: dequant_add(acc, codes, scales, group=g), 10),
+        "plain_ms": time_ms(lambda: ref.dequant_add_ref(acc, codes, scales,
+                                                        group=g), 10),
+        "bytes": nb_, "bound_ms": nb_ / HBM_BYTES_PER_S * 1e3,
+        "shape": f"(1, {cols}) f32, g={g}"}
+    del acc, codes, scales
+    a, b = randn((2, cols)), randn((2, cols))
+    same("block_reduce", block_reduce(a, b), ref.block_reduce_ref(a, b),
+         f"{leaf} fold")
+    nb_ = block_reduce_bytes(2 * cols, 4)
+    steps["block_reduce"] = {
+        "ms": time_ms(lambda: block_reduce(a, b), 10),
+        "plain_ms": time_ms(lambda: ref.block_reduce_ref(a, b), 10),
+        "library_ms": time_ms(lambda: torch.add(a, b), 10),
+        "bytes": nb_, "bound_ms": nb_ / HBM_BYTES_PER_S * 1e3,
+        "shape": f"(2, {cols}) f32 add"}
+    del a, b
+    torch.cuda.empty_cache()
+    for name in ("dequant_add", "block_reduce"):
+        st = steps[name]
+        lib = (f", torch.add {st['library_ms']:.4f} ms"
+               if "library_ms" in st else "")
+        print(f"{name} at {st['shape']}: {st['bytes'] / 1e9:.3f} GB, kernel "
+              f"{st['ms']:.4f} ms, bound {st['bound_ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms{lib}")
+    return errs.max, steps
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: collectives on the card
 # ---------------------------------------------------------------------------
@@ -314,9 +612,85 @@ def phase_collectives():
     print("collectives: fused bitwise equal to eager at p = 3, 4, 8")
 
 
+def phase_wire_collectives():
+    """Wire RS and AR at p in {3, 4, 8}: the fused backend (``quantize`` and
+    ``fused_round_dq``) bitwise equal to the eager one (their plain
+    versions on the card), exact exchanges and launches, and ``rows *
+    wire_width`` bytes in every round."""
+    import torch
+    from repro_torch.comm import LocalComm
+    from repro_torch.core import CollectiveSpec, ceil_log2, plan
+    from repro_torch.kernels import DEFAULT_GROUP, wire_width
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = 64 << 20
+    for p in (3, 4, 8):
+        xs = [torch.randn(n - n % p, device="cuda", generator=gen)
+              for _ in range(p)]
+        blk = len(xs[0]) // p
+        g = min(DEFAULT_GROUP, blk)
+        row = wire_width(-(-blk // g) * g, g)
+        q = ceil_log2(p)
+        out = {}
+        for fused in (False, True):
+            pl = plan(CollectiveSpec(use_fused_kernel=fused,
+                                     wire_dtype="int8"), p=p)
+            comm = LocalComm(p)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = pl.rs_begin(xs, comm)
+            while not st.done:  # round by round, to read each one's bytes
+                rnd, before = st.round, comm.bytes
+                pl.finish_round(pl.start_round(st))
+                check(comm.bytes - before == p * rnd.nblocks * row,
+                      f"p={p} round {st.k - 1}: {comm.bytes - before} bytes, "
+                      f"expected {p} ranks x {rnd.nblocks} rows x {row}")
+            rs = pl.rs_end(st)
+            torch.cuda.synchronize()
+            t_rs = time.perf_counter() - t0
+            check(comm.exchanges == q, f"p={p} wire RS exchanges "
+                  f"{comm.exchanges}")
+            ar = pl.allreduce(xs, comm)
+            torch.cuda.synchronize()
+            check(comm.exchanges == 3 * q,
+                  f"p={p} wire RS+AR exchanges {comm.exchanges}")
+            check(comm.bytes == 3 * p * (p - 1) * row,
+                  f"p={p} wire RS+AR bytes {comm.bytes}")
+            c = read_counts()
+            want = ({"quantize": 3 * p, "quantize_rows": 3 * p,
+                     "fused_round_dq": 2 * p * q} if fused else
+                    {"quantize": 0, "quantize_rows": 0, "fused_round_dq": 0})
+            for name, w in want.items():
+                check(c[name] == w, f"p={p} fused={fused}: {name} launched "
+                      f"{c[name]} times, expected {w}")
+            check(c["fused_round"] == 0, f"p={p}: fused_round on the wire")
+            out[fused] = (rs, ar)
+            print(f"wire collectives p={p} fused={fused}: RS of {len(xs[0])} "
+                  f"f32 per rank {t_rs * 1e3:.2f} ms (host clock), "
+                  f"exchanges {comm.exchanges}, bytes {comm.bytes} "
+                  f"({row} per block row), launches "
+                  f"{ {k: c[k] for k in want} }")
+        for a, b in zip(out[False][0] + out[False][1],
+                        out[True][0] + out[True][1]):
+            check(same_bits(a, b), f"p={p}: wire fused differs from eager")
+        del xs, out
+        torch.cuda.empty_cache()
+    print("wire collectives: fused bitwise equal to eager at p = 3, 4, 8")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
+
+#: the port's kernels that a profiled step must hold every launch of:
+#: launch counter -> the CUDA function's name in the profile.
+PROFILED_KERNELS = {"fused_round": "fused_round_kernel",
+                    "fused_round_dq": "fused_round_dq_kernel",
+                    "quantize": "quantize_kernel"}
+
+#: argument that makes this script the child process profiling path (a).
+PROFILE_WIRE_STEP = "--profile-wire-step"
+
 
 def timed_step(step) -> float:
     """Wall milliseconds of ``step()``, host clock to device sync."""
@@ -335,16 +709,26 @@ def profiled_step(step, label: str, unprofiled_ms: float) -> None:
     busy vs the same step's wall time (the idle share), time by kernel
     family, and the top kernels.  ``unprofiled_ms`` is the previous
     step's wall time without the profiler, printed beside it to show the
-    profiler's own cost."""
+    profiler's own cost.  The profile counts only if it holds every
+    launch of the port's kernels that the step made (its launch counts
+    are set to 0 just before it); otherwise device time is not measured
+    and nothing of it is printed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    zero_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_ms = timed_step(step)
+    launched = read_counts()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        print(f"profile ({label}): no device events recorded (device time "
-              f"not measured)")
+    lost = {}
+    for name, fn in PROFILED_KERNELS.items():
+        seen = sum(fn in e.name for e in kernels)
+        if seen != launched[name]:
+            lost[name] = f"{seen} of {launched[name]} launches recorded"
+    if not kernels or lost:
+        print(f"profile ({label}): device busy not measured (profile "
+              f"incomplete: {len(kernels)} device events; {lost})")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, -math.inf
@@ -357,9 +741,10 @@ def profiled_step(step, label: str, unprofiled_ms: float) -> None:
         acc = by_name.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.elapsed_us() / 1e3
         acc[1] += 1
-    families = {"fused_round": 0.0, "gemm": 0.0, "other": 0.0}
+    families = {"fused_round": 0.0, "wire": 0.0, "gemm": 0.0, "other": 0.0}
     for name, (ms, _) in by_name.items():
-        fam = ("fused_round" if "fused_round" in name else
+        fam = ("wire" if "fused_round_dq" in name or "quantize" in name else
+               "fused_round" if "fused_round" in name else
                "gemm" if any(k in name.lower() for k in
                              ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
                else "other")
@@ -378,40 +763,85 @@ def profiled_step(step, label: str, unprofiled_ms: float) -> None:
         print(f"  {ms:9.2f} ms {n:6d}x  {name[:90]}")
 
 
+def sync_bytes(p: int, wire: bool) -> tuple[int, int]:
+    """Exact bytes one step's exchanges send at ``p`` ranks, summed over
+    the ranks: the gradient reduce-scatter's (float32 rows, or int8 wire
+    rows padded to whole groups) and the parameter allgather's (shards in
+    the parameters' dtype, never on the wire).  Tiny leaves go through an
+    all-reduce, which is not an exchange."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wire_width
+    itemsize = getattr(torch, get_config("qwen3-1.7b").dtype).itemsize
+    rs = ag = 0
+    for _, _, cols, padded, g in wire_leaves(p):
+        rs += p * (p - 1) * (wire_width(padded, g) if wire else 4 * cols)
+        ag += p * (p - 1) * itemsize * cols
+    return rs, ag
+
+
+def ranks_agree(params: list, label: str) -> None:
+    """Every rank's parameters bitwise equal to rank 0's."""
+    from repro_torch import tree as T
+    items = T.flatten(params[0])
+    for other in params[1:]:
+        for (path, a), b in zip(items, T.leaves(other)):
+            check(same_bits(a, b), f"{label}: ranks disagree on {path}")
+
+
+def run_path(argv, label: str, want: dict, p: int, wire: bool):
+    """Drive the launcher's ``main(argv)`` with every launch count set to 0
+    just before and read just after; check the counts and the sync's
+    bytes per step, and print what the run measured."""
+    import torch
+    from repro_torch.launch import train as trainer
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = trainer.main(argv)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    left = torch.cuda.memory_allocated()  # the session is gone: ~0 unless
+    #                                       a reference cycle still holds it
+    for name, w in want.items():
+        check(counts[name] == w, f"{label}: {name} launched {counts[name]} "
+              f"times, expected {w}")
+    check(all(math.isfinite(x) for x in run.losses),
+          f"{label}: non-finite loss {run.losses}")
+    rs, ag = sync_bytes(p, wire)
+    check(all(b == rs + ag for b in run.sync_bytes),
+          f"{label}: sync bytes per step {run.sync_bytes}, expected "
+          f"{rs} (reduce-scatter) + {ag} (allgather)")
+    print(f"{label}: losses {run.losses}")
+    print(f"{label}: step seconds {[round(t, 4) for t in run.step_seconds]}"
+          f" (host clock to device sync)")
+    print(f"{label}: launches {counts}")
+    print(f"{label}: peak memory allocated {peak / 2**30:.2f} GiB; "
+          f"{left / 2**30:.2f} GiB still allocated once the run returned")
+    print(f"{label}: sync bytes per step {run.sync_bytes[0]} = "
+          f"reduce-scatter {rs} + allgather {ag}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, counts, peak, rs
+
+
 def phase_main_path():
     import torch
     from repro_torch import tree as T
     from repro_torch.configs import get_config
-    from repro_torch.kernels import fused_round
     from repro_torch.launch import bootstrap
-    from repro_torch.launch import train as trainer
-    from repro_torch.models.transformer import param_shapes
-    from repro_torch.optim.zero1 import is_zero_leaf
 
     cfg = get_config("qwen3-1.7b")
-    n_zero = sum(is_zero_leaf(s, P_MAIN, 1024)
-                 for _, s in T.flatten(param_shapes(cfg)))
+    n_zero = len(wire_leaves(P_MAIN))
     print(f"main path: {cfg.name} full width, {cfg.n_layers} layers, "
           f"{cfg.param_count() / 1e9:.3f} B params, {n_zero} zero leaves")
     print("reduced: none (every width and all 28 layers)")
-    torch.cuda.reset_peak_memory_stats()
-    fused_round.launches = 0
-    run = trainer.main(MAIN_ARGV)
-    launches = fused_round.launches
-    peak = torch.cuda.max_memory_allocated()
-    want = STEPS * P_MAIN * n_zero * 2
-    check(launches == want, f"fused_round launched {launches} times on the "
-          f"main path, expected {want}")
-    check(all(math.isfinite(x) for x in run.losses),
-          f"non-finite loss {run.losses}")
-    print(f"main path: losses {run.losses}")
-    print(f"main path: step seconds {[round(t, 4) for t in run.step_seconds]}"
-          f" (host clock to device sync)")
+    want = {name: 0 for name in counters()}
+    want["fused_round"] = STEPS * P_MAIN * n_zero * 2
+    run, counts, peak, rs_bytes = run_path(MAIN_ARGV, "main path", want,
+                                           P_MAIN, wire=False)
+    launches = counts["fused_round"]
     print(f"main path: fused_round launches {launches} "
           f"(= {STEPS} steps x {P_MAIN} ranks x {n_zero} leaves x 2 rounds)")
-    print(f"main path: peak memory allocated {peak / 2**30:.2f} GiB")
-    gc.collect()
-    torch.cuda.empty_cache()
 
     def one_step(fused):
         sess = bootstrap.build_session(
@@ -420,10 +850,8 @@ def phase_main_path():
         return float(bootstrap.run_step(sess, 0)["loss"]), sess
 
     loss_on, sess = one_step(True)
+    ranks_agree(sess.params, "main path")
     snapshot = [(p, t.cpu()) for p, t in T.flatten(sess.params[0])]
-    for other in sess.params[1:]:
-        for (path, t0_), t in zip(snapshot, T.leaves(other)):
-            check(same_bits(t0_, t.cpu()), f"ranks disagree on {path}")
     # Two more steps of this session: step 1 unprofiled, step 2 profiled,
     # so the idle share is read on one warm step against its own wall time.
     wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
@@ -444,7 +872,106 @@ def phase_main_path():
     del sess, snapshot
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, run, peak
+    return counts, run, peak, rs_bytes
+
+
+def wire_session_a(fused: bool):
+    """A fresh path (a) session: p = 3 on the int8 wire, EF off."""
+    from repro_torch.launch import bootstrap
+    return bootstrap.build_session(
+        arch="qwen3-1.7b", steps=STEPS, seq_len=2048, global_batch=3,
+        dp=P_MAIN, mode="zero1", wire_dtype="int8", error_feedback=False,
+        use_fused_kernel=fused, device="cuda")
+
+
+def profile_wire_step() -> int:
+    """The child process of phase 5 (a): a kernel-on wire session takes
+    step 0, step 1 unprofiled and step 2 profiled, as phase 4's (TF32
+    off, as phase 1 sets it)."""
+    import torch
+    from repro_torch.launch import bootstrap
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sess = wire_session_a(True)
+    bootstrap.run_step(sess, 0)
+    wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
+    profiled_step(lambda: bootstrap.run_step(sess, 2),
+                  "warm step 2 of a wire session, path (a), in a fresh "
+                  "process", wall_1)
+    return 0
+
+
+def phase_wire_path(f32_rs_bytes: int):
+    """Phase 5: the int8 wire through the launcher's own argv."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import bootstrap
+
+    n_a, n_b = len(wire_leaves(P_MAIN)), len(wire_leaves(P_EF))
+    print(f"wire path (a): {' '.join(WIRE_A_ARGV)}")
+    print("reduced: none (every width and all 28 layers)")
+    want = {name: 0 for name in counters()}
+    want.update(quantize=STEPS * P_MAIN * n_a,
+                quantize_rows=STEPS * P_MAIN * n_a,
+                fused_round_dq=STEPS * P_MAIN * n_a * 2)
+    run_a, counts_a, peak_a, rs_a = run_path(WIRE_A_ARGV, "wire path (a)",
+                                             want, P_MAIN, wire=True)
+    print(f"wire path (a): reduce-scatter bytes per step {rs_a} vs "
+          f"{f32_rs_bytes} in float32 (phase 4): {f32_rs_bytes / rs_a:.4f}x "
+          f"fewer")
+
+    def one_step(fused):
+        """Step 0 of a fresh session: its loss, the launches it made, and
+        rank 0's params after it (on the host), once every rank's params
+        are checked bitwise equal to rank 0's."""
+        sess = wire_session_a(fused)
+        zero_counts()
+        loss = float(bootstrap.run_step(sess, 0)["loss"])
+        counts = read_counts()
+        ranks_agree(sess.params, "wire path (a)")
+        params = [(path, t.cpu()) for path, t in T.flatten(sess.params[0])]
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss, counts, params
+
+    loss_on, c_on, on = one_step(True)
+    loss_off, c_off, off = one_step(False)
+    want_on = {name: 0 for name in counters()}
+    want_on.update(quantize=P_MAIN * n_a, quantize_rows=P_MAIN * n_a,
+                   fused_round_dq=P_MAIN * n_a * 2)
+    check(c_on == want_on, f"wire step with the kernels on: {c_on}")
+    check(not any(c_off.values()), f"wire step with the kernels off: {c_off}")
+    check(loss_on == run_a.losses[0] and loss_on == loss_off,
+          f"wire step-0 loss: main {run_a.losses[0]}, on {loss_on}, off "
+          f"{loss_off}")
+    for (path, a), (_, b) in zip(on, off):
+        check(same_bits(a, b), f"wire params after step 1 differ with the "
+              f"kernels off: {'.'.join(path)}")
+    print("wire path (a): kernels on and off give a bitwise-equal step-0 "
+          "loss and bitwise-equal params after step 1, on every rank")
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The profiler records a second step in one process incompletely (it
+    # lost the wire step's tail after phase 4's profile), so path (a)'s
+    # warm step is profiled in a process of its own.
+    sys.stdout.flush()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            PROFILE_WIRE_STEP], timeout=600)
+    check(child.returncode == 0,
+          f"wire path (a) profile process exited {child.returncode}")
+
+    print(f"wire path (b): {' '.join(WIRE_B_ARGV)}")
+    print("reduced: none (every width and all 28 layers); p = 2, not 3: "
+          "three ranks' full-leaf EF residuals do not fit one card")
+    want = {name: 0 for name in counters()}
+    want.update(quantize=STEPS * P_EF * n_b * 2,
+                quantize_rows=STEPS * P_EF * n_b,
+                fused_round_dq=STEPS * P_EF * n_b)
+    run_b, counts_b, peak_b, _ = run_path(WIRE_B_ARGV, "wire path (b)", want,
+                                          P_EF, wire=True)
+    return {"a": (run_a, counts_a, peak_a), "b": (run_b, counts_b, peak_b)}
 
 
 def main() -> int:
@@ -455,19 +982,41 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this test needs a card")
     sys.path.insert(0, str(ROOT / "src"))
     torch.cuda.set_device(0)
+    if sys.argv[1:] == [PROFILE_WIRE_STEP]:
+        return profile_wire_step()
     t_all = time.perf_counter()
     phase_card_and_build()
     max_err, step = phase_kernel_vs_plain()
+    wire_errs, wire = phase_wire_kernels()
     phase_collectives()
-    launches, run, peak = phase_main_path()
-    print(json.dumps({"kernels": [{
-        "name": "fused_round", "route": "cuda",
-        "source": "src/repro_torch/csrc/fused_round.cu",
-        "replaces": "src/repro/kernels/fused_round.py:109",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": step["ms"], "plain_ms": step["plain_ms"],
-        "bound_ms": step["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}))
+    phase_wire_collectives()
+    counts, _, _, f32_rs_bytes = phase_main_path()
+    paths = phase_wire_path(f32_rs_bytes)
+    by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1]}
+
+    def row(name, source, replaces, st, err):
+        n = {path: c[name] for path, c in by_path.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(n.values()),
+                "launches_by_path": n, "max_abs_err": err, "ms": st["ms"],
+                "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                "bound_by": "bytes", "library_ms": st.get("library_ms")}
+
+    print(json.dumps({"kernels": [
+        row("fused_round", "src/repro_torch/csrc/fused_round.cu",
+            "src/repro/kernels/fused_round.py:109", step, max_err),
+        row("fused_round_dq", "src/repro_torch/csrc/fused_round_dq.cu",
+            "src/repro/kernels/fused_round.py:228", wire["fused_round_dq"],
+            wire_errs["fused_round_dq"]),
+        row("quantize", "src/repro_torch/csrc/quantize.cu",
+            "src/repro/kernels/quantize.py:83", wire["quantize"],
+            wire_errs["quantize"]),
+        row("dequant_add", "src/repro_torch/csrc/quantize.cu",
+            "src/repro/kernels/quantize.py:131", wire["dequant_add"],
+            wire_errs["dequant_add"]),
+        row("block_reduce", "src/repro_torch/csrc/block_reduce.cu",
+            "src/repro/kernels/block_reduce.py:40", wire["block_reduce"],
+            wire_errs["block_reduce"])]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,10 @@ one :meth:`shift`: the tensor of rank ``r`` goes to rank ``(r + s) mod p``
 ``exchanges`` counts one per :meth:`shift` call in both worlds.  It takes
 the place of the reference's HLO collective-permute count, which is the
 oracle for round counts: ``ceil_log2(p)`` per reduce-scatter and twice
-that per allreduce.
+that per allreduce.  ``bytes`` sums the bytes of every payload a
+:meth:`shift` sends from this process (all its local ranks), standing in
+for the byte half of ``repro/analysis/hlo_budget.py``: on the int8 wire a
+round moves ``rows * (cols + 4 * ceil(cols / g))`` bytes per rank.
 """
 from __future__ import annotations
 
@@ -36,12 +39,14 @@ class LocalComm:
         self.p = p
         self.ranks = tuple(range(p))
         self.exchanges = 0
+        self.bytes = 0
 
     def shift(self, xs: Sequence[torch.Tensor], s: int) -> list[torch.Tensor]:
         """Rank r's tensor goes to rank (r + s) mod p; returns what each
         local rank received (fresh storage)."""
         _check_len(self, xs)
         self.exchanges += 1
+        self.bytes += sum(_nbytes(x) for x in xs)
         p = self.p
         return [xs[(r - s) % p].clone() for r in range(p)]
 
@@ -68,6 +73,7 @@ class DistComm:
         self.rank = dist.get_rank()
         self.ranks = (self.rank,)
         self.exchanges = 0
+        self.bytes = 0
 
     def shift(self, xs: Sequence[torch.Tensor], s: int) -> list[torch.Tensor]:
         """Send to rank (r + s) mod p and receive from (r - s) mod p as one
@@ -75,6 +81,7 @@ class DistComm:
         import torch.distributed as dist
         _check_len(self, xs)
         self.exchanges += 1
+        self.bytes += _nbytes(xs[0])
         x = xs[0].contiguous()
         p, r = self.p, self.rank
         if s % p == 0:
@@ -94,6 +101,10 @@ class DistComm:
         out = xs[0].clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM)
         return [out]
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _check_len(comm, xs) -> None:

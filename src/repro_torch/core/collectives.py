@@ -23,6 +23,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..kernels.quantize import DEFAULT_GROUP
 from .plan import plan
 from .spec import CollectiveSpec, as_spec
 
@@ -36,7 +37,9 @@ def _circulant_spec(**kw) -> CollectiveSpec:
 def circulant_reduce_scatter(xs: Tensors, comm, *, schedule: str = "halving",
                              op: str | Callable = "add",
                              group: int | None = None,
-                             use_fused_kernel: bool | None = None
+                             use_fused_kernel: bool | None = None,
+                             wire_dtype: str | None = None,
+                             wire_group: int = DEFAULT_GROUP
                              ) -> list[torch.Tensor]:
     """Paper Algorithm 1.  Each rank's input has a leading dim n divisible
     by p; rank r gets its reduced block ``(n/p, *rest)``:
@@ -44,33 +47,45 @@ def circulant_reduce_scatter(xs: Tensors, comm, *, schedule: str = "halving",
     to ``r + s_k`` and folds the received blocks into
     ``R[0 : s_{k-1} - s_k]``; exactly p-1 blocks are sent, received and
     folded per rank (Theorem 1).  ``use_fused_kernel`` routes each
-    round's fold and next-send layout through one kernel launch."""
+    round's fold and next-send layout through one kernel launch;
+    ``wire_dtype="int8"`` sends every round on the packed int8 wire
+    (``wire_group`` elements per scale; ~4x fewer bytes, lossy)."""
     spec = _circulant_spec(schedule=schedule, op=op, group=group,
-                           use_fused_kernel=use_fused_kernel)
+                           use_fused_kernel=use_fused_kernel,
+                           wire_dtype=wire_dtype, wire_group=wire_group)
     return plan(spec, p=comm.p).reduce_scatter(xs, comm)
 
 
 def circulant_allgather(xs: Tensors, comm, *, schedule: str = "halving",
                         group: int | None = None,
-                        use_fused_kernel: bool | None = None
+                        use_fused_kernel: bool | None = None,
+                        wire_dtype: str | None = None,
+                        wire_group: int = DEFAULT_GROUP
                         ) -> list[torch.Tensor]:
     """Gather rank blocks in rank order: each rank's ``(blk, *rest)`` to
     ``(p*blk, *rest)``, identical on every rank.  Replays the
-    reduce-scatter skips in reverse; p-1 blocks communicated per rank."""
+    reduce-scatter skips in reverse; p-1 blocks communicated per rank.
+    On the int8 wire each block is quantized once, by its owner."""
     spec = _circulant_spec(schedule=schedule, group=group,
-                           use_fused_kernel=use_fused_kernel)
+                           use_fused_kernel=use_fused_kernel,
+                           wire_dtype=wire_dtype, wire_group=wire_group)
     return plan(spec, p=comm.p).allgather(xs, comm)
 
 
 def circulant_allreduce(xs: Tensors, comm, *, schedule: str = "halving",
                         op: str | Callable = "add",
                         group: int | None = None,
-                        use_fused_kernel: bool | None = None
+                        use_fused_kernel: bool | None = None,
+                        wire_dtype: str | None = None,
+                        wire_group: int = DEFAULT_GROUP
                         ) -> list[torch.Tensor]:
     """Paper Algorithm 2: reduce-scatter + reversed allgather;
-    2*ceil(log2 p) exchanges, 2(p-1) blocks moved, p-1 folds per rank."""
+    2*ceil(log2 p) exchanges, 2(p-1) blocks moved, p-1 folds per rank.
+    ``wire_dtype="int8"`` compresses both phases (a wire RS, then a wire
+    AG of the reduced blocks)."""
     spec = _circulant_spec(schedule=schedule, op=op, group=group,
-                           use_fused_kernel=use_fused_kernel)
+                           use_fused_kernel=use_fused_kernel,
+                           wire_dtype=wire_dtype, wire_group=wire_group)
     return plan(spec, p=comm.p).allreduce(xs, comm)
 
 

@@ -21,9 +21,12 @@ virtual ranks therefore step in lockstep: every rank starts, one
 exchange, every rank finishes.
 
 Backends: ``eager`` (plain torch ops) and ``fused`` (the CUDA
-``fused_round`` kernel on a card, its plain version on the CPU).  With
-``use_fused_kernel=None`` the backend is chosen per call from the
-payload's device (``resolve_fused``).
+``fused_round`` kernel on a card, its plain version on the CPU), and on
+the int8 wire (``wire_dtype="int8"``) ``eager+int8`` (the plain
+quantizer and compressed round) and ``fused+int8`` (the ``quantize`` and
+``fused_round_dq`` kernels on a card).  With ``use_fused_kernel=None``
+the backend is chosen per call from the payload's device
+(``resolve_fused``).
 """
 from __future__ import annotations
 
@@ -32,7 +35,10 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..kernels import fused_round, resolve_fused
+from ..kernels import (fused_round, fused_round_dq, quantize_rows,
+                       resolve_fused)
+from ..kernels import ref as _kref
+from ..kernels.quantize import MAX_GROUP, pack_wire, pad2d, unpack_wire
 from .schedule import RoundPlan, allgather_plan, reduce_scatter_plan
 from .spec import CollectiveSpec, as_spec
 
@@ -82,11 +88,12 @@ class RoundState:
     """State of one phase of a collective, across the local ranks.
 
     plan / comm: what runs it; phase: ``"rs"`` or ``"ag"``; backend: the
-    resolved ops (``eager``/``fused``); nrounds: rounds of the phase (0
-    for p == 1); k: rounds finished; started: an exchange is in flight;
-    inflight: the received payloads of the started round, one per local
-    rank; data: backend-private per-rank buffers, one dict per local
-    rank (``data[i]["r"]`` is that rank's index).
+    resolved ops (``eager``/``fused``, ``eager+int8``/``fused+int8``);
+    nrounds: rounds of the phase (0 for p == 1); k: rounds finished;
+    started: an exchange is in flight; inflight: the received payloads of
+    the started round, one per local rank; data: backend-private per-rank
+    buffers, one dict per local rank (``data[i]["r"]`` is that rank's
+    index).
     """
 
     plan: "CollectivePlan"
@@ -124,7 +131,8 @@ class CollectivePlan:
     indices moved in reduce-scatter round k (``ag_*`` likewise for the
     reversed allgather); over all rounds the send sets partition
     ``{1, .., p-1}`` exactly (Theorem 1).  ``backend`` is ``"eager"``,
-    ``"fused"`` or ``"auto"`` (resolved from each payload's device).
+    ``"fused"``, ``"eager+int8"``, ``"fused+int8"`` or ``"auto"``
+    (resolved from each payload's device).
     """
 
     spec: CollectiveSpec
@@ -138,11 +146,11 @@ class CollectivePlan:
     ag_send_blocks: tuple[tuple[int, ...], ...]
     ag_recv_blocks: tuple[tuple[int, ...], ...]
 
-    def backend_for(self, x: torch.Tensor) -> str:
-        """The backend that runs payload ``x``."""
+    def backend_for(self, device: torch.device | str | None) -> str:
+        """The backend that runs a payload on ``device``."""
         if self.backend != "auto":
             return self.backend
-        return _resolve_backend(self.spec, x.device)
+        return _resolve_backend(self.spec, device)
 
     # -- one-shot execution -------------------------------------------------
 
@@ -189,7 +197,8 @@ class CollectivePlan:
         if len(xs) != len(comm.ranks):
             raise ValueError(
                 f"{len(comm.ranks)} local rank(s), got {len(xs)} payloads")
-        backend = self.backend_for(xs[0])
+        _check_wire_payload(self, xs[0])
+        backend = self.backend_for(xs[0].device)
         nrounds = len(self.rs_rounds if phase == "rs" else self.ag_rounds)
         st = RoundState(plan=self, comm=comm, phase=phase, backend=backend,
                         nrounds=nrounds)
@@ -268,8 +277,30 @@ class CollectivePlan:
 # plan(): spec -> CollectivePlan, memoized
 # ---------------------------------------------------------------------------
 
+def _check_wire_payload(plan: CollectivePlan, x: torch.Tensor) -> None:
+    """The int8 wire needs float payloads (a quantization grid); checked
+    at execution because the spec is payload-agnostic."""
+    if plan.spec.wired and not x.dtype.is_floating_point:
+        raise ValueError(
+            f"wire_dtype='int8' needs a float payload, got {x.dtype}")
+
+
 def _resolve_backend(spec: CollectiveSpec, device=None) -> str:
     """Backend for ``spec`` with a payload on ``device``."""
+    if spec.wire_dtype is not None:
+        if not isinstance(spec.op, str):
+            raise ValueError(
+                f"wire_dtype needs a named op ('add'/'max'/'min'), "
+                f"got {spec.op!r}")
+        if spec.op not in NAMED_OPS:
+            raise ValueError(f"unknown reduce op {spec.op!r}")
+        if not resolve_fused(spec.use_fused_kernel, device):
+            return "eager+int8"
+        if spec.wire_group > MAX_GROUP:
+            raise ValueError(
+                f"the int8 wire kernels take wire_group up to {MAX_GROUP}, "
+                f"got {spec.wire_group}")
+        return "fused+int8"
     if resolve_fused(spec.use_fused_kernel, device):
         if not isinstance(spec.op, str):
             if spec.use_fused_kernel:
@@ -456,6 +487,104 @@ class _AgInPlace(_AgPlain):
     in_place = True
 
 
+class _RsWire:
+    """Algorithm 1's rounds on the int8 wire format.
+
+    The rotated block buffer becomes a float32 ``(blocks, block_numel)``
+    accumulation buffer whose columns are padded to whole quantization
+    groups.  Round 0's send rows are quantized; every round then sends
+    ONE packed int8 buffer (``[codes | scale bytes]``) and runs one
+    dequantize + ⊕-fold + requantize-the-next-send pass.  ``eager+int8``
+    runs the plain versions (the reference's ``jnp+int8``), the fused
+    backend the ``quantize`` and ``fused_round_dq`` kernels on a card;
+    the arithmetic is bitwise the same.  Rounds and exchanges are those
+    of the uncompressed path.
+    """
+
+    fused = False
+
+    @classmethod
+    def begin(cls, plan, x, r):
+        R = _rotated_blocks(plan, x, r)
+        R2 = R.reshape(plan.p, -1).to(torch.float32)
+        cols = R2.shape[1]
+        g = min(plan.spec.wire_group, cols)
+        R2 = pad2d(R2, 1, g)
+        first = plan.rs_rounds[0]
+        quant = quantize_rows if cls.fused else _kref.quantize_ref
+        codes, scales = quant(R2[first.lo:first.hi], group=g)
+        return {"blk_shape": R.shape[1:], "out_dtype": R.dtype, "cols": cols,
+                "g": g, "live": R2[:first.lo],
+                "wire": pack_wire(codes, scales)}
+
+    @staticmethod
+    def payload(plan, d, rnd):
+        return d["wire"]
+
+    @classmethod
+    def finish(cls, plan, d, t, st):
+        live, g = d["live"], d["g"]
+        codes, scales = unpack_wire(t, live.shape[1], group=g)
+        kern = fused_round_dq if cls.fused else _kref.fused_round_dq_ref
+        d["live"], send = kern(live, codes, scales, nb=st.round.nblocks,
+                               next_lo=_next_lo(plan, st), op=plan.spec.op,
+                               group=g)
+        if send is not None:
+            d["wire"] = pack_wire(*send)
+
+    @staticmethod
+    def end(plan, d):
+        out = d["live"][0][:d["cols"]]
+        return out.reshape(d["blk_shape"]).to(d["out_dtype"])
+
+
+class _RsWireFused(_RsWire):
+    """:class:`_RsWire` on the ``quantize`` / ``fused_round_dq`` kernels."""
+
+    fused = True
+
+
+class _AgWire(_AgPlain):
+    """Allgather rounds on the int8 wire format.
+
+    The allgather has no ⊕, so each rank quantizes its own block once and
+    the rounds move the packed int8 rows unchanged (one quantization step
+    of error).  Every rank dequantizes the same codes, so the gathered
+    result is replicated bitwise.  The fused backend quantizes with the
+    kernel and gathers in place, like :class:`_AgInPlace`.
+    """
+
+    fused = False
+
+    @classmethod
+    def begin(cls, plan, x, r):
+        x2 = x.reshape(1, -1).to(torch.float32)
+        cols = x2.shape[1]
+        g = min(plan.spec.wire_group, cols)
+        x2 = pad2d(x2, 1, g)
+        quant = quantize_rows if cls.fused else _kref.quantize_ref
+        row = pack_wire(*quant(x2, group=g))       # (1, wire width) int8
+        d = super().begin(plan, row[0], r)
+        d.update(g=g, cols=cols, padded_cols=x2.shape[1], blk=x.shape,
+                 out_dtype=x.dtype)
+        return d
+
+    @staticmethod
+    def end(plan, d):
+        codes, scales = unpack_wire(d["buf"], d["padded_cols"], group=d["g"])
+        vals = _kref.dequant_ref(codes, scales, group=d["g"])[:, :d["cols"]]
+        out = torch.roll(vals, d["r"], dims=0)  # out[j] = block of rank j
+        blk = d["blk"]
+        return out.reshape(plan.p * blk[0], *blk[1:]).to(d["out_dtype"])
+
+
+class _AgWireInPlace(_AgWire):
+    """:class:`_AgWire` on the ``quantize`` kernel, gathered in place."""
+
+    fused = True
+    in_place = True
+
+
 #: (backend, phase) → per-rank round ops.  ``payload`` names what
 #: ``start_round`` sends; ``finish`` is exchange-free.
 _ASYNC_IMPLS: dict[tuple[str, str], type] = {
@@ -463,4 +592,8 @@ _ASYNC_IMPLS: dict[tuple[str, str], type] = {
     ("fused", "rs"): _RsFused,
     ("eager", "ag"): _AgPlain,
     ("fused", "ag"): _AgInPlace,
+    ("eager+int8", "rs"): _RsWire,
+    ("fused+int8", "rs"): _RsWireFused,
+    ("eager+int8", "ag"): _AgWire,
+    ("fused+int8", "ag"): _AgWireInPlace,
 }

@@ -5,17 +5,20 @@ kernel choice) and nothing execution provides (the payload, the
 communicator).  Specs are frozen and hashable so ``plan()`` can memoize
 on them.
 
-The port implements the uniform circulant kind.  The reference's other
-fields and kinds (``counts`` for Corollary 3 and alltoallv,
-``wire_dtype="int8"``, ``broadcast`` and the ring / recursive-halving /
-xla baselines) are accepted by name and raise ``NotImplementedError``
-pointing at ROADMAP.md's queue 1, so a request for them is never
-silently ignored.
+The port implements the uniform circulant kind, exact or on the int8
+wire (``wire_dtype="int8"``).  The reference's other fields and kinds
+(``counts`` for Corollary 3 and alltoallv, ``broadcast`` and the ring /
+recursive-halving / xla baselines) are accepted by name and raise
+``NotImplementedError`` pointing at ROADMAP.md's queue 1, so a request
+for them is never silently ignored.  Combinations the reference rejects
+raise ``ValueError`` here too.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
+
+from ..kernels.quantize import DEFAULT_GROUP
 
 #: implementation families the reference knows (``repro.core.spec.KINDS``).
 KINDS = ("circulant", "broadcast", "ring", "recursive_halving", "xla")
@@ -23,8 +26,8 @@ KINDS = ("circulant", "broadcast", "ring", "recursive_halving", "xla")
 #: the kinds this port can plan.
 PORTED_KINDS = ("circulant",)
 
-#: default elements per quantization group of the reference's int8 wire.
-DEFAULT_WIRE_GROUP = 512
+#: wire formats of the circulant backends (None = uncompressed).
+WIRE_DTYPES = (None, "int8")
 
 _TODO = "not ported yet; see ROADMAP.md queue 1"
 
@@ -39,8 +42,10 @@ class CollectiveSpec:
     op:               reduction ⊕ — ``add``/``max``/``min`` or a callable
                       (the eager backend only; named ops unlock the fused
                       kernel).
-    wire_dtype:       must be ``None`` (the int8 wire is not ported).
-    wire_group:       elements per quantization group (validated only).
+    wire_dtype:       ``None`` (exact) or ``"int8"`` (every round's send on
+                      the packed ``[codes | scale bytes]`` wire, ~4x fewer
+                      bytes, lossy; float payloads and named ops only).
+    wire_group:       elements per quantization group on the wire.
     use_fused_kernel: ``None`` = auto (the CUDA kernel when the payload
                       lies on a card), ``True``/``False`` explicit.
     counts:           must be ``None`` (Corollary 3 is not ported).
@@ -51,23 +56,37 @@ class CollectiveSpec:
     group: int | None = None
     op: str | Callable = "add"
     wire_dtype: str | None = None
-    wire_group: int = DEFAULT_WIRE_GROUP
+    wire_group: int = DEFAULT_GROUP
     use_fused_kernel: bool | None = None
     counts: tuple | None = None
 
     def __post_init__(self):
         if self.kind not in KINDS:
             raise ValueError(f"unknown kind {self.kind!r}; have {KINDS}")
+        if self.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(
+                f"unknown wire_dtype {self.wire_dtype!r}; have {WIRE_DTYPES}")
+        if self.wire_group < 1:
+            raise ValueError(f"wire_group must be >= 1, got {self.wire_group}")
+        if self.kind == "broadcast":
+            if self.wire_dtype is not None:
+                raise ValueError(
+                    "kind='broadcast' distributes payloads bit-exactly; "
+                    "wire_dtype compression is not supported")
+            if self.use_fused_kernel:
+                raise ValueError(
+                    "kind='broadcast' has no fold step; the fused round "
+                    "kernel does not apply (use_fused_kernel=True invalid)")
         if self.kind not in PORTED_KINDS:
             raise NotImplementedError(f"kind={self.kind!r} is {_TODO}")
-        if self.wire_dtype is not None:
-            raise NotImplementedError(
-                f"wire_dtype={self.wire_dtype!r} is {_TODO} (item 6)")
         if self.counts is not None:
             raise NotImplementedError(
                 f"counts= (Corollary 3 / alltoallv) is {_TODO} (items 7-8)")
-        if self.wire_group < 1:
-            raise ValueError(f"wire_group must be >= 1, got {self.wire_group}")
+
+    @property
+    def wired(self) -> bool:
+        """True when the rounds run on a compressed wire."""
+        return self.wire_dtype is not None
 
 
 def as_spec(spec_or_kind: "CollectiveSpec | str | None" = None,

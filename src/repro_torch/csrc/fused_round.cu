@@ -22,14 +22,7 @@
 // The TPU kernel's column-tile grid is not carried over: it exists to
 // fit VMEM, which has no counterpart to fill here.
 //
-// Bitwise parity with the plain PyTorch version (torch.add / maximum /
-// minimum on the card) and with the reference:
-//   * bf16 add is __float2bfloat16_rn(float(a) + float(b));
-//   * max/min follow torch's CUDA kernels: the first NaN operand is
-//     returned as it is (bits unchanged), otherwise fmaxf/fminf in float,
-//     exact when rounded back to bf16 — fmaxf alone would drop NaN;
-//   * int32 add wraps (computed in uint32).
-// One operation per element, so no FMA contraction can arise.
+// The (+) and its bitwise parity with torch: csrc/reduce_ops.cuh.
 //
 // Plain C interface for ctypes; launches on the given stream, allocates
 // nothing, does not synchronise, returns cudaGetLastError().
@@ -38,47 +31,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "reduce_ops.cuh"
+
+using namespace repro;
+
 namespace {
-
-enum Op : int { kAdd = 0, kMax = 1, kMin = 2 };
-enum DType : int { kF32 = 0, kBF16 = 1, kI32 = 2 };
-
-template <int OP>
-__device__ __forceinline__ float fold_f(float a, float b) {
-  if (OP == kAdd) return a + b;
-  if (a != a) return a;
-  if (b != b) return b;
-  return OP == kMax ? fmaxf(a, b) : fminf(a, b);
-}
-
-template <int OP>
-__device__ __forceinline__ float fold(float a, float b) {
-  return fold_f<OP>(a, b);
-}
-
-template <int OP>
-__device__ __forceinline__ __nv_bfloat16 fold(__nv_bfloat16 a,
-                                              __nv_bfloat16 b) {
-  const float fa = __bfloat162float(a), fb = __bfloat162float(b);
-  if (OP == kAdd) return __float2bfloat16_rn(fa + fb);
-  if (fa != fa) return a;  // the NaN operand itself, payload and all
-  if (fb != fb) return b;
-  return __float2bfloat16_rn(OP == kMax ? fmaxf(fa, fb) : fminf(fa, fb));
-}
-
-template <int OP>
-__device__ __forceinline__ int32_t fold(int32_t a, int32_t b) {
-  if (OP == kAdd)
-    return static_cast<int32_t>(static_cast<uint32_t>(a) +
-                                static_cast<uint32_t>(b));
-  if (OP == kMax) return a > b ? a : b;
-  return a < b ? a : b;
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
 
 // Elements [e, e + VEC) lie on one side of each threshold (the host
 // only picks VEC > 1 when both thresholds are multiples of VEC).
@@ -119,30 +76,14 @@ __global__ void __launch_bounds__(256)
     round_at<T, OP, 1>(live, recv, keep, send, e, n_fold, n_keep);
 }
 
-int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (!cached[dev]) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cached[dev] = n > 0 ? n : 132;
-  }
-  return cached[dev];
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 template <typename T, int OP>
 void launch(const void* live, const void* recv, void* keep, void* send,
             int64_t n, int64_t n_fold, int64_t n_keep, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kThreads = 256;
   const bool vec = n_fold % kVec == 0 && n_keep % kVec == 0 &&
-                   aligned16(live) && aligned16(recv) && aligned16(keep) &&
-                   aligned16(send);
+                   aligned(live, 16) && aligned(recv, 16) &&
+                   aligned(keep, 16) && aligned(send, 16);
   const int64_t work = vec ? n / kVec + 1 : n;
   const int64_t cap = static_cast<int64_t>(sm_count()) * 8;
   int64_t blocks = (work + kThreads - 1) / kThreads;

@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels from the checkout and load them.
 
-Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` entry point and is
+Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` entry points and is
 compiled by ``nvcc`` alone (no PyTorch headers, so a build takes seconds)
 into ``build/repro_torch/lib<name>-<hash>.so`` at the root of the
 checkout, then loaded with ``ctypes``.  The file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing is built at import time: the first
-launch builds, or :func:`build_all` builds every source at once, one
-``nvcc`` process per source, all started together.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing is built at import time: the first launch builds, or
+:func:`build_all` builds every source at once, one ``nvcc`` process per
+source, all started together.
 """
 from __future__ import annotations
 
@@ -49,9 +50,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` lives (content-addressed)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -99,3 +102,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+_CTYPES = {"p": ctypes.c_void_p, "l": ctypes.c_int64, "i": ctypes.c_int}
+
+
+def launch(name: str, fn_name: str, signature: str, like, *args) -> None:
+    """Call the ``extern "C"`` launcher ``fn_name`` of ``csrc/<name>.cu``
+    with ``args`` and, last, the current CUDA stream of ``like``'s
+    device, with that device current.  ``signature`` types the arguments,
+    one letter each (``p`` pointer, ``l`` int64, ``i`` int; the stream is
+    added).  The launcher returns ``cudaGetLastError()``; a non-zero one
+    raises."""
+    import torch
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [_CTYPES[c] for c in signature + "p"]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(like.device):
+        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} (csrc/{name}.cu) launch failed: CUDA "
+                           f"error {err}")

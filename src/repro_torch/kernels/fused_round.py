@@ -14,14 +14,22 @@ the launch in ``fused_round.launches``; for tensors on the CPU it runs
 the plain version ``ref.fused_round_ref`` (and counts nothing).  There is
 no fallback from the card to the plain version: a kernel that does not
 build or launch raises.
+
+:func:`fused_round_dq` is the same round on the int8 wire (CUDA kernel
+``csrc/fused_round_dq.cu``, replacing the Pallas TPU kernel
+``repro/kernels/fused_round.py:fused_round_dq``): the received payload
+arrives as int8 codes and float32 group scales, is dequantized and
+⊕-folded into the float32 head, and the next round's send rows leave
+requantized.  :func:`quantize_rows` is the round-0 send quantization of
+the compressed collectives (the ``quantize`` kernel).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from . import ref as _ref
+from .build import launch
+from .quantize import DEFAULT_GROUP, MAX_GROUP, quantize, wire_ngroups
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _OPS = {"add": 0, "max": 1, "min": 2}
@@ -88,30 +96,113 @@ def _launch(live, received, *, nb, next_lo, op):
     send = (None if next_lo == lo else
             torch.empty((lo - next_lo, cols), dtype=live.dtype,
                         device=live.device))
-    fn = _entry()
-    with torch.cuda.device(live.device):
-        stream = torch.cuda.current_stream(live.device).cuda_stream
-        err = fn(live.data_ptr(), received.data_ptr(), keep.data_ptr(),
-                 None if send is None else send.data_ptr(),
-                 lo, nb, next_lo, cols, _DTYPES[live.dtype], _OPS[op], stream)
-    if err != 0:
-        raise RuntimeError(f"fused_round kernel launch failed: CUDA error {err}")
+    launch("fused_round", "repro_fused_round", "ppppllllii", live,
+           live.data_ptr(), received.data_ptr(), keep.data_ptr(),
+           None if send is None else send.data_ptr(), lo, nb, next_lo, cols,
+           _DTYPES[live.dtype], _OPS[op])
     fused_round.launches += 1
     return keep, send
-
-
-def _entry():
-    from .build import load
-    fn = load("fused_round").repro_fused_round
-    if fn.argtypes is None:
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [vp, vp, vp, vp, i64, i64, i64, i64, ctypes.c_int,
-                       ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def round_bytes(lo: int, nb: int, cols: int, itemsize: int) -> int:
     """Bytes one launch must move: ``live`` and ``received`` read once,
     ``keep`` + ``send`` (``lo`` rows) written once."""
     return (lo + nb + lo) * cols * itemsize
+
+
+def fused_round_dq(live: torch.Tensor, codes: torch.Tensor,
+                   scales: torch.Tensor, *, nb: int, next_lo: int,
+                   op: str = "add", group: int = DEFAULT_GROUP
+                   ) -> tuple[torch.Tensor,
+                              tuple[torch.Tensor, torch.Tensor] | None]:
+    """One fused compressed circulant round over 2-D buffers.
+
+    ``live``: the ``(lo, cols)`` float32 accumulation buffer, ``cols``
+    divisible by the quantization group ``g = min(group, cols)``;
+    ``codes`` ``(nb, cols)`` int8 and ``scales`` ``(nb, cols / g)``
+    float32: the received payload.  In one pass: dequantize, ⊕-fold into
+    ``live[:nb]``, emit ``keep`` (rows ``[0, next_lo)``, float32) and
+    requantize rows ``[next_lo, lo)`` as the next round's ``(codes,
+    scales)``, ``None`` on the final round (``next_lo == lo``).
+    """
+    if live.ndim != 2 or codes.ndim != 2:
+        raise ValueError(f"need 2-D buffers, got {tuple(live.shape)} and "
+                         f"{tuple(codes.shape)}")
+    lo, cols = live.shape
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    g = min(group, cols)
+    if cols % g:
+        raise ValueError(f"cols {cols} not divisible by group {g}")
+    ng = cols // g
+    if tuple(codes.shape) != (nb, cols):
+        raise ValueError(f"codes shape {tuple(codes.shape)} != ({nb}, {cols})")
+    if tuple(scales.shape) != (nb, ng):
+        raise ValueError(f"scales shape {tuple(scales.shape)} != ({nb}, {ng})")
+    if not (1 <= nb <= lo and 1 <= next_lo <= lo):
+        raise ValueError(f"invalid round: nb={nb}, next_lo={next_lo}, lo={lo}")
+    if op not in _OPS:
+        raise ValueError(f"unknown reduce op {op!r}; have {sorted(_OPS)}")
+    if not (live.device == codes.device == scales.device):
+        raise ValueError("live, codes and scales lie on different devices")
+    if live.device.type == "cpu":
+        return _ref.fused_round_dq_ref(live, codes, scales, nb=nb,
+                                       next_lo=next_lo, op=op, group=g)
+    if live.device.type != "cuda":
+        raise ValueError(f"fused_round_dq runs on cuda or cpu, got "
+                         f"{live.device}")
+    if (live.dtype != torch.float32 or codes.dtype != torch.int8
+            or scales.dtype != torch.float32):
+        raise TypeError(
+            f"fused_round_dq kernel takes a float32 live buffer, int8 codes "
+            f"and float32 scales, got {live.dtype}, {codes.dtype}, "
+            f"{scales.dtype}")
+    if not (live.is_contiguous() and codes.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError("fused_round_dq kernel needs contiguous buffers")
+    if g > MAX_GROUP:
+        raise ValueError(f"fused_round_dq kernel takes groups up to "
+                         f"{MAX_GROUP}, got {g}")
+    dev = live.device
+    keep = torch.empty((next_lo, cols), dtype=torch.float32, device=dev)
+    ns = lo - next_lo
+    send = None
+    if ns:
+        send = (torch.empty((ns, cols), dtype=torch.int8, device=dev),
+                torch.empty((ns, ng), dtype=torch.float32, device=dev))
+    if cols:
+        launch("fused_round_dq", "repro_fused_round_dq", "ppppppllllli", live,
+               live.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+               keep.data_ptr(), None if send is None else send[0].data_ptr(),
+               None if send is None else send[1].data_ptr(), lo, nb, next_lo,
+               cols, g, _OPS[op])
+        fused_round_dq.launches += 1
+    return keep, send
+
+
+fused_round_dq.launches = 0
+
+
+def dq_round_bytes(lo: int, nb: int, next_lo: int, cols: int,
+                   group: int = DEFAULT_GROUP) -> int:
+    """Bytes one :func:`fused_round_dq` launch must move: ``live`` (f32)
+    and the received codes and scales read once, ``keep`` (f32) and the
+    send codes and scales written once."""
+    ng = wire_ngroups(cols, group)
+    return (4 * lo * cols + nb * (cols + 4 * ng) + 4 * next_lo * cols
+            + (lo - next_lo) * (cols + 4 * ng))
+
+
+def quantize_rows(x: torch.Tensor, *, group: int = DEFAULT_GROUP
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group-quantize the rows of ``x``: the round-0 send quantization of
+    the compressed collectives (``repro.kernels.fused_round.
+    quantize_rows``).  Runs the ``quantize`` kernel; a launch counts in
+    both ``quantize.launches`` and ``quantize_rows.launches``."""
+    before = quantize.launches
+    out = quantize(x, group=group)
+    quantize_rows.launches += quantize.launches - before
+    return out
+
+
+quantize_rows.launches = 0

@@ -79,7 +79,8 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                   seq_len: int = 128, global_batch: int = 8,
                   dp: int = 1, mp: int = 1, mode: str | None = None,
                   grad_sync: str = "circulant", schedule: str = "halving",
-                  wire_dtype: str | None = None,
+                  wire_dtype: str | None = None, error_feedback: bool = True,
+                  compress: str | None = None,
                   use_fused_kernel: bool | None = None,
                   bucket_bytes: int | None = None,
                   moe_dispatch: str | None = None,
@@ -88,8 +89,10 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                   seed: int = 0, init_state: bool = True) -> Session:
     """Build a runnable :class:`Session` for a ``dp × mp`` mesh (``mp``
     must be 1: tensor parallelism is not ported); zero1 runs its ``dp``
-    ranks on a ``LocalComm``.  With ``init_state=False`` params/opt stay
-    ``None``."""
+    ranks on a ``LocalComm``.  ``wire_dtype="int8"`` puts the gradient
+    reduce-scatter on the int8 wire, with EF-SGD residuals unless
+    ``error_feedback=False``; ``compress`` is its deprecated alias.  With
+    ``init_state=False`` params/opt stay ``None``."""
     dev = resolve_device(device)
     cfg = resolve_cfg(arch, scale_down=scale_down, moe_dispatch=moe_dispatch)
     if mp != 1:
@@ -101,6 +104,8 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
     pipe = for_model(cfg, seq_len=seq_len, global_batch=global_batch)
     sync = GradSyncConfig(impl=grad_sync, schedule=schedule,
                           wire_dtype=wire_dtype,
+                          compress=compress,  # deprecated alias; warns
+                          error_feedback=error_feedback,
                           use_fused_kernel=use_fused_kernel,
                           bucket_bytes=bucket_bytes)
     model = build(cfg)
@@ -113,7 +118,7 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
         comm = LocalComm(dp)
         if global_batch % dp:
             raise ValueError(f"global batch {global_batch} % dp {dp} != 0")
-        built, world = build_zero1(model, comm, opt_cfg, sync), dp
+        built, world = build_zero1(model, comm, opt_cfg, sync, dev), dp
     else:
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     sess = Session(cfg=cfg, mode=mode, device=dev, comm=comm, model=model,

@@ -8,16 +8,17 @@ Runs on the card unless asked for the CPU::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --scale-down --device cpu --mesh 3x1 --mode zero1 --steps 2 \\
-        --seq-len 16 --global-batch 3
+        --seq-len 16 --global-batch 3 --wire-dtype int8
 
-The flags are the reference's plus ``--device``, less
-those of the int8 wire's extras (``--compress``,
-``--no-error-feedback``) and ``--ckpt-every``.  Checkpointing, the
-watchdog and failure injection belong to a later slice (ROADMAP.md
-queue 1 item 11): ``--ckpt-dir`` and ``--fail-at-step`` raise if given,
-as do the flags of the other features not ported yet (``--wire-dtype``,
-``--bucket-bytes``, ``--grad-sync`` other than circulant, ``--mode
-fsdp_auto``, ``--mesh`` with a model axis, ``--moe-dispatch``).
+The flags are the reference's plus ``--device``, less ``--ckpt-every``.
+``--wire-dtype int8`` puts the gradient reduce-scatter on the int8 wire
+(with EF-SGD residuals unless ``--no-error-feedback``; ``--compress`` is
+its deprecated alias).  Checkpointing, the watchdog and failure
+injection belong to a later slice (ROADMAP.md queue 1 item 11):
+``--ckpt-dir`` and ``--fail-at-step`` raise if given, as do the flags of
+the other features not ported yet (``--bucket-bytes``, ``--grad-sync``
+other than circulant, ``--mode fsdp_auto``, ``--mesh`` with a model axis,
+``--moe-dispatch``).
 """
 from __future__ import annotations
 
@@ -32,10 +33,12 @@ from . import bootstrap
 
 
 class TrainRun(NamedTuple):
-    """What a run returns: per-step losses and wall seconds (each step
-    timed to the end of its work on the device)."""
+    """What a run returns: per-step losses, wall seconds (each step timed
+    to the end of its work on the device) and the bytes the gradient and
+    parameter sync's exchanges sent (``comm.bytes``; 0 in single mode)."""
     losses: list
     step_seconds: list
+    sync_bytes: list
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -53,12 +56,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad-sync", default="circulant",
                     choices=["circulant", "ring", "xla", "allreduce"])
     ap.add_argument("--schedule", default="halving")
-    ap.add_argument("--wire-dtype", default=None, choices=[None, "int8"])
+    ap.add_argument("--wire-dtype", default=None, choices=[None, "int8"],
+                    help="int8 wire for the circulant gradient "
+                         "reduce-scatter (quantize-on-send, fused "
+                         "dequant-fold-requant rounds, error feedback)")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="disable the EF-SGD residual for compressed sync")
+    ap.add_argument("--compress", default=None, choices=[None, "int8"],
+                    help="DEPRECATED alias for --wire-dtype (warns)")
     ap.add_argument("--bucket-bytes", type=int, default=None)
     ap.add_argument("--fused-kernel", default="auto",
                     choices=["auto", "on", "off"],
                     help="fused_round CUDA kernel for every reduce-scatter "
-                         "round (auto = on when the run is on the card)")
+                         "round, or on the int8 wire the quantize and "
+                         "fused_round_dq kernels (auto = on when the run "
+                         "is on the card)")
     ap.add_argument("--moe-dispatch", default=None,
                     choices=[None, "global", "rowwise", "ep"])
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -85,6 +97,8 @@ def main(argv=None) -> TrainRun:
             seq_len=args.seq_len, global_batch=args.global_batch,
             dp=d, mp=m, mode=args.mode, grad_sync=args.grad_sync,
             schedule=args.schedule, wire_dtype=args.wire_dtype,
+            error_feedback=not args.no_error_feedback,
+            compress=args.compress,  # deprecated alias; warns
             use_fused_kernel={"auto": None, "on": True,
                               "off": False}[args.fused_kernel],
             bucket_bytes=args.bucket_bytes, moe_dispatch=args.moe_dispatch,
@@ -93,8 +107,9 @@ def main(argv=None) -> TrainRun:
         raise SystemExit(str(e)) from e
 
     cuda = sess.device.type == "cuda"
-    losses, times = [], []
+    losses, times, nbytes = [], [], []
     for step in range(args.steps):
+        b0 = sess.comm.bytes if sess.comm is not None else 0
         t0 = time.perf_counter()
         metrics = bootstrap.run_step(sess, step)
         loss = float(metrics["loss"])
@@ -103,13 +118,14 @@ def main(argv=None) -> TrainRun:
         dt = time.perf_counter() - t0
         losses.append(loss)
         times.append(dt)
+        nbytes.append((sess.comm.bytes if sess.comm is not None else 0) - b0)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"lr {float(metrics['lr']):.2e}  {dt * 1e3:.0f}ms",
                   flush=True)
     print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
-    return TrainRun(losses=losses, step_seconds=times)
+    return TrainRun(losses=losses, step_seconds=times, sync_bytes=nbytes)
 
 
 if __name__ == "__main__":

@@ -42,11 +42,14 @@ def build_single(model: ModelApi, opt_cfg: AdamWConfig) -> BuiltStep:
 
 
 def build_zero1(model: ModelApi, comm, opt_cfg: AdamWConfig,
-                sync: GradSyncConfig) -> BuiltStep:
+                sync: GradSyncConfig, device=None) -> BuiltStep:
     """ZeRO-1 over ``comm``: per-leaf circulant RS → AdamW on the shard →
-    circulant AG.  The grad-sync plan is compiled here, so a bad sync
-    config fails at build time rather than mid-step."""
-    plan(sync.spec(), p=comm.p)
+    circulant AG.  Both grad-sync plans (the reduce-scatter's, which may
+    be on the int8 wire, and the allgather's) are compiled here and their
+    backends resolved for gradients on ``device``, so a bad sync config
+    fails at build time rather than mid-step."""
+    for spec in (sync.rs_spec(), sync.ag_spec()):
+        plan(spec, p=comm.p).backend_for(device)
     loss_and_grad = value_and_grad(model.loss)
 
     def step_fn(params, opt, batches):

@@ -16,16 +16,19 @@ Path = tuple[str, ...]
 def flatten(tree: dict) -> list[tuple[Path, Any]]:
     """``[(path, leaf), ...]`` in sorted-key (JAX) order."""
     out: list[tuple[Path, Any]] = []
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], prefix + (k,))
-        else:
-            out.append((prefix, node))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, prefix: Path, out: list) -> None:
+    # A module-level function: a nested recursive one would close over
+    # itself, a reference cycle that keeps ``out`` (every leaf of the
+    # tree, device memory included) alive until the cyclic collector runs.
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], prefix + (k,), out)
+    else:
+        out.append((prefix, node))
 
 
 def leaves(tree: dict) -> list:

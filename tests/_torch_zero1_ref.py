@@ -7,9 +7,13 @@ the model built with ``recipe=None`` and ``check_vma=False``: the
 reference's step function without its launcher (whose zero1 mode does
 not run on JAX 0.9's explicit mesh axes).  qwen3-1.7b scaled down,
 seq 16, global batch 3, the launcher's AdamW defaults, circulant
-halving sync on the jnp backend.  Writes ``<out.npz>``: the initial
+halving sync on the jnp backend: exact, on the int8 wire with error
+feedback, and exact with a bfloat16 reduce-scatter payload
+(``rs_dtype="bfloat16"``).  Writes ``<out.npz>``: the initial
 parameters (``init/<path>``), the per-step losses and the parameters
-after the last step (``final/<path>``).
+after the last step of the exact run (``losses``, ``final/<path>``), of
+the int8 run (``int8_losses``, ``int8_final/<path>``) and of the
+bfloat16 run (``bf16_losses``, ``bf16_final/<path>``).
 
 Run: python tests/_torch_zero1_ref.py <out.npz>
 """
@@ -49,7 +53,19 @@ def main(dst):
     model = build(cfg, recipe=None)
     params = jax.jit(model.init)(jax.random.PRNGKey(0))
     out = _flat("init/", params)
-    sync = GradSyncConfig(use_fused_kernel=False)
+    for tag, wire, rs_dtype in (("", None, "float32"),
+                                ("int8_", "int8", "float32"),
+                                ("bf16_", None, "bfloat16")):
+        sync = GradSyncConfig(use_fused_kernel=False, wire_dtype=wire,
+                              rs_dtype=rs_dtype)
+        losses, final = train(model, cfg, params, sync)
+        out.update(_flat(tag + "final/", final))
+        out[tag + "losses"] = np.asarray(losses, np.float64)
+        print("REFERENCE OK", tag or "f32", losses)
+    np.savez(dst, **out)
+
+
+def train(model, cfg, params, sync):
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=STEPS)
     mesh = compat.make_mesh((WORLD,), ("data",))
 
@@ -71,10 +87,7 @@ def main(dst):
         batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(s).items()}
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))
-    out.update(_flat("final/", params))
-    out["losses"] = np.asarray(losses, np.float64)
-    np.savez(dst, **out)
-    print("REFERENCE OK", losses)
+    return losses, params
 
 
 if __name__ == "__main__":

@@ -9,6 +9,19 @@ in both, so results must be BITWISE equal: no tolerance.  Round counts
 are the reference's HLO collective-permute counts: ``ceil_log2(p)``
 exchanges per reduce-scatter or allgather and twice that per allreduce.
 A gloo ``DistComm`` world of 3 processes must agree with ``LocalComm``.
+
+On the int8 wire (float32 payloads, quantization group 4, so the
+10-element blocks are padded to 12 columns) the max/min results are
+bitwise the reference's ``jnp+int8`` plan too, and ``comm.bytes`` counts
+``cols + 4 * ceil(cols / g)`` bytes per row sent.  The add fold differs:
+the reference plan runs under ``jax.jit``, and XLA's CPU backend
+contracts the round's ``live + q * s`` into one FMA where the port rounds
+the product and the sum apart (as its CUDA kernel does), so the port's
+add results lie within ``2**-21 * max|want|`` of the reference's
+(observed: 1 ulp; a requantized code that moved a step would exceed it).
+With that expression contracted as XLA contracts it
+(``_torch_xla_fma``), the port's wire path is bitwise the reference's
+for every op.
 """
 import os
 import socket
@@ -19,10 +32,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_xla_fma as XF
 from repro_torch.comm import LocalComm
 from repro_torch.core import (CollectiveSpec, allgather, ceil_log2, plan,
                               reduce_scatter)
 from repro_torch.core import collectives as C
+from repro_torch.kernels import ref as kernel_ref
+from repro_torch.kernels.quantize import wire_width
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PS = (2, 3, 4, 5, 8)
@@ -30,6 +46,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32}
 OPS = ("add", "max", "min")
 BLK, COLS = 2, 5
+WIRE_GROUP = 4  # = _torch_collectives_ref.WIRE_GROUP
 
 
 def _inputs():
@@ -133,7 +150,7 @@ def test_round_protocol_guards():
 
 
 @pytest.mark.parametrize("kw", [dict(kind="ring"), dict(kind="broadcast"),
-                                dict(wire_dtype="int8"), dict(counts=(1, 2))])
+                                dict(kind="xla"), dict(counts=(1, 2))])
 def test_unported_spec_fields_raise(kw):
     with pytest.raises(NotImplementedError):
         CollectiveSpec(**kw)
@@ -141,6 +158,86 @@ def test_unported_spec_fields_raise(kw):
         CollectiveSpec(kind="nope")
     with pytest.raises(ValueError):
         plan(CollectiveSpec(op=lambda a, b: a + b, use_fused_kernel=True), p=3)
+
+
+def _wire_run(xs, p, op, fused):
+    comm = LocalComm(p)
+    pl = plan(CollectiveSpec(op=op, use_fused_kernel=fused, wire_dtype="int8",
+                             wire_group=WIRE_GROUP), p=p)
+    rs = pl.reduce_scatter(xs, comm)
+    q = ceil_log2(p)
+    padded = -(-BLK * COLS // WIRE_GROUP) * WIRE_GROUP
+    row = wire_width(padded, WIRE_GROUP)  # bytes per block row on the wire
+    assert comm.exchanges == q
+    assert comm.bytes == p * (p - 1) * row   # p - 1 rows sent per rank
+    ar = pl.allreduce(xs, comm)
+    assert comm.exchanges == 3 * q
+    assert comm.bytes == 3 * p * (p - 1) * row
+    return rs, ar
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["eager", "fused"])
+@pytest.mark.parametrize("p", PS)
+def test_wire_matches_reference(reference, p, fused, monkeypatch):
+    inputs, want = reference
+    key = f"{p}_float32"
+    xs = [torch.from_numpy(a) for a in inputs[key]]
+    for op in OPS:
+        rs, ar = _wire_run(xs, p, op, fused)
+        for name, got in (("wrs", rs), ("war", ar)):
+            w = want[f"{key}_{name}_{op}"]
+            g = np.stack([t.numpy() for t in got])
+            what = f"{key} {name} {op} fused={fused}"
+            if op == "add":
+                np.testing.assert_allclose(g, w, rtol=0,
+                                           atol=2**-21 * np.abs(w).max(),
+                                           err_msg=what)
+            else:
+                np.testing.assert_array_equal(g.view(np.uint32),
+                                              w.view(np.uint32), err_msg=what)
+    comm = LocalComm(p)
+    ag = C.circulant_allgather([x[:BLK] for x in xs], comm,
+                               use_fused_kernel=fused, wire_dtype="int8",
+                               wire_group=WIRE_GROUP)
+    assert comm.exchanges == ceil_log2(p)
+    for r in range(p):
+        np.testing.assert_array_equal(ag[r].numpy().view(np.uint32),
+                                      want[f"{key}_wag"][r].view(np.uint32))
+    # The same rounds with the add fold contracted as XLA contracts it.
+    monkeypatch.setattr(kernel_ref, "quantize_ref", XF.quantize)
+    monkeypatch.setattr(kernel_ref, "fused_round_dq_ref", XF.fused_round_dq)
+    for op in OPS:
+        rs, ar = _wire_run(xs, p, op, fused)
+        for name, got in (("wrs", rs), ("war", ar)):
+            np.testing.assert_array_equal(
+                np.stack([t.numpy() for t in got]).view(np.uint32),
+                want[f"{key}_{name}_{op}"].view(np.uint32),
+                err_msg=f"{key} {name} {op} fused={fused} contracted")
+
+
+def test_wire_fused_equals_eager_and_validates():
+    rng = np.random.default_rng(12)
+    for p in (6, 7):
+        xs = [torch.from_numpy(rng.standard_normal((p * 3, 130)).astype(
+            np.float32)) for _ in range(p)]
+        for schedule in ("halving", "power2", "fully_connected", "sqrt"):
+            outs = [C.circulant_allreduce(xs, LocalComm(p), schedule=schedule,
+                                          use_fused_kernel=f,
+                                          wire_dtype="int8")
+                    for f in (False, True)]
+            for a, b in zip(*outs):
+                assert torch.equal(a, b), schedule
+    assert CollectiveSpec(wire_dtype="int8").wired
+    assert not CollectiveSpec().wired
+    with pytest.raises(ValueError, match="float payload"):
+        plan(CollectiveSpec(wire_dtype="int8"), p=3).reduce_scatter(
+            [torch.ones(3, 2, dtype=torch.int32)] * 3, LocalComm(3))
+    with pytest.raises(ValueError, match="named op"):
+        plan(CollectiveSpec(wire_dtype="int8", op=lambda a, b: a + b), p=3)
+    with pytest.raises(ValueError, match="wire_dtype"):
+        CollectiveSpec(wire_dtype="fp8")
+    with pytest.raises(ValueError, match="bit-exactly"):
+        CollectiveSpec(kind="broadcast", wire_dtype="int8")
 
 
 @pytest.mark.parametrize("schedule", ["halving", "power2", "fully_connected",

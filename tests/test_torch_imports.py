@@ -5,7 +5,8 @@
   import of either fails there);
 * an AST scan finds no ``jax`` or ``repro`` import in
   ``src/repro_torch/`` or ``chip_smoke.py``;
-* the train CLI runs the zero1 main path on the CPU at a tiny size.
+* the train CLI runs the zero1 main path on the CPU at a tiny size,
+  exact and on the int8 wire.
 """
 import ast
 import math
@@ -69,8 +70,21 @@ def test_train_cli_zero1_on_cpu():
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
 
 
+def test_train_cli_zero1_int8_wire_on_cpu():
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
+           "--mesh", "3x1", "--mode", "zero1", "--steps", "2",
+           "--seq-len", "16", "--global-batch", "3", "--log-every", "1",
+           "--wire-dtype", "int8", "--no-error-feedback"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=_env(),
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    losses = [float(x) for x in re.findall(r"loss (\S+)", proc.stdout)]
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+
+
 @pytest.mark.parametrize("extra", [["--ckpt-dir", "x"], ["--fail-at-step", "1"],
-                                   ["--mesh", "2x2"], ["--wire-dtype", "int8"]])
+                                   ["--mesh", "2x2"], ["--bucket-bytes", "1000"]])
 def test_train_cli_refuses_unported_flags(extra):
     from repro_torch.launch import train
     with pytest.raises(SystemExit):
