@@ -43,7 +43,28 @@ Phases (any failure exits non-zero; none is caught):
    equal on every rank; a warm step profiled as phase 4's, in a process
    of its own, ``chip_smoke.py --profile-wire-step``), and (b) ``--mesh
    2x1 --global-batch 2 --wire-dtype int8`` with error feedback on
-   (exact launch counts, finite losses).
+   (exact launch counts, finite losses);
+6. the expert-parallel MoE path (phi-3.5-MoE) through the launcher's
+   session builder: (a) full width, 1 layer, ``--mesh 1x2 --mode zero1
+   --moe-dispatch ep``, seq 2048 (a 2x2 mesh's four whole replicas with
+   their AdamW state do not fit one card at any depth), 4 steps with the
+   launch counts set to 0 just before and read just after, exact
+   exchange and ``permute_rows`` launch counts, step 0 bitwise equal
+   with the kernels on and off on every rank, peak memory, warm step
+   times and a profiled warm step in a process of its own
+   (``chip_smoke.py --profile-ep-step``); (b) scaled down on a 2x2 mesh
+   (zero1's ``fused_round`` and the dispatch's ``permute_rows`` in one
+   step), the same checks; (c) one full-width float32 MoE layer alone,
+   forward and backward, at pe = 4 (a non-identity final-slot order) and
+   pe = 3 (experts owned 6/5/5): fused bitwise equal to eager, ep equal
+   to the global dispatch within ``1e-5 * max|global|``.
+
+Phase 2 also holds ``permute_rows`` against its plain version bitwise
+(random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
+rows, a misaligned base, every alltoall shape of phases 3 and 6) and
+times it at phase 6 (a)'s shape beside ``torch.index_select``; phase 3
+also runs the uniform alltoall of 64M-element payloads at p in {4, 5, 8},
+fused bitwise equal to eager, with exact exchange and launch counts.
 
 A profiled step counts only if its profile holds every launch of the
 port's kernels that the step made; otherwise its device time is printed
@@ -70,6 +91,15 @@ MAIN_ARGV = ["--arch", "qwen3-1.7b", "--mesh", "3x1", "--mode", "zero1",
              "--global-batch", "3", "--log-every", "1", "--device", "cuda"]
 STEPS, P_MAIN = 4, 3
 P_EF = 2
+#: phase 6 (a): the ep MoE path's session, full width, depth cut to fit.
+EP_ARCH = "phi3.5-moe-42b-a6.6b"
+EP_MAIN = dict(arch=EP_ARCH, steps=STEPS, seq_len=2048, global_batch=1,
+               dp=1, mp=2, mode="zero1", moe_dispatch="ep", n_layers=1,
+               device="cuda")
+#: phase 6 (b): the same path scaled down on a 2x2 mesh.
+EP_SMALL = dict(arch=EP_ARCH, scale_down=True, steps=STEPS, seq_len=64,
+                global_batch=2, dp=2, mp=2, mode="zero1", moe_dispatch="ep",
+                device="cuda")
 
 
 def argv_with(argv: list, **flags) -> list:
@@ -119,7 +149,8 @@ def counters():
     return {"fused_round": K.fused_round, "quantize": K.quantize,
             "quantize_rows": K.quantize_rows,
             "fused_round_dq": K.fused_round_dq,
-            "dequant_add": K.dequant_add, "block_reduce": K.block_reduce}
+            "dequant_add": K.dequant_add, "block_reduce": K.block_reduce,
+            "permute_rows": K.permute_rows}
 
 
 def zero_counts() -> None:
@@ -567,6 +598,96 @@ def phase_wire_kernels():
     return errs.max, steps
 
 
+def ep_shape(cfg, pe: int, tokens: int) -> tuple[int, int]:
+    """``(rows, cols)`` of the dispatch alltoall's final slot (what
+    ``permute_rows`` permutes) for ``cfg`` over ``pe`` ranks of
+    ``tokens`` tokens each."""
+    from repro_torch.models.dispatch import capacity, expert_owners
+    own_max = max(expert_owners(cfg.n_experts, pe))
+    return pe, own_max * capacity(cfg, tokens) * cfg.d_model
+
+
+def ep_main_launches() -> int:
+    """``permute_rows`` launches of one phase 6 (a) step: per layer and
+    rank, the two alltoalls of the forward, again in remat's
+    recomputation, and their two inverses in the backward."""
+    return EP_MAIN["n_layers"] * 6 * EP_MAIN["dp"] * EP_MAIN["mp"]
+
+
+def phase_permute_rows():
+    """``permute_rows`` against its plain version, bitwise, then timed at
+    phase 6 (a)'s shape beside ``torch.index_select`` (the library call
+    for the same function; the port never calls it)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import final_slot_order
+    from repro_torch.kernels import permute_bytes, permute_rows, ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n_cases, max_err = 0, 0.0
+
+    def compare(x, perm, what):
+        nonlocal n_cases, max_err
+        got = permute_rows(x, perm)
+        want = ref.permute_rows_ref(x, perm)
+        torch.cuda.synchronize()
+        check(same_bits(got, want), f"permute_rows differs: {what}")
+        max_err = max(max_err, float((got.double() - want.double()).abs()
+                                     .max()))
+        n_cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for rows in range(2, 9):
+            for cols in (1, 7, 130, 4099, 1 << 20):
+                x = _rand((rows, cols), dtype, gen, False)
+                perm = torch.randperm(rows, generator=torch.Generator()
+                                      .manual_seed(rows * cols)).tolist()
+                compare(x, perm, f"{dtype} {rows}x{cols} {perm}")
+        base = _rand((5 * 9 + 1,), dtype, gen, False)  # off 16-byte base
+        compare(base[1:].view(5, 9), (4, 0, 3, 1, 2), f"{dtype} misaligned")
+    cfg = get_config(EP_ARCH)
+    small = cfg.scaled_down()
+    shapes = [("phase 6 (a)", ep_shape(cfg, 2, 2048), torch.bfloat16),
+              ("phase 6 (b)", ep_shape(small, 2, 64), torch.float32),
+              ("phase 6 (c) pe=4", ep_shape(cfg, 4, 2048), torch.float32),
+              ("phase 6 (c) pe=3", ep_shape(cfg, 3, 2048), torch.float32)]
+    n = 64 << 20
+    shapes += [(f"phase 3 p={p}", (p, (n - n % p) // p), torch.float32)
+               for p in (4, 5, 8)]
+    for what, (rows, cols), dtype in shapes:
+        x = _rand((rows, cols), dtype, gen, False)
+        compare(x, final_slot_order(rows), f"{what} ({rows}, {cols})")
+        del x
+    torch.cuda.empty_cache()
+    print(f"permute_rows vs plain: {n_cases} cases bitwise equal (p = 2..8 x "
+          f"f32/bf16/i32 x ragged and one-column rows, misaligned base, "
+          f"every alltoall shape of phases 3 and 6)")
+    rows, cols = ep_shape(cfg, 2, 2048)
+    x = _rand((rows, cols), torch.bfloat16, gen, False)
+    perm = final_slot_order(rows)
+    idx = torch.tensor(perm, device="cuda")
+    check(same_bits(torch.index_select(x, 0, idx), permute_rows(x, perm)),
+          "index_select differs from permute_rows")
+    nbytes = permute_bytes(rows, cols, 2)
+    one = {"ms": time_ms(lambda: permute_rows(x, perm), 50),
+           "plain_ms": time_ms(lambda: ref.permute_rows_ref(x, perm), 50),
+           "library_ms": time_ms(lambda: torch.index_select(x, 0, idx), 50),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    del x
+    torch.cuda.empty_cache()
+    k = ep_main_launches()
+    print(f"permute_rows at phase 6 (a)'s shape ({rows}, {cols}) bf16, "
+          f"{nbytes / 1e6:.1f} MB per launch: kernel {one['ms']:.4f} ms, "
+          f"bound {one['bound_ms']:.4f} ms, plain {one['plain_ms']:.4f} ms, "
+          f"index_select {one['library_ms']:.4f} ms "
+          f"({nbytes / one['ms'] / 1e6:.0f} GB/s)")
+    step = {key: k * v for key, v in one.items()}
+    print(f"permute_rows per phase 6 (a) step ({k} launches): kernel "
+          f"{step['ms']:.4f} ms, bound {step['bound_ms']:.4f} ms, plain "
+          f"{step['plain_ms']:.4f} ms, index_select "
+          f"{step['library_ms']:.4f} ms")
+    return max_err, step
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: collectives on the card
 # ---------------------------------------------------------------------------
@@ -678,6 +799,51 @@ def phase_wire_collectives():
     print("wire collectives: fused bitwise equal to eager at p = 3, 4, 8")
 
 
+def phase_alltoall():
+    """Uniform circulant alltoall of 64M-element float32 payloads per rank
+    at p in {4, 5, 8}: fused (``permute_rows``) bitwise equal to eager,
+    ``ceil_log2(p)`` exchanges, p launches per fused alltoall."""
+    import torch
+    from repro_torch.comm import LocalComm
+    from repro_torch.core import CollectiveSpec, ceil_log2, plan
+    from repro_torch.core.plan import final_slot_order
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = 64 << 20
+    for p in (4, 5, 8):
+        xs = [torch.randn((p, (n - n % p) // p), device="cuda",
+                          generator=gen) for _ in range(p)]
+        out = {}
+        for fused in (False, True):
+            comm = LocalComm(p)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[fused] = plan(CollectiveSpec(use_fused_kernel=fused),
+                              p=p).alltoall(xs, comm)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            c = read_counts()
+            check(comm.exchanges == ceil_log2(p),
+                  f"alltoall p={p}: {comm.exchanges} exchanges")
+            check(c["permute_rows"] == (p if fused else 0) and
+                  sum(c.values()) == c["permute_rows"],
+                  f"alltoall p={p} fused={fused}: launches {c}")
+            print(f"alltoall p={p} fused={fused}: {xs[0].numel()} f32 per "
+                  f"rank, {dt * 1e3:.2f} ms (host clock, {p} virtual ranks), "
+                  f"exchanges {comm.exchanges}, permute_rows launches "
+                  f"{c['permute_rows']}, final-slot order "
+                  f"{final_slot_order(p)}")
+        for a, b in zip(out[False], out[True]):
+            check(same_bits(a, b), f"alltoall p={p}: fused differs from eager")
+        for r in (0, p - 1):  # row j of rank r is rank j's row r
+            for j in range(p):
+                check(torch.equal(out[True][r][j], xs[j][r]),
+                      f"alltoall p={p}: rank {r} row {j} misplaced")
+        del xs, out
+        torch.cuda.empty_cache()
+    print("alltoall: fused bitwise equal to eager at p = 4, 5, 8")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -686,10 +852,13 @@ def phase_wire_collectives():
 #: launch counter -> the CUDA function's name in the profile.
 PROFILED_KERNELS = {"fused_round": "fused_round_kernel",
                     "fused_round_dq": "fused_round_dq_kernel",
-                    "quantize": "quantize_kernel"}
+                    "quantize": "quantize_kernel",
+                    "permute_rows": "permute_rows_kernel"}
 
 #: argument that makes this script the child process profiling path (a).
 PROFILE_WIRE_STEP = "--profile-wire-step"
+#: argument that makes it the child process profiling phase 6 (a).
+PROFILE_EP_STEP = "--profile-ep-step"
 
 
 def timed_step(step) -> float:
@@ -702,7 +871,8 @@ def timed_step(step) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def profiled_step(step, label: str, unprofiled_ms: float) -> None:
+def profiled_step(step, label: str, unprofiled_ms: float,
+                  ranks: int = P_MAIN) -> None:
     """Run ``step()`` (one warm main-path step) under ``torch.profiler``,
     recording device activity only (host-op recording would stretch the
     step's wall time several-fold), and print where the device time goes:
@@ -741,16 +911,18 @@ def profiled_step(step, label: str, unprofiled_ms: float) -> None:
         acc = by_name.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.elapsed_us() / 1e3
         acc[1] += 1
-    families = {"fused_round": 0.0, "wire": 0.0, "gemm": 0.0, "other": 0.0}
+    families = {"fused_round": 0.0, "wire": 0.0, "permute_rows": 0.0,
+                "gemm": 0.0, "other": 0.0}
     for name, (ms, _) in by_name.items():
         fam = ("wire" if "fused_round_dq" in name or "quantize" in name else
                "fused_round" if "fused_round" in name else
+               "permute_rows" if "permute_rows" in name else
                "gemm" if any(k in name.lower() for k in
                              ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
                else "other")
         families[fam] += ms
     busy_ms = busy_us / 1e3
-    print(f"profile ({label}, {P_MAIN} ranks): wall {wall_ms:.1f} ms "
+    print(f"profile ({label}, {ranks} ranks): wall {wall_ms:.1f} ms "
           f"(previous step unprofiled: {unprofiled_ms:.1f} ms), device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f} % of this step, "
@@ -974,6 +1146,241 @@ def phase_wire_path(f32_rs_bytes: int):
     return {"a": (run_a, counts_a, peak_a), "b": (run_b, counts_b, peak_b)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the expert-parallel MoE path
+# ---------------------------------------------------------------------------
+
+def ep_session(fused, **kw):
+    from repro_torch.launch import bootstrap
+    return bootstrap.build_session(use_fused_kernel=fused, **kw)
+
+
+def ep_step_counts(sess) -> dict:
+    """Exact launches and exchanges of one step of an ep session: per
+    layer ``8·ceil_log2(M)`` model-axis exchanges (forward alltoallv and
+    two alltoalls, remat's recomputation of them, and the two float
+    alltoalls' reverse shifts) and 6 ``permute_rows`` launches per rank;
+    per zero leaf one reduce-scatter and one allgather over the data
+    axis, each ``ceil_log2(D)`` exchanges and the reduce-scatter one
+    ``fused_round`` launch per rank and round."""
+    from repro_torch import tree as T
+    from repro_torch.core import ceil_log2
+    from repro_torch.optim.zero1 import is_zero_leaf
+    d, ranks = sess.comm.p, sess.comm.size
+    n_zero = sum(is_zero_leaf(tuple(x.shape), d, sess.sync.min_shard_numel)
+                 for x in T.leaves(sess.params[0]))
+    q_data, q_model = ceil_log2(d), ceil_log2(sess.ep_comm.p)
+    return {"permute_rows": sess.cfg.n_layers * 6 * ranks,
+            "fused_round": ranks * n_zero * q_data,
+            "data_exchanges": 2 * q_data * n_zero,
+            "model_exchanges": sess.cfg.n_layers * 8 * q_model}
+
+
+def run_ep_path(label: str, kw: dict):
+    """Drive ``kw``'s ep session for its steps with every launch count set
+    to 0 just before and read just after; check counts, exchanges and
+    finite losses; then one step each with the kernels on and off from
+    the same seed, which must agree bitwise on every rank."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import bootstrap
+    torch.cuda.reset_peak_memory_stats()
+    sess = ep_session(None, **kw)
+    per = ep_step_counts(sess)
+    steps = kw["steps"]
+    print(f"{label}: {sess.cfg.name}, d_model {sess.cfg.d_model}, "
+          f"{sess.cfg.n_experts} experts, {sess.cfg.n_layers} layer(s), mesh "
+          f"{kw['dp']}x{kw['mp']}, seq {kw['seq_len']}, global batch "
+          f"{kw['global_batch']}, {sess.cfg.param_count() / 1e9:.3f} B "
+          f"params per rank")
+    zero_counts()
+    losses, secs = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(bootstrap.run_step(sess, step)["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in counters()}
+    want.update(permute_rows=steps * per["permute_rows"],
+                fused_round=steps * per["fused_round"])
+    for name, w in want.items():
+        check(counts[name] == w, f"{label}: {name} launched {counts[name]} "
+              f"times, expected {w}")
+    check(sess.comm.exchanges == steps * per["data_exchanges"] and
+          sess.ep_comm.exchanges == steps * per["model_exchanges"],
+          f"{label}: exchanges data {sess.comm.exchanges} model "
+          f"{sess.ep_comm.exchanges}, expected {per} per step")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss {losses}")
+    print(f"{label}: losses {losses}")
+    print(f"{label}: step seconds {[round(t, 4) for t in secs]} (host clock "
+          f"to device sync)")
+    print(f"{label}: launches {counts}; exchanges data "
+          f"{sess.comm.exchanges} model {sess.ep_comm.exchanges} "
+          f"(= {steps} steps x {per})")
+    print(f"{label}: peak memory allocated {peak / 2**30:.2f} GiB")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def one_step(fused):
+        sess = ep_session(fused, **kw)
+        zero_counts()
+        loss = float(bootstrap.run_step(sess, 0)["loss"])
+        c = read_counts()
+        params = [[(path, t.cpu()) for path, t in T.flatten(p)]
+                  for p in sess.params]
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss, c, params
+
+    loss_on, c_on, on = one_step(True)
+    loss_off, c_off, off = one_step(False)
+    check(c_on["permute_rows"] == per["permute_rows"] and
+          c_on["fused_round"] == per["fused_round"],
+          f"{label}: kernel-on step launches {c_on}")
+    check(not any(c_off.values()), f"{label}: kernel-off step {c_off}")
+    check(loss_on == losses[0] and loss_on == loss_off,
+          f"{label}: step-0 loss: run {losses[0]}, on {loss_on}, off "
+          f"{loss_off}")
+    for g, (a_rank, b_rank) in enumerate(zip(on, off)):
+        for (path, a), (_, b) in zip(a_rank, b_rank):
+            check(same_bits(a, b), f"{label}: rank {g} params after step 1 "
+                  f"differ with the kernels off: {'.'.join(path)}")
+    print(f"{label}: kernels on and off give a bitwise-equal step-0 loss "
+          f"and bitwise-equal params after step 1 on all "
+          f"{len(on)} ranks")
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, counts, peak, secs
+
+
+def profile_ep_step() -> int:
+    """The child process of phase 6 (a): a kernel-on session takes step
+    0, step 1 unprofiled and step 2 profiled (TF32 off)."""
+    import torch
+    from repro_torch.launch import bootstrap
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sess = ep_session(True, **EP_MAIN)
+    bootstrap.run_step(sess, 0)
+    wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
+    profiled_step(lambda: bootstrap.run_step(sess, 2),
+                  "warm step 2 of the ep MoE session, phase 6 (a), in a "
+                  "fresh process", wall_1,
+                  ranks=EP_MAIN["dp"] * EP_MAIN["mp"])
+    return 0
+
+
+def moe_layer_check(pe: int) -> None:
+    """One full-width MoE layer alone, float32, over ``pe`` ranks:
+    forward and backward, fused bitwise equal to eager (outputs, aux,
+    input and weight gradients), exact exchanges and launches, and each
+    rank's output equal to the global dispatch of its own tokens within
+    ``1e-5 * max|global|`` (the same per-slot arithmetic in GEMMs of
+    other shapes)."""
+    import dataclasses
+    import torch
+    from repro_torch.comm import LocalComm
+    from repro_torch.configs import get_config
+    from repro_torch.core import ceil_log2
+    from repro_torch.core.plan import final_slot_order
+    from repro_torch.models.dispatch import (expert_owners, moe_ffn_ep,
+                                             moe_ffn_global)
+    from repro_torch.models.moe import init_moe
+    cfg = dataclasses.replace(get_config(EP_ARCH), dtype="float32",
+                              moe_dispatch="ep")
+    gen = torch.Generator(device="cuda").manual_seed(6 + pe)
+    params = init_moe(gen, cfg, torch.float32, "cuda")
+    for v in params.values():
+        v.requires_grad_(True)
+    shape = (1, 2048, cfg.d_model)
+    xs0 = [torch.randn(shape, device="cuda", generator=gen)
+           for _ in range(pe)]
+    ws = [torch.randn(shape, device="cuda", generator=gen)
+          for _ in range(pe)]
+    q = ceil_log2(pe)
+    res = {}
+    for fused in (False, True):
+        for v in params.values():
+            v.grad = None
+        xs = [x.clone().requires_grad_(True) for x in xs0]
+        comm = LocalComm(pe)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, auxs = moe_ffn_ep([params] * pe, cfg, xs, comm,
+                                use_fused_kernel=fused)
+        total = sum((o * w).sum() + a for o, w, a in zip(outs, ws, auxs))
+        total.backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = read_counts()
+        check(comm.exchanges == 5 * q, f"layer pe={pe}: {comm.exchanges} "
+              f"exchanges, expected {5 * q}")
+        check(c["permute_rows"] == (4 * pe if fused else 0)
+              and sum(c.values()) == c["permute_rows"],
+              f"layer pe={pe} fused={fused}: launches {c}")
+        res[fused] = ([o.detach() for o in outs], [a.detach() for a in auxs],
+                      [x.grad for x in xs],
+                      {k: v.grad.clone() for k, v in params.items()})
+        print(f"MoE layer pe={pe} fused={fused}: forward + backward "
+              f"{dt * 1e3:.1f} ms (host clock), exchanges {comm.exchanges}, "
+              f"permute_rows launches {c['permute_rows']}")
+    eager, fused = res[False], res[True]
+    for a, b in zip([*eager[0], *eager[1], *eager[2]],
+                    [*fused[0], *fused[1], *fused[2]]):
+        check(same_bits(a, b), f"layer pe={pe}: fused differs from eager")
+    for k in eager[3]:
+        check(same_bits(eager[3][k], fused[3][k]),
+              f"layer pe={pe}: {k} gradient differs fused vs eager")
+    gcfg = dataclasses.replace(cfg, moe_dispatch="global")
+    worst = 0.0
+    with torch.no_grad():
+        for r in range(pe):
+            want, _ = moe_ffn_global(params, gcfg, xs0[r])
+            err = float((fused[0][r] - want).abs().max())
+            scale = float(want.abs().max())
+            worst = max(worst, err / scale)
+            check(err <= 1e-5 * scale, f"layer pe={pe} rank {r}: ep vs "
+                  f"global max |diff| {err} > 1e-5 x {scale}")
+    print(f"MoE layer pe={pe} (experts owned "
+          f"{expert_owners(cfg.n_experts, pe)}, final-slot order "
+          f"{final_slot_order(pe)}): fused bitwise equal to eager (outputs, "
+          f"aux, input and weight gradients); ep vs global max |diff| "
+          f"{worst:.3e} of max|global|")
+    del params, res, xs0, ws
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_ep_path():
+    """Phase 6: the expert-parallel MoE path."""
+    import torch
+    cfg_note = ("reduced: depth 32 -> 1 layer and mesh 2x2 -> 1x2 (four "
+                "whole replicas with AdamW state need ~94 GB); every "
+                "width kept (d_model 4096, 16 experts top-2, d_ff 6400, "
+                "vocab 32064)")
+    print(f"ep MoE path (a): build_session({EP_MAIN})")
+    print(cfg_note)
+    run_a = run_ep_path("ep MoE path (a)", EP_MAIN)
+    sys.stdout.flush()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            PROFILE_EP_STEP], timeout=600)
+    check(child.returncode == 0,
+          f"ep MoE path (a) profile process exited {child.returncode}")
+    print(f"ep MoE path (b): build_session({EP_SMALL})")
+    run_b = run_ep_path("ep MoE path (b)", EP_SMALL)
+    for pe in (4, 3):
+        moe_layer_check(pe)
+    torch.cuda.empty_cache()
+    return run_a, run_b
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout")
@@ -984,15 +1391,21 @@ def main() -> int:
     torch.cuda.set_device(0)
     if sys.argv[1:] == [PROFILE_WIRE_STEP]:
         return profile_wire_step()
+    if sys.argv[1:] == [PROFILE_EP_STEP]:
+        return profile_ep_step()
     t_all = time.perf_counter()
     phase_card_and_build()
     max_err, step = phase_kernel_vs_plain()
     wire_errs, wire = phase_wire_kernels()
+    perm_err, perm = phase_permute_rows()
     phase_collectives()
     phase_wire_collectives()
+    phase_alltoall()
     counts, _, _, f32_rs_bytes = phase_main_path()
     paths = phase_wire_path(f32_rs_bytes)
-    by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1]}
+    ep_a, ep_b = phase_ep_path()
+    by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
+               "6a": ep_a[1], "6b": ep_b[1]}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}
@@ -1016,7 +1429,9 @@ def main() -> int:
             wire_errs["dequant_add"]),
         row("block_reduce", "src/repro_torch/csrc/block_reduce.cu",
             "src/repro/kernels/block_reduce.py:40", wire["block_reduce"],
-            wire_errs["block_reduce"])]}))
+            wire_errs["block_reduce"]),
+        row("permute_rows", "src/repro_torch/csrc/permute_rows.cu",
+            "src/repro/kernels/fused_round.py:319", perm, perm_err)]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ import importlib
 # CLI ids (as the reference's) -> module names
 ALIASES = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
 }
 
 

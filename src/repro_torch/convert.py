@@ -3,8 +3,10 @@
 The reference's parameters, as a nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``), become the port's parameters and
 back.  Both sides use the same tree (the reference's leaves, stacked
-layer weights included), so this only moves data: it checks every leaf's
-path and shape against the config and sets the config's dtype.  numpy
+layer weights and the MoE subtree included), so this only moves data: it
+checks every leaf's path and shape against the config and sets each
+leaf's dtype as the reference has it (the config's, but float32 for the
+MoE router).  numpy
 has no bfloat16 of its own; such arrays (``ml_dtypes.bfloat16``) pass
 through float32, which is exact both ways.
 """
@@ -15,13 +17,12 @@ import torch
 
 from . import tree as T
 from .models.config import ModelConfig
-from .models.layers import dtype_of
-from .models.transformer import param_shapes
+from .models.transformer import leaf_dtype, param_shapes
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """Numpy parameter tree (the reference's) → the port's tensors on
-    ``device``, in ``cfg.dtype``."""
+    ``device``, each in its leaf's dtype (:func:`leaf_dtype`)."""
     want = dict(T.flatten(param_shapes(cfg)))
     got = T.flatten(tree)
     if set(want) != {p for p, _ in got}:
@@ -29,7 +30,6 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             f"parameter tree mismatch: missing "
             f"{sorted(set(want) - {p for p, _ in got})}, unexpected "
             f"{sorted({p for p, _ in got} - set(want))}")
-    dtype = dtype_of(cfg)
     out: dict = {}
     for path, arr in got:
         arr = np.asarray(arr)
@@ -38,7 +38,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
                              f"wants {want[path]}")
         if arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
-        t = torch.from_numpy(np.array(arr)).to(dtype)  # own, writable copy
+        t = torch.from_numpy(np.array(arr)).to(leaf_dtype(cfg, path))
         T.assign(out, path, t.to(device) if device is not None else t)
     return out
 

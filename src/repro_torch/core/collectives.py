@@ -13,9 +13,10 @@ New code should hold a spec and call ``plan()`` directly::
     spec = CollectiveSpec(schedule="power2", use_fused_kernel=True)
     shards = plan(spec, p=comm.p).reduce_scatter(xs, comm)
 
-The reference's ring / recursive-halving / xla baselines, alltoall(v),
-broadcast and the hierarchical and pipelined forms are not ported yet
-(ROADMAP.md queue 1).
+The alltoall by concatenation (paper §4) and its ragged alltoallv form
+take ``ceil(log2 p)`` exchanges too.  The reference's ring /
+recursive-halving / xla baselines, broadcast and the hierarchical and
+pipelined forms are not ported yet (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -89,6 +90,38 @@ def circulant_allreduce(xs: Tensors, comm, *, schedule: str = "halving",
     return plan(spec, p=comm.p).allreduce(xs, comm)
 
 
+def circulant_alltoall(xs: Tensors, comm, *, schedule: str = "halving",
+                       group: int | None = None,
+                       use_fused_kernel: bool | None = None,
+                       counts: Sequence[Sequence[int]] | None = None
+                       ) -> list[torch.Tensor]:
+    """All-to-all in ceil(log2 p) rounds: Algorithm 1 with ⊕ =
+    concatenation.  Each rank's ``(p, blk, *rest)``, row j its payload
+    for rank j, becomes ``(p, blk, *rest)`` with row j rank j's payload
+    for it.  Blocks hop through intermediate ranks (the Bruck trade-off:
+    round-optimal, not volume-optimal).  The fused form keeps each slot
+    as one stacked buffer and lays the final slot into source order with
+    one ``permute_rows`` launch.
+
+    ``counts`` (a p×p matrix, ``counts[src][dst]`` rows) selects the
+    ragged alltoallv: each rank's input is ``(max_r sum(counts[r]),
+    *rest)``, its payload rows in destination order, and its output
+    ``(max_r recv_total_r, *rest)``, the received rows in source order,
+    zero past its receive total."""
+    spec = _circulant_spec(schedule=schedule, group=group,
+                           use_fused_kernel=use_fused_kernel, counts=counts)
+    return plan(spec, p=comm.p).alltoall(xs, comm)
+
+
+def circulant_alltoallv(xs: Tensors, comm, counts: Sequence[Sequence[int]],
+                        *, schedule: str = "halving",
+                        group: int | None = None) -> list[torch.Tensor]:
+    """Ragged alltoall (MPI_Alltoallv): :func:`circulant_alltoall` with a
+    required per-pair ``counts`` matrix."""
+    return circulant_alltoall(xs, comm, schedule=schedule, group=group,
+                              counts=counts)
+
+
 def reduce_scatter(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
                    **kw) -> list[torch.Tensor]:
     """Reduce-scatter dispatcher: ``spec=CollectiveSpec(...)`` or bare
@@ -106,3 +139,10 @@ def allreduce(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
               **kw) -> list[torch.Tensor]:
     """Allreduce dispatcher — see :func:`reduce_scatter`."""
     return plan(as_spec(spec, **kw), p=comm.p).allreduce(xs, comm)
+
+
+def alltoall(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
+             **kw) -> list[torch.Tensor]:
+    """Alltoall(v) dispatcher — see :func:`reduce_scatter`.  A spec with a
+    p×p ``counts`` matrix runs the ragged alltoallv."""
+    return plan(as_spec(spec, **kw), p=comm.p).alltoall(xs, comm)

@@ -27,19 +27,30 @@ quantizer and compressed round) and ``fused+int8`` (the ``quantize`` and
 ``fused_round_dq`` kernels on a card).  With ``use_fused_kernel=None``
 the backend is chosen per call from the payload's device
 (``resolve_fused``).
+
+:meth:`CollectivePlan.alltoall` is the alltoall by concatenation (paper
+§4, Algorithm 1 with ⊕ = concatenation) on the ``eager`` and ``fused``
+backends (the fused one stacks each slot into one buffer and lays the
+final slot into source order with the ``permute_rows`` kernel), and the
+ragged alltoallv over a p×p ``counts`` matrix (``alltoallv`` backend,
+row tables compiled into an :class:`A2APlan`).  Every round is one
+``comm.shift`` either way.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-from ..kernels import (fused_round, fused_round_dq, quantize_rows,
-                       resolve_fused)
+from ..kernels import (fused_round, fused_round_dq, permute_rows,
+                       quantize_rows, resolve_fused)
 from ..kernels import ref as _kref
 from ..kernels.quantize import MAX_GROUP, pack_wire, pad2d, unpack_wire
-from .schedule import RoundPlan, allgather_plan, reduce_scatter_plan
+from .cost_model import alltoallv_round_widths
+from .schedule import (RoundPlan, allgather_plan, alltoall_moves,
+                       reduce_scatter_plan)
 from .spec import CollectiveSpec, as_spec
 
 ReduceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -77,6 +88,107 @@ def as_blocks(x: torch.Tensor, p: int) -> torch.Tensor:
         raise ValueError(
             f"leading dim {n} not divisible by axis size {p}; pad first")
     return x.reshape(p, n // p, *x.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# Alltoall(v) geometry — per-pair counts compiled to row tables
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class A2APlan:
+    """Geometry of a ragged alltoallv (per-pair ``counts``), as the
+    reference's ``repro.core.plan.A2APlan``.
+
+    The per-rank buffer holds the FULL absolute (src, dst) pair layout
+    (``total`` rows + one sentinel row); each rank only ever populates the
+    rows of entries it currently holds.  ``round_tables[k]`` is the
+    ``(p, W_k)`` absolute-row table of round k: row r lists the buffer
+    rows rank r gathers into the wire (its entries hopping this round, in
+    ``alltoall_moves`` order), sentinel-padded to the worst windowed count
+    sum ``W_k`` over ranks (one wire shape for every rank).  Sender and
+    receiver store every entry at the same absolute rows, so the receive
+    table of rank r is row ``(r - skip) mod p`` of the SAME table.
+    """
+
+    counts: tuple[tuple[int, ...], ...]   # [src][dst] rows
+    pair_offsets: np.ndarray              # (p, p) absolute row of each pair
+    total: int                            # sum of all counts
+    send_total: tuple[int, ...]           # per-src row sum
+    recv_total: tuple[int, ...]           # per-dst row sum
+    in_height: int                        # static input rows: max send_total
+    out_height: int                       # static output rows: max recv_total
+    seed_src: np.ndarray                  # (p, in_height) input rows gathered
+    seed_dst: np.ndarray                  # (p, in_height) buffer rows written
+    round_tables: tuple[np.ndarray, ...]  # (p, W_k) wire gather/scatter rows
+    out_rows: np.ndarray                  # (p, out_height) output gather rows
+
+    @property
+    def round_widths(self) -> tuple[int, ...]:
+        """Per-round wire width (rows) — the worst windowed count sum."""
+        return tuple(t.shape[1] for t in self.round_tables)
+
+
+def _build_a2a(counts: tuple[tuple[int, ...], ...], p: int,
+               schedule: str, group: int | None) -> A2APlan:
+    moves = alltoall_moves(p, schedule, group)
+    offs = np.zeros((p, p), np.int64)
+    acc = 0
+    for s in range(p):
+        for dcol in range(p):
+            offs[s, dcol] = acc
+            acc += counts[s][dcol]
+    total = acc
+    send_total = tuple(sum(row) for row in counts)
+    recv_total = tuple(sum(counts[s][dcol] for s in range(p))
+                       for dcol in range(p))
+    in_h = max(max(send_total), 1)
+    out_h = max(max(recv_total), 1)
+
+    # Seed: rank r's input rows (dst-ordered, rows [0, send_total[r]))
+    # scatter into the absolute pair layout; sentinel-padded.
+    seed_src = np.full((p, in_h), in_h, dtype=np.int32)   # input sentinel
+    seed_dst = np.full((p, in_h), total, dtype=np.int32)  # buffer sentinel
+    for r in range(p):
+        j = 0
+        for dcol in range(p):
+            c = counts[r][dcol]
+            seed_src[r, j:j + c] = np.arange(j, j + c, dtype=np.int32)
+            seed_dst[r, j:j + c] = np.arange(
+                offs[r, dcol], offs[r, dcol] + c, dtype=np.int32)
+            j += c
+
+    # Table widths come from the cost model's formula (one implementation
+    # of the worst windowed count sum); the fill below would overrun a
+    # too-small width, so the two are checked against each other.
+    widths = alltoallv_round_widths(counts, schedule, group)
+    tables = []
+    for (_, moved), W in zip(moves, widths):
+        tab = np.full((p, W), total, dtype=np.int32)
+        for r in range(p):
+            j = 0
+            for d, m in moved:
+                src = (r - m) % p
+                dst = (src + d) % p
+                c = counts[src][dst]
+                tab[r, j:j + c] = np.arange(
+                    offs[src, dst], offs[src, dst] + c, dtype=np.int32)
+                j += c
+            assert j <= W, (j, W)
+        tables.append(tab)
+
+    out_rows = np.full((p, out_h), total, dtype=np.int32)
+    for r in range(p):
+        j = 0
+        for src in range(p):
+            c = counts[src][r]
+            out_rows[r, j:j + c] = np.arange(
+                offs[src, r], offs[src, r] + c, dtype=np.int32)
+            j += c
+    return A2APlan(counts=counts, pair_offsets=offs, total=total,
+                   send_total=send_total, recv_total=recv_total,
+                   in_height=in_h, out_height=out_h,
+                   seed_src=seed_src, seed_dst=seed_dst,
+                   round_tables=tuple(tables), out_rows=out_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +243,8 @@ class CollectivePlan:
     indices moved in reduce-scatter round k (``ag_*`` likewise for the
     reversed allgather); over all rounds the send sets partition
     ``{1, .., p-1}`` exactly (Theorem 1).  ``backend`` is ``"eager"``,
-    ``"fused"``, ``"eager+int8"``, ``"fused+int8"`` or ``"auto"``
+    ``"fused"``, ``"eager+int8"``, ``"fused+int8"``, ``"alltoallv"``
+    (a p×p ``counts`` spec; ``a2a`` holds its row tables) or ``"auto"``
     (resolved from each payload's device).
     """
 
@@ -145,6 +258,7 @@ class CollectivePlan:
     rs_recv_blocks: tuple[tuple[int, ...], ...]
     ag_send_blocks: tuple[tuple[int, ...], ...]
     ag_recv_blocks: tuple[tuple[int, ...], ...]
+    a2a: A2APlan | None = None
 
     def backend_for(self, device: torch.device | str | None) -> str:
         """The backend that runs a payload on ``device``."""
@@ -178,6 +292,37 @@ class CollectivePlan:
         """Paper Algorithm 2: reduce-scatter + reversed allgather."""
         return self.allgather(self.reduce_scatter(xs, comm), comm)
 
+    def alltoall(self, xs: Sequence[torch.Tensor], comm
+                 ) -> list[torch.Tensor]:
+        """All-to-all by concatenation (paper §4): Algorithm 1 with ⊕ =
+        concatenation, one exchange per round.
+
+        Uniform form (``counts=None``): each rank's ``(p, blk, *rest)``,
+        row j its payload for rank j, becomes the same shape with row j
+        the payload FROM rank j.  Ragged form (p×p ``counts``,
+        MPI_Alltoallv): rank r's ``(in_height, *rest)`` holds its payload
+        rows concatenated in destination order in rows ``[0,
+        send_total[r])``, and the result ``(out_height, *rest)`` the
+        received rows concatenated in source order, zero past this
+        rank's receive total.  Differentiable through ``comm.shift``."""
+        if self.spec.wired:
+            raise NotImplementedError(
+                "alltoall does not support wire_dtype (blocks hop through "
+                "intermediate ranks; requantizing per hop would compound "
+                "the error)")
+        self._check_world(xs, comm)
+        if self.p == 1:
+            return list(xs)
+        return _A2A_IMPLS[self.backend_for(xs[0].device)](self, xs, comm)
+
+    def _check_world(self, xs, comm) -> None:
+        if comm.p != self.p:
+            raise ValueError(
+                f"plan compiled for p={self.p}, communicator has {comm.p}")
+        if len(xs) != len(comm.ranks):
+            raise ValueError(
+                f"{len(comm.ranks)} local rank(s), got {len(xs)} payloads")
+
     # -- multi-call round protocol ------------------------------------------
 
     def rs_begin(self, xs: Sequence[torch.Tensor], comm) -> RoundState:
@@ -191,14 +336,12 @@ class CollectivePlan:
         return self._begin(xs, comm, "ag")
 
     def _begin(self, xs, comm, phase: str) -> RoundState:
-        if comm.p != self.p:
-            raise ValueError(
-                f"plan compiled for p={self.p}, communicator has {comm.p}")
-        if len(xs) != len(comm.ranks):
-            raise ValueError(
-                f"{len(comm.ranks)} local rank(s), got {len(xs)} payloads")
+        self._check_world(xs, comm)
         _check_wire_payload(self, xs[0])
         backend = self.backend_for(xs[0].device)
+        if (backend, phase) not in _ASYNC_IMPLS:
+            raise ValueError(f"backend {backend!r} runs alltoall only, "
+                             f"not a {phase} phase")
         nrounds = len(self.rs_rounds if phase == "rs" else self.ag_rounds)
         st = RoundState(plan=self, comm=comm, phase=phase, backend=backend,
                         nrounds=nrounds)
@@ -287,6 +430,17 @@ def _check_wire_payload(plan: CollectivePlan, x: torch.Tensor) -> None:
 
 def _resolve_backend(spec: CollectiveSpec, device=None) -> str:
     """Backend for ``spec`` with a payload on ``device``."""
+    if spec.counts_matrix:
+        if spec.wire_dtype is not None:
+            raise ValueError(
+                "alltoallv (per-pair counts) does not support wire_dtype "
+                "(blocks hop through intermediate ranks; requantizing per "
+                "hop would compound the error)")
+        if spec.use_fused_kernel is True:
+            raise ValueError(
+                "use_fused_kernel does not support per-pair counts (the "
+                "ragged wire is table-gathered, not slot-stacked)")
+        return "alltoallv"
     if spec.wire_dtype is not None:
         if not isinstance(spec.op, str):
             raise ValueError(
@@ -348,9 +502,15 @@ _PLAN_CACHE = _PlanCache(maxsize=4096)
 
 
 def _build_plan(spec: CollectiveSpec, p: int) -> CollectivePlan:
-    _resolve_backend(spec)  # validates op x kernel choice up front
-    backend = ("auto" if spec.use_fused_kernel is None
-               else _resolve_backend(spec))
+    backend = _resolve_backend(spec)  # validates op x kernel choice
+    if spec.use_fused_kernel is None and backend != "alltoallv":
+        backend = "auto"
+    a2a = None
+    if spec.counts is not None:
+        if len(spec.counts) != p:
+            raise ValueError(
+                f"counts has {len(spec.counts)} rows for axis size {p}")
+        a2a = _build_a2a(spec.counts, p, spec.schedule, spec.group)
     rs = reduce_scatter_plan(p, spec.schedule, spec.group)
     ag = allgather_plan(p, spec.schedule, spec.group)
     return CollectivePlan(
@@ -359,13 +519,15 @@ def _build_plan(spec: CollectiveSpec, p: int) -> CollectivePlan:
         rs_send_blocks=tuple(tuple(range(pl.lo, pl.hi)) for pl in rs),
         rs_recv_blocks=tuple(tuple(range(0, pl.nblocks)) for pl in rs),
         ag_send_blocks=tuple(tuple(range(0, pl.nblocks)) for pl in ag),
-        ag_recv_blocks=tuple(tuple(range(pl.lo, pl.hi)) for pl in ag))
+        ag_recv_blocks=tuple(tuple(range(pl.lo, pl.hi)) for pl in ag),
+        a2a=a2a)
 
 
 def plan(spec: CollectiveSpec | None = None, p: int | None = None,
          **kw) -> CollectivePlan:
-    """Compile ``spec`` for ``p`` ranks (cached).  Bare kwargs build the
-    spec in place: ``plan(p=8, schedule="power2")``."""
+    """Compile ``spec`` for ``p`` ranks (cached on ``(spec, p)``; a spec
+    compares by value, its ``counts`` matrix included).  Bare kwargs
+    build the spec in place: ``plan(p=8, schedule="power2")``."""
     spec = as_spec(spec, **kw)
     if p is None:
         raise ValueError("plan() needs p (the communicator's size)")
@@ -596,4 +758,144 @@ _ASYNC_IMPLS: dict[tuple[str, str], type] = {
     ("fused+int8", "rs"): _RsWireFused,
     ("eager+int8", "ag"): _AgWire,
     ("fused+int8", "ag"): _AgWireInPlace,
+}
+
+
+# ---------------------------------------------------------------------------
+# All-to-all by concatenation (paper §4)
+# ---------------------------------------------------------------------------
+
+def _a2a_eager(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
+    """Bruck-style rounds (the reference's ``_a2a_jnp``): per live slot a
+    list of (source offset, payload) pairs — the concatenation ⊕ as
+    Python lists — and every round one exchange of each rank's stacked
+    send entries.  (p/2)·ceil(log2 p) blocks sent per rank: round-optimal,
+    not volume-optimal."""
+    p = plan.p
+    # per rank: slots[i] = [(offset o, payload from rank r + o), ...]
+    ranks = [[[(0, row)] for row in torch.roll(x, -r, dims=0)]
+             for x, r in zip(xs, comm.ranks)]
+    for pl in plan.rs_rounds:
+        s = pl.skip
+        sends = [torch.stack([a for i in range(pl.lo, pl.hi)
+                              for _, a in slots[i]]) for slots in ranks]
+        for slots, T in zip(ranks, comm.shift(sends, s)):
+            idx = 0
+            for j in range(pl.nblocks):
+                for o, _ in slots[pl.lo + j]:
+                    slots[j].append(((o - s) % p, T[idx]))
+                    idx += 1
+            assert idx == T.shape[0]
+            del slots[pl.lo:]  # slots [lo, hi) were sent; live = [0, s)
+    outs = []
+    for slots, r in zip(ranks, comm.ranks):
+        assert len(slots[0]) == p, f"expected {p} payloads, got {slots[0]}"
+        ordered = torch.stack([a for _, a in
+                               sorted(slots[0], key=lambda e: e[0])])
+        outs.append(torch.roll(ordered, r, dims=0))  # row j = from rank j
+    return outs
+
+
+def _a2a_fused(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
+    """Bruck-style rounds over stacked slot buffers (the reference's
+    ``_a2a_fused``): slot i is one ``(count_i, blk)`` buffer with the
+    parallel list of source offsets; entry order inside each slot matches
+    :func:`_a2a_eager`, and the final slot goes into source order with
+    one ``permute_rows`` launch per rank (always, the identity order
+    included), so the result is bitwise the eager one."""
+    p = plan.p
+    blk_shape = xs[0].shape[1:]
+    ranks = []
+    for x, r in zip(xs, comm.ranks):
+        rot2 = torch.roll(x, -r, dims=0).reshape(p, -1)
+        ranks.append(([rot2[i:i + 1] for i in range(p)],
+                      [[0] for _ in range(p)]))
+    for pl in plan.rs_rounds:
+        s = pl.skip
+        sends = [slots[pl.lo] if pl.nblocks == 1 else
+                 torch.cat(slots[pl.lo:pl.hi]) for slots, _ in ranks]
+        for (slots, offs), T in zip(ranks, comm.shift(sends, s)):
+            idx = 0
+            for j in range(pl.nblocks):
+                src = pl.lo + j
+                cnt = len(offs[src])
+                slots[j] = torch.cat([slots[j], T[idx:idx + cnt]])
+                offs[j] = offs[j] + [(o - s) % p for o in offs[src]]
+                idx += cnt
+            assert idx == T.shape[0]
+            del slots[pl.lo:], offs[pl.lo:]
+    outs = []
+    for (slots, offs), r in zip(ranks, comm.ranks):
+        assert slots[0].shape[0] == p, \
+            f"expected {p} payloads, got {slots[0].shape[0]}"
+        order = sorted(range(p), key=lambda i: offs[0][i])
+        ordered = permute_rows(slots[0], order)  # ordered[o] = from (r+o)
+        out = torch.roll(ordered, r, dims=0)     # row j = from rank j
+        outs.append(out.reshape(p, *blk_shape))
+    return outs
+
+
+def final_slot_order(p: int, schedule: str = "halving",
+                     group: int | None = None) -> tuple[int, ...]:
+    """The permutation the fused alltoall hands ``permute_rows`` at p
+    ranks: its final slot's entries, by source offset (the same on every
+    rank)."""
+    offs = [[0] for _ in range(p)]
+    for pl in reduce_scatter_plan(p, schedule, group):
+        for j in range(pl.nblocks):
+            offs[j] = offs[j] + [(o - pl.skip) % p for o in offs[pl.lo + j]]
+        del offs[pl.lo:]
+    return tuple(sorted(range(p), key=lambda i: offs[0][i]))
+
+
+def _rows(table: np.ndarray, r: int, device) -> torch.Tensor:
+    return torch.as_tensor(table[r], dtype=torch.long, device=device)
+
+
+def _a2a_v(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
+    """Ragged alltoallv over the per-pair counts matrix (the reference's
+    ``_a2a_v``): each buffer stays in ABSOLUTE (src, dst) pair order;
+    round k gathers a rank's hopping rows through ``a2a.round_tables[k]``
+    into one fixed-width wire buffer, exchanges it once, and the receiver
+    sets the rows through the sender's row of the same table (no ⊕, so
+    any dtype).  Sentinel rows stay zero: padding reads and writes only
+    ever move zeros."""
+    a2a, p = plan.a2a, plan.p
+    bufs, shapes = [], []
+    for x, r in zip(xs, comm.ranks):
+        if x.shape[0] != a2a.in_height:
+            raise ValueError(
+                f"input has {x.shape[0]} rows, counts matrix needs "
+                f"in_height={a2a.in_height} (= max per-rank send total)")
+        x2 = x.reshape(a2a.in_height, -1)
+        zero = x2.new_zeros((1, x2.shape[1]))
+        xpad = torch.cat([x2, zero])
+        buf = x2.new_zeros((a2a.total + 1, x2.shape[1]))
+        buf = buf.index_put((_rows(a2a.seed_dst, r, x.device),),
+                            xpad[_rows(a2a.seed_src, r, x.device)])
+        bufs.append(buf)
+        shapes.append(x.shape[1:])
+    for k, pl in enumerate(plan.rs_rounds):
+        table = a2a.round_tables[k]
+        sends = [b[_rows(table, r, b.device)]
+                 for b, r in zip(bufs, comm.ranks)]
+        got = comm.shift(sends, pl.skip)
+        bufs = [b.index_put((_rows(table, (r - pl.skip) % p, b.device),), T)
+                for b, T, r in zip(bufs, got, comm.ranks)]
+    outs = []
+    for b, r, shape in zip(bufs, comm.ranks, shapes):
+        out = b[_rows(a2a.out_rows, r, b.device)]
+        keep = torch.arange(a2a.out_height, device=b.device) < \
+            a2a.recv_total[r]
+        out = torch.where(keep[:, None], out, torch.zeros_like(out))
+        outs.append(out.reshape(a2a.out_height, *shape))
+    return outs
+
+
+#: alltoall backends (the reference's ``_A2A_IMPLS``; its xla baseline is
+#: not ported).
+_A2A_IMPLS = {
+    "eager": _a2a_eager,
+    "fused": _a2a_fused,
+    "alltoallv": _a2a_v,
 }

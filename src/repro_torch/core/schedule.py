@@ -203,3 +203,43 @@ def allgather_plan(p: int, schedule: str = "halving",
     skip s sends R[0 .. s'-s-1] toward (r - s) mod p and receives into
     R[s .. s'-1] from (r + s) mod p."""
     return tuple(reversed(reduce_scatter_plan(p, schedule, group)))
+
+
+@lru_cache(maxsize=4096)
+def alltoall_moves(p: int, schedule: str = "halving",
+                   group: int | None = None
+                   ) -> tuple[tuple[int, tuple[tuple[int, int], ...]], ...]:
+    """Entry trajectories of alltoall-by-concatenation (paper §4).
+
+    In the Bruck-style alltoall, the payload addressed from ``src`` to
+    ``dst`` starts in rotated slot ``d = (dst - src) mod p`` and, whenever
+    its current slot lies in a round's send window ``[skip, prev)``, hops
+    forward by ``skip`` (slot decreases by ``skip``).  The whole walk is
+    trace-time data: this returns, per round, ``(skip, moved)`` where
+    ``moved`` is the tuple of ``(d, shift)`` pairs — the destination
+    offsets whose entries hop this round and the total shift already
+    applied to them, i.e. the entry for offset ``d`` currently sits on
+    rank ``(src + shift) mod p``.  After the last round every offset has
+    reached slot 0 with total shift ``d`` — delivered (asserted).
+
+    Consumed by the plan layer (alltoallv row tables) and the cost model
+    (the hop-through-intermediate-ranks β volume: the classic Bruck
+    amplification, sum(len(moved)) block sends per rank instead of p-1).
+    """
+    plans = reduce_scatter_plan(p, schedule, group)
+    slot = list(range(p))
+    shift = [0] * p
+    rounds = []
+    for pl in plans:
+        moved = []
+        for d in range(1, p):
+            if pl.lo <= slot[d] < pl.hi:
+                moved.append((d, shift[d]))
+                slot[d] -= pl.skip
+                shift[d] += pl.skip
+        rounds.append((pl.skip, tuple(moved)))
+    assert all(s == 0 for s in slot), \
+        f"alltoall trajectories must end in slot 0 (p={p}, {schedule})"
+    assert all(shift[d] == d for d in range(p)), \
+        f"total shift must equal the destination offset (p={p}, {schedule})"
+    return tuple(rounds)

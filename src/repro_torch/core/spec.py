@@ -6,8 +6,9 @@ communicator).  Specs are frozen and hashable so ``plan()`` can memoize
 on them.
 
 The port implements the uniform circulant kind, exact or on the int8
-wire (``wire_dtype="int8"``).  The reference's other fields and kinds
-(``counts`` for Corollary 3 and alltoallv, ``broadcast`` and the ring /
+wire (``wire_dtype="int8"``), and the p×p per-pair ``counts`` matrix of
+the ragged alltoallv.  The reference's other fields and kinds (flat
+``counts`` for Corollary 3, ``broadcast`` and the ring /
 recursive-halving / xla baselines) are accepted by name and raise
 ``NotImplementedError`` pointing at ROADMAP.md's queue 1, so a request
 for them is never silently ignored.  Combinations the reference rejects
@@ -48,7 +49,11 @@ class CollectiveSpec:
     wire_group:       elements per quantization group on the wire.
     use_fused_kernel: ``None`` = auto (the CUDA kernel when the payload
                       lies on a card), ``True``/``False`` explicit.
-    counts:           must be ``None`` (Corollary 3 is not ported).
+    counts:           ``None``, or a p×p matrix (tuple of tuples):
+                      ``counts[src][dst]`` rows travel from src to dst
+                      in the ragged alltoallv.  A flat per-rank tuple
+                      (Corollary 3's non-uniform blocks) raises
+                      ``NotImplementedError``.
     """
 
     kind: str = "circulant"
@@ -80,8 +85,31 @@ class CollectiveSpec:
         if self.kind not in PORTED_KINDS:
             raise NotImplementedError(f"kind={self.kind!r} is {_TODO}")
         if self.counts is not None:
-            raise NotImplementedError(
-                f"counts= (Corollary 3 / alltoallv) is {_TODO} (items 7-8)")
+            rows = list(self.counts)
+            if not (rows and hasattr(rows[0], "__len__")):
+                raise NotImplementedError(
+                    f"flat counts= (Corollary 3) is {_TODO} (item 7); pass "
+                    f"a p×p per-pair counts matrix for alltoallv")
+            # p×p per-pair matrix (alltoallv): counts[src][dst].
+            counts = tuple(tuple(int(c) for c in row) for row in rows)
+            if any(len(row) != len(counts) for row in counts):
+                raise ValueError(
+                    f"counts matrix must be square (p×p), got row lengths "
+                    f"{[len(r) for r in counts]} for {len(counts)} rows")
+            flat = [c for row in counts for c in row]
+            if any(c < 0 for c in flat):
+                raise ValueError(f"counts must be non-negative, got {counts}")
+            if sum(flat) == 0:
+                raise ValueError(f"counts must have at least one nonzero "
+                                 f"entry, got {counts}")
+            # Normalized, so specs hash and compare by value (the plan
+            # cache's key) whatever the caller's containers and ints.
+            object.__setattr__(self, "counts", counts)
+
+    @property
+    def counts_matrix(self) -> bool:
+        """True when ``counts`` is the p×p per-pair (alltoallv) form."""
+        return self.counts is not None
 
     @property
     def wired(self) -> bool:

@@ -8,14 +8,13 @@ replacing a Pallas TPU kernel of ``repro/kernels``:
 ``quantize``        ``csrc/quantize.cu``        ``quantize.py:quantize``
 ``dequant_add``     ``csrc/quantize.cu``        ``quantize.py:dequant_add``
 ``block_reduce``    ``csrc/block_reduce.cu``    ``block_reduce.py:block_reduce``
-
-The sixth, ``permute_rows``, is queued in ROADMAP.md (queue 2).
+``permute_rows``    ``csrc/permute_rows.cu``    ``fused_round.py:permute_rows``
 """
 from . import ref  # noqa: F401
 from .block_reduce import block_reduce  # noqa: F401
 from .fused_round import (dq_round_bytes, fused_round,  # noqa: F401
-                          fused_round_dq, quantize_rows, resolve_fused,
-                          round_bytes)
+                          fused_round_dq, permute_bytes, permute_rows,
+                          quantize_rows, resolve_fused, round_bytes)
 from .ops import (dequant_accumulate, dequantize_blocks,  # noqa: F401
                   fused_block_reduce, quantize_blocks)
 from .quantize import (DEFAULT_GROUP, dequant_add, pack_wire,  # noqa: F401

@@ -22,8 +22,15 @@ arrives as int8 codes and float32 group scales, is dequantized and
 ⊕-folded into the float32 head, and the next round's send rows leave
 requantized.  :func:`quantize_rows` is the round-0 send quantization of
 the compressed collectives (the ``quantize`` kernel).
+
+:func:`permute_rows` is the static row permutation of the fused alltoall
+(CUDA kernel ``csrc/permute_rows.cu``, replacing the Pallas TPU kernel
+``repro/kernels/fused_round.py:permute_rows``), differentiable: its
+backward is the inverse permutation, another launch.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -206,3 +213,70 @@ def quantize_rows(x: torch.Tensor, *, group: int = DEFAULT_GROUP
 
 
 quantize_rows.launches = 0
+
+
+#: most rows a ``permute_rows`` launch takes (the kernel's parameter table).
+PERMUTE_MAX_ROWS = 256
+
+
+def permute_rows(x: torch.Tensor, perm) -> torch.Tensor:
+    """Static row permutation ``out[i] = x[perm[i]]`` of a 2-D ``(rows,
+    cols)`` tensor in one pass (``repro.kernels.fused_round.
+    permute_rows``): the fused alltoall's last step, laying its final slot
+    into source-rank order.  ``perm`` must be a permutation of
+    ``0..rows-1``.  Differentiable: the gradient is the inverse
+    permutation, run the same way.  On a card each direction launches the
+    kernel (counted in ``permute_rows.launches``); on the CPU it runs
+    ``ref.permute_rows_ref``."""
+    perm = tuple(int(i) for i in perm)
+    if x.ndim != 2:
+        raise ValueError(f"need a 2-D buffer, got {tuple(x.shape)}")
+    rows = x.shape[0]
+    if sorted(perm) != list(range(rows)):
+        raise ValueError(f"perm {perm} is not a permutation of "
+                         f"0..{rows - 1}")
+    return _PermuteRows.apply(x, perm)
+
+
+permute_rows.launches = 0
+
+
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm):
+        inv = [0] * len(perm)
+        for i, src in enumerate(perm):
+            inv[src] = i
+        ctx.inv = tuple(inv)
+        return _permute(x, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g.contiguous(), ctx.inv), None
+
+
+def _permute(x: torch.Tensor, perm: tuple[int, ...]) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _ref.permute_rows_ref(x, perm)
+    if x.device.type != "cuda":
+        raise ValueError(f"permute_rows runs on cuda or cpu, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("permute_rows kernel needs a contiguous buffer")
+    rows, cols = x.shape
+    if rows > PERMUTE_MAX_ROWS:
+        raise ValueError(f"permute_rows kernel takes up to "
+                         f"{PERMUTE_MAX_ROWS} rows, got {rows}")
+    out = torch.empty_like(x)
+    if x.numel():
+        table = (ctypes.c_int32 * rows)(*perm)
+        launch("permute_rows", "repro_permute_rows", "ppllp", x,
+               x.data_ptr(), out.data_ptr(), rows, cols * x.element_size(),
+               ctypes.addressof(table))
+        permute_rows.launches += 1
+    return out
+
+
+def permute_bytes(rows: int, cols: int, itemsize: int) -> int:
+    """Bytes one :func:`permute_rows` launch must move: the input read
+    once and the output written once."""
+    return 2 * rows * cols * itemsize

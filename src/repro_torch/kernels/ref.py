@@ -50,6 +50,14 @@ def fused_round_ref(live: torch.Tensor, received: torch.Tensor, *, nb: int,
     return new[:next_lo], new[next_lo:lo]
 
 
+def permute_rows_ref(x: torch.Tensor, perm) -> torch.Tensor:
+    """Static row permutation ``out[i] = x[perm[i]]``
+    (``repro.kernels.ref.permute_rows_ref``)."""
+    idx = torch.tensor([int(i) for i in perm], dtype=torch.long,
+                       device=x.device)
+    return x[idx]
+
+
 def _pad_cols(x: torch.Tensor, g: int) -> torch.Tensor:
     pc = (-x.shape[1]) % g
     return F.pad(x, (0, pc)) if pc else x

@@ -10,15 +10,23 @@ Runs on the card unless asked for the CPU::
         --scale-down --device cpu --mesh 3x1 --mode zero1 --steps 2 \\
         --seq-len 16 --global-batch 3 --wire-dtype int8
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch phi3.5-moe-42b-a6.6b --scale-down --device cpu --mesh 2x2 \\
+        --mode zero1 --moe-dispatch ep --steps 2 --seq-len 16 \\
+        --global-batch 2
+
 The flags are the reference's plus ``--device``, less ``--ckpt-every``.
 ``--wire-dtype int8`` puts the gradient reduce-scatter on the int8 wire
 (with EF-SGD residuals unless ``--no-error-feedback``; ``--compress`` is
-its deprecated alias).  Checkpointing, the watchdog and failure
-injection belong to a later slice (ROADMAP.md queue 1 item 11):
-``--ckpt-dir`` and ``--fail-at-step`` raise if given, as do the flags of
-the other features not ported yet (``--bucket-bytes``, ``--grad-sync``
-other than circulant, ``--mode fsdp_auto``, ``--mesh`` with a model axis,
-``--moe-dispatch``).
+its deprecated alias).  ``--moe-dispatch ep`` trains a MoE arch expert
+parallel over the mesh's model axis (``--mesh DxM``: D·M virtual ranks,
+zero1 over D, the dispatch's alltoall over M).  Checkpointing, the
+watchdog and failure injection belong to a later slice (ROADMAP.md queue
+1 item 11): ``--ckpt-dir`` and ``--fail-at-step`` raise if given, as do
+the flags of the other features not ported yet (``--bucket-bytes``,
+``--grad-sync`` other than circulant, ``--mode fsdp_auto``, ``--mesh``
+with a model axis but no ``--moe-dispatch ep``, ``--moe-dispatch
+rowwise``).
 """
 from __future__ import annotations
 
@@ -50,7 +58,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM (data x model); M must be 1 for now")
+                    help="DxM (data x model); M > 1 only with "
+                         "--moe-dispatch ep")
     ap.add_argument("--mode", default=None,
                     choices=[None, "single", "zero1", "fsdp_auto"])
     ap.add_argument("--grad-sync", default="circulant",
@@ -69,7 +78,8 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["auto", "on", "off"],
                     help="fused_round CUDA kernel for every reduce-scatter "
                          "round, or on the int8 wire the quantize and "
-                         "fused_round_dq kernels (auto = on when the run "
+                         "fused_round_dq kernels, and permute_rows in the "
+                         "MoE dispatch's alltoall (auto = on when the run "
                          "is on the card)")
     ap.add_argument("--moe-dispatch", default=None,
                     choices=[None, "global", "rowwise", "ep"])

@@ -1,3 +1,4 @@
-"""Models of the port (the dense decoder family so far)."""
+"""Models of the port (the dense and MoE decoder families so far)."""
 from .config import ModelConfig  # noqa: F401
-from .registry import ModelApi, build, value_and_grad  # noqa: F401
+from .registry import (ModelApi, build, is_ep, value_and_grad,  # noqa: F401
+                       value_and_grad_ranks)

@@ -28,10 +28,11 @@ def dtype_of(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int,
-               device=None) -> torch.Tensor:
+               std: float | None = None, device=None) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun-ish): ``fan_in**-0.5 * N(0,1)``
-    cut at ±2 (stacked layer weights pass the per-layer fan-in)."""
-    std = fan_in ** -0.5
+    cut at ±2 (stacked layer weights pass the per-layer fan-in), or
+    ``std * N(0, 1)`` cut at ±2 when ``std`` is given."""
+    std = fan_in ** -0.5 if std is None else std
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (std * w).to(dtype)

@@ -1,5 +1,5 @@
 """Model registry, ported from ``repro/models/registry.py``: one API over
-the architecture families (the dense family so far)."""
+the architecture families (dense and MoE so far)."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -10,29 +10,54 @@ from .. import tree as T
 from . import transformer
 from .config import ModelConfig
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer}
 
 
 class ModelApi(NamedTuple):
-    """What a training step needs from a model."""
+    """What a training step needs from a model.  ``loss_ranks`` is set
+    for a model whose ranks are coupled (expert-parallel MoE): it maps
+    per-rank parameter trees and batches to per-rank losses in one
+    forward over all of them; ``loss`` then raises."""
     cfg: ModelConfig
     init: Callable            # (generator, device) -> params
     loss: Callable            # (params, batch) -> scalar
+    loss_ranks: Callable | None = None  # ([params], [batch]) -> [scalar]
 
 
-def build(cfg: ModelConfig, remat: bool = True) -> ModelApi:
-    """The :class:`ModelApi` of ``cfg``'s family."""
+def is_ep(cfg: ModelConfig) -> bool:
+    """True for an expert-parallel MoE config."""
+    return cfg.is_moe and cfg.moe_dispatch == "ep"
+
+
+def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
+          use_fused_kernel: bool | None = None) -> ModelApi:
+    """The :class:`ModelApi` of ``cfg``'s family.  An expert-parallel MoE
+    config exchanges over ``ep_comm`` (the model axis's communicator;
+    ``use_fused_kernel`` picks its alltoall backend, ``None`` = the
+    ``permute_rows`` kernel when the buffer lies on a card)."""
     try:
         mod = _FAMILY_MODULES[cfg.family]
     except KeyError:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1 "
             f"item 13)") from None
-    return ModelApi(
-        cfg=cfg,
-        init=lambda gen, device=None: mod.init_params(cfg, gen, device),
-        loss=lambda params, batch: mod.loss_fn(params, cfg, batch, remat),
-    )
+    def init(gen, device=None):
+        return mod.init_params(cfg, gen, device)
+
+    if not is_ep(cfg):
+        return ModelApi(cfg=cfg, init=init, loss=lambda params, batch:
+                        mod.loss_fn(params, cfg, batch, remat))
+    if ep_comm is None:
+        raise ValueError(f"{cfg.name}: moe_dispatch='ep' needs ep_comm, the "
+                         f"communicator of the expert-parallel axis")
+
+    def loss(params, batch):
+        raise ValueError("an expert-parallel model's ranks are coupled: "
+                         "use loss_ranks over all local ranks")
+
+    return ModelApi(cfg=cfg, init=init, loss=loss, loss_ranks=lambda ps, bs:
+                    mod.loss_fn_ep(ps, cfg, bs, ep_comm, remat,
+                                   use_fused_kernel))
 
 
 def value_and_grad(loss: Callable) -> Callable:
@@ -46,5 +71,33 @@ def value_and_grad(loss: Callable) -> Callable:
         val = loss(T.unflatten(zip((p for p, _ in items), leaves)), batch)
         grads = torch.autograd.grad(val, leaves)
         return val.detach(), T.unflatten(zip((p for p, _ in items), grads))
+
+    return f
+
+
+def value_and_grad_ranks(loss_ranks: Callable) -> Callable:
+    """``([params], [batch]) -> ([loss], [grads])`` for coupled ranks: one
+    forward over every rank, then ONE backward of the sum of their
+    losses, each rank's gradient taken from its own leaves — rank r gets
+    ``d(sum_s L_s) / d params_r``, what the reference's gradient inside
+    ``shard_map`` gives each device through the transposed exchanges."""
+    def f(params, batches):
+        items = [T.flatten(p) for p in params]
+        leaves = [[leaf.detach().requires_grad_(True) for _, leaf in it]
+                  for it in items]
+        trees = [T.unflatten(zip((p for p, _ in it), lv))
+                 for it, lv in zip(items, leaves)]
+        losses = loss_ranks(trees, batches)
+        total = losses[0]
+        for loss in losses[1:]:
+            total = total + loss
+        flat = torch.autograd.grad(total, [x for lv in leaves for x in lv],
+                                   allow_unused=True, materialize_grads=True)
+        grads, i = [], 0
+        for it in items:
+            grads.append(T.unflatten(zip((p for p, _ in it),
+                                         flat[i:i + len(it)])))
+            i += len(it)
+        return [loss.detach() for loss in losses], grads
 
     return f

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family, ported from ``repro/models/transformer.py``.
+"""Decoder-only LM, dense and MoE families, ported from
+``repro/models/transformer.py``.
 
 Parameters keep the reference's layout: a nested dict whose layer
 weights are STACKED along a leading ``n_layers`` axis (``layers.attn.wq``
@@ -7,9 +8,14 @@ ZeRO-1 shards each leaf along dim 0 and must pad, shard and hand the
 kernel the same shapes as the reference.  The forward pass loops over
 the layer index (the reference's ``lax.scan``) and, with ``remat``,
 recomputes each layer in the backward pass (``torch.utils.checkpoint``
-in place of ``jax.checkpoint``).  MoE, hybrid and the cache paths
-(prefill / decode) are not ported yet (ROADMAP.md queue 1 items 8, 12,
-13).
+in place of ``jax.checkpoint``).  The MoE family replaces each layer's
+FFN by the ``moe`` subtree (a float32 router and stacked expert weights)
+and adds the layers' load-balancing aux losses to the loss.  Its
+expert-parallel form (``moe_dispatch="ep"``) runs every layer for all of
+a communicator's local ranks together (:func:`loss_fn_ep`): attention per
+rank, then one MoE exchange across them, each layer one checkpoint around
+all ranks.  Hybrid and the cache paths (prefill / decode) are not ported
+yet (ROADMAP.md queue 1 items 12, 13).
 """
 from __future__ import annotations
 
@@ -22,34 +28,43 @@ from . import attention as attn
 from .config import ModelConfig
 from .layers import (cross_entropy_loss, dense_init, dtype_of, embed_init, ffn,
                      rmsnorm)
+from .moe import init_moe, moe_ffn, moe_ffn_ep, moe_shapes
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe or cfg.qkv_bias:
+def _check_family(cfg: ModelConfig) -> None:
+    if (cfg.family not in ("dense", "moe") or cfg.is_moe != (
+            cfg.family == "moe") or cfg.qkv_bias):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family without QKV bias is ported "
-            f"yet (ROADMAP.md queue 1 item 13)")
+            f"{cfg.name}: only the dense and MoE families without QKV bias "
+            f"are ported yet (ROADMAP.md queue 1 item 13)")
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes (the reference's leaves)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     L, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
     h, hkv = cfg.n_heads, cfg.n_kv_heads
     attn_p = {"wq": (L, d, h, dh), "wk": (L, d, hkv, dh),
               "wv": (L, d, hkv, dh), "wo": (L, h, dh, d)}
     if cfg.qk_norm:
         attn_p.update(q_norm=(L, dh), k_norm=(L, dh))
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "layers": {"norm1": (L, d), "norm2": (L, d), "attn": attn_p,
-                   "ffn": {"w_gate": (L, d, cfg.d_ff), "w_up": (L, d, cfg.d_ff),
-                           "w_down": (L, cfg.d_ff, d)}},
-        "final_norm": (d,),
-    }
+    layers = {"norm1": (L, d), "norm2": (L, d), "attn": attn_p}
+    if cfg.is_moe:
+        layers["moe"] = {k: (L, *v) for k, v in moe_shapes(cfg).items()}
+    else:
+        layers["ffn"] = {"w_gate": (L, d, cfg.d_ff), "w_up": (L, d, cfg.d_ff),
+                         "w_down": (L, cfg.d_ff, d)}
+    shapes = {"embed": (cfg.vocab_size, d), "layers": layers,
+              "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
+
+
+def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
+    """A leaf's dtype: ``cfg.dtype``, but float32 for the MoE router, as
+    the reference keeps it."""
+    return torch.float32 if path[-1] == "router" else dtype_of(cfg)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
@@ -60,6 +75,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     out: dict = {}
     for path, shape in T.flatten(param_shapes(cfg)):
         name = path[-1]
+        if path[:2] == ("layers", "moe"):
+            continue  # init_moe below
         if name == "embed":
             val = embed_init(gen, shape, dtype, device)
         elif name.startswith("norm") or name.endswith("norm"):
@@ -69,44 +86,135 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
             val = dense_init(gen, shape, dtype, fan_in=per_layer[0],
                              device=device)
         T.assign(out, path, val)
+    if cfg.is_moe:
+        out["layers"]["moe"] = init_moe(gen, cfg, dtype, device,
+                                        n_layers=cfg.n_layers)
     return out
 
 
-def _layer_forward(cfg: ModelConfig, paths, x, positions, *leaves):
-    lp = T.unflatten(zip(paths, leaves))
+def _attention_block(cfg: ModelConfig, lp: dict, x, positions):
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    x = x + attn.self_attention(lp["attn"], cfg, h, positions,
-                                window=cfg.sliding_window)
-    return x + ffn(lp["ffn"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
+    return x + attn.self_attention(lp["attn"], cfg, h, positions,
+                                   window=cfg.sliding_window)
 
 
-def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   remat: bool = True) -> torch.Tensor:
-    """(B, S) token ids to (B, S, V) logits in the parameter dtype."""
-    _check_dense(cfg)
+def _layer_forward(cfg: ModelConfig, paths, x, positions, *leaves):
+    """One layer: ``x`` for the dense family, ``(x, aux)`` for MoE."""
+    lp = T.unflatten(zip(paths, leaves))
+    x = _attention_block(cfg, lp, x, positions)
+    h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    if cfg.is_moe:
+        y, aux = moe_ffn(lp["moe"], cfg, h)
+        return x + y, aux
+    return x + ffn(lp["ffn"], h)
+
+
+def _run_layer(fn, remat: bool, *args):
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     b, s = tokens.shape
     x = F.embedding(tokens.long(), params["embed"]).to(dtype_of(cfg))
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    return x, torch.arange(s, device=x.device).expand(b, s)
+
+
+def _layer_slices(params: dict):
+    """Layer paths and, per layer, its leaves.  ``unbind``, not
+    ``leaf[i]``: its backward stacks the L slice gradients once, where
+    indexing would zero-fill and accumulate a full (L, ...) tensor per
+    layer."""
     layer_items = T.flatten(params["layers"])
     paths = [p for p, _ in layer_items]
-    # unbind, not leaf[i]: its backward stacks the L slice gradients once,
-    # where indexing would zero-fill and accumulate a full (L, ...) tensor
-    # per layer.
-    per_layer = list(zip(*(leaf.unbind(0) for _, leaf in layer_items)))
-    for i in range(cfg.n_layers):
-        leaves = per_layer[i]
-        if remat:
-            x = checkpoint(_layer_forward, cfg, paths, x, positions, *leaves,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _layer_forward(cfg, paths, x, positions, *leaves)
+    return paths, list(zip(*(leaf.unbind(0) for _, leaf in layer_items)))
+
+
+def _head(params: dict, cfg: ModelConfig, x):
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
 
 
+def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   remat: bool = True):
+    """(B, S) token ids to (B, S, V) logits in the parameter dtype, and
+    for the MoE family the summed aux loss: ``(logits, aux)``."""
+    _check_family(cfg)
+    x, positions = _embed(params, cfg, tokens)
+    paths, per_layer = _layer_slices(params)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        out = _run_layer(_layer_forward, remat, cfg, paths, x, positions,
+                         *per_layer[i])
+        if cfg.is_moe:
+            x, a = out
+            aux = aux + a
+        else:
+            x = out
+    logits = _head(params, cfg, x)
+    return (logits, aux) if cfg.is_moe else logits
+
+
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             remat: bool = True) -> torch.Tensor:
-    """Causal-LM loss: mean token cross-entropy (float32)."""
-    logits = forward_logits(params, cfg, batch["tokens"], remat)
-    return cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    """Causal-LM loss: mean token cross-entropy (float32), plus the aux
+    loss for MoE."""
+    out = forward_logits(params, cfg, batch["tokens"], remat)
+    logits, aux = out if cfg.is_moe else (out, None)
+    loss = cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    return loss if aux is None else loss + aux
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: every layer over all local ranks at once
+# ---------------------------------------------------------------------------
+
+def _ep_layer_forward(cfg: ModelConfig, paths, positions, comm, fused,
+                      *args):
+    """One MoE layer for all local ranks: ``args`` is the ranks' inputs,
+    then each rank's layer leaves in ``paths`` order.  Returns the ranks'
+    outputs, then their aux losses."""
+    nr = len(positions)
+    xs, leaves = list(args[:nr]), args[nr:]
+    n = len(paths)
+    lps = [T.unflatten(zip(paths, leaves[i * n:(i + 1) * n]))
+           for i in range(nr)]
+    normed = []
+    for i in range(nr):
+        xs[i] = _attention_block(cfg, lps[i], xs[i], positions[i])
+        normed.append(rmsnorm(xs[i], lps[i]["norm2"], cfg.norm_eps))
+    ys, auxs = moe_ffn_ep([lp["moe"] for lp in lps], cfg, normed, comm,
+                          use_fused_kernel=fused)
+    return (*(x + y for x, y in zip(xs, ys)), *auxs)
+
+
+def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
+               remat: bool = True, use_fused_kernel: bool | None = None
+               ) -> list:
+    """Per-rank losses of the expert-parallel MoE model over ``comm``'s
+    local ranks (``params``/``batches``: one tree / batch per rank): each
+    layer's attention runs per rank, its MoE exchange across them
+    (:func:`moe_ffn_ep`), and with ``remat`` each layer is one
+    checkpoint around all ranks, so the backward recomputes the layer's
+    exchanges too, as the reference's remat does."""
+    _check_family(cfg)
+    if not cfg.is_moe or cfg.moe_dispatch != "ep":
+        raise ValueError(f"{cfg.name}: loss_fn_ep needs moe_dispatch='ep'")
+    embedded = [_embed(p, cfg, b["tokens"]) for p, b in zip(params, batches)]
+    xs = [x for x, _ in embedded]
+    positions = [pos for _, pos in embedded]
+    slices = [_layer_slices(p) for p in params]
+    paths = slices[0][0]
+    nr = len(params)
+    auxs = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+    for i in range(cfg.n_layers):
+        leaves = [leaf for _, per_layer in slices for leaf in per_layer[i]]
+        out = _run_layer(_ep_layer_forward, remat, cfg, paths, positions,
+                         comm, use_fused_kernel, *xs, *leaves)
+        xs = list(out[:nr])
+        auxs = [a + b for a, b in zip(auxs, out[nr:])]
+    return [cross_entropy_loss(_head(p, cfg, x), b["targets"], b.get("mask"))
+            + a for p, x, b, a in zip(params, xs, batches, auxs)]

@@ -229,18 +229,20 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     """One ZeRO-1 training step over the local ranks.
 
     ``params`` / ``opt`` / ``batches`` are per-local-rank lists (parameter
-    trees, :class:`Zero1State`, batch dicts).  Returns
-    ``(params', opt', metrics)``.  Memory: at full width the old and new
-    states of p ranks do not fit side by side, so the step rebinds the
-    leaves of the parameter and moment trees it was given, leaf by leaf,
-    and drops each gradient as soon as it is reduced.
+    trees, :class:`Zero1State`, batch dicts); ``loss_and_grad`` maps the
+    lists of parameters and batches to the lists of losses and gradient
+    trees (one backward per rank, or one over coupled ranks).  ``comm``
+    is the data axis's: on a mesh it holds every rank, and each model
+    column syncs over its own data-axis group.  Returns ``(params', opt',
+    metrics)``.  Memory: at full width the old and new states of p ranks
+    do not fit side by side, so the step rebinds the leaves of the
+    parameter and moment trees it was given, leaf by leaf, and drops each
+    gradient as soon as it is reduced.
     """
     world = comm.p
-    losses, grads = [], []
-    for prm, batch in zip(params, batches):
-        loss, g = loss_and_grad(prm, batch)
-        losses.append(loss)
-        grads.append(T.leaves(g))
+    losses, trees = loss_and_grad(params, batches)
+    grads = [T.leaves(g) for g in trees]
+    del trees  # the leaf lists alone hold the gradients now
     # paths and shapes only: the old leaves must not outlive their update
     items = [(path, tuple(p.shape)) for path, p in T.flatten(params[0])]
     flags = [is_zero_leaf(shape, world, sync.min_shard_numel)

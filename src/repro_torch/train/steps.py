@@ -9,14 +9,20 @@ Both return a :class:`BuiltStep` whose ``step_fn`` maps
 ``(params, opt, batch) -> (params, opt, metrics)``.  For zero1 each of
 the three is a list over the communicator's local ranks.  The
 reference's ``fsdp_auto`` mode (GSPMD) has no counterpart yet.
+
+An expert-parallel MoE model (``moe_dispatch="ep"``) couples its ranks
+through the alltoall: zero1 then takes ONE backward of the sum of all
+ranks' losses (``value_and_grad_ranks``), as the reference's gradient
+inside ``shard_map`` transposes the exchanges, and syncs each model
+column over its data-axis group.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 from ..core.plan import plan
-from ..models import ModelApi, value_and_grad
+from ..models import ModelApi, is_ep, value_and_grad, value_and_grad_ranks
 from ..optim.adamw import AdamWConfig, init_tree_state, lr_at, update_tree
 from ..optim.zero1 import GradSyncConfig, init_zero1_state, zero1_step
 
@@ -41,16 +47,47 @@ def build_single(model: ModelApi, opt_cfg: AdamWConfig) -> BuiltStep:
     return BuiltStep(step_fn=step_fn, init_opt=init_tree_state)
 
 
+def collective_specs(sync: GradSyncConfig, model_cfg=None,
+                     ep_world: int | None = None
+                     ) -> tuple[tuple[str, Any], ...]:
+    """Every :class:`CollectiveSpec` a zero1 step executes, as ``(role,
+    spec)`` pairs: ``"data"`` for the grad sync's reduce-scatter and
+    allgather, and ``"ep"`` for the MoE dispatch's alltoall and
+    alltoallv when ``model_cfg`` is expert-parallel (``ep_world`` is that
+    axis's size)."""
+    out: list[tuple[str, Any]] = [("data", sync.rs_spec()),
+                                  ("data", sync.ag_spec())]
+    if model_cfg is not None and is_ep(model_cfg):
+        if ep_world is None:
+            raise ValueError("moe_dispatch='ep' config needs ep_world to "
+                             "enumerate its dispatch specs")
+        from ..models.dispatch import ep_collective_specs
+        out += [("ep", sp) for sp in ep_collective_specs(
+            model_cfg, ep_world, sync.use_fused_kernel)]
+    return tuple(out)
+
+
 def build_zero1(model: ModelApi, comm, opt_cfg: AdamWConfig,
-                sync: GradSyncConfig, device=None) -> BuiltStep:
-    """ZeRO-1 over ``comm``: per-leaf circulant RS → AdamW on the shard →
-    circulant AG.  Both grad-sync plans (the reduce-scatter's, which may
-    be on the int8 wire, and the allgather's) are compiled here and their
-    backends resolved for gradients on ``device``, so a bad sync config
-    fails at build time rather than mid-step."""
-    for spec in (sync.rs_spec(), sync.ag_spec()):
-        plan(spec, p=comm.p).backend_for(device)
-    loss_and_grad = value_and_grad(model.loss)
+                sync: GradSyncConfig, device=None,
+                ep_world: int | None = None) -> BuiltStep:
+    """ZeRO-1 over ``comm`` (the data axis's): per-leaf circulant RS →
+    AdamW on the shard → circulant AG.  Every plan of the step (the
+    reduce-scatter's, which may be on the int8 wire, the allgather's and,
+    for an expert-parallel model over ``ep_world`` ranks, the dispatch's
+    alltoall(v)) is compiled here and its backend resolved for tensors
+    on ``device``, so a bad config fails at build time rather than
+    mid-step."""
+    for role, spec in collective_specs(sync, model.cfg, ep_world):
+        plan(spec, p=comm.p if role == "data" else ep_world
+             ).backend_for(device)
+    if model.loss_ranks is not None:
+        loss_and_grad = value_and_grad_ranks(model.loss_ranks)
+    else:
+        one = value_and_grad(model.loss)
+
+        def loss_and_grad(params, batches):
+            pairs = [one(p, b) for p, b in zip(params, batches)]
+            return [p[0] for p in pairs], [p[1] for p in pairs]
 
     def step_fn(params, opt, batches):
         return zero1_step(loss_and_grad, params, opt, batches, comm=comm,

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (block_reduce, dequant_add, fused_round,
-                                 fused_round_dq, quantize, ref)
+                                 fused_round_dq, permute_rows, quantize, ref)
 
 
 def _same_bits(a, b) -> bool:
@@ -115,3 +115,31 @@ def test_block_reduce_kernel_matches_plain_version(monkeypatch, dtype):
         torch.cuda.synchronize()
         assert block_reduce.launches == before + 1
         assert _same_bits(got, w), op
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("rows,cols", [(4, 1), (5, 7), (8, 4096)])
+def test_permute_rows_kernel_matches_plain_version(monkeypatch, dtype, rows,
+                                                   cols):
+    """Forward and backward (the inverse permutation) launch the kernel,
+    bitwise the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = (torch.randn(rows, cols, device="cuda") * 100).to(dtype)
+    perm = torch.randperm(rows).tolist()
+    want = ref.permute_rows_ref(x, perm)
+    _refuse(monkeypatch, "permute_rows_ref")
+    before = permute_rows.launches
+    got = permute_rows(x, perm)
+    torch.cuda.synchronize()
+    assert permute_rows.launches == before + 1
+    assert _same_bits(got, want)
+    if dtype != torch.int32:
+        xg = x.detach().requires_grad_(True)
+        w = torch.randn_like(xg)
+        (permute_rows(xg, perm) * w).sum().backward()
+        torch.cuda.synchronize()
+        assert permute_rows.launches == before + 3
+        inv = [perm.index(i) for i in range(rows)]
+        assert _same_bits(xg.grad, w[inv])

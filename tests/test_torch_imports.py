@@ -6,7 +6,8 @@
 * an AST scan finds no ``jax`` or ``repro`` import in
   ``src/repro_torch/`` or ``chip_smoke.py``;
 * the train CLI runs the zero1 main path on the CPU at a tiny size,
-  exact and on the int8 wire.
+  exact and on the int8 wire, and the expert-parallel MoE path on a 2x2
+  mesh.
 """
 import ast
 import math
@@ -81,6 +82,33 @@ def test_train_cli_zero1_int8_wire_on_cpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     losses = [float(x) for x in re.findall(r"loss (\S+)", proc.stdout)]
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+
+
+def test_train_cli_moe_ep_on_cpu():
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--arch", "phi3.5-moe-42b-a6.6b", "--scale-down", "--device",
+           "cpu", "--mesh", "2x2", "--mode", "zero1", "--moe-dispatch", "ep",
+           "--steps", "2", "--seq-len", "16", "--global-batch", "2",
+           "--log-every", "1"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=_env(),
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    losses = [float(x) for x in re.findall(r"loss (\S+)", proc.stdout)]
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+
+
+@pytest.mark.parametrize("extra", [["--mesh", "2x2"],
+                                   ["--moe-dispatch", "rowwise"],
+                                   ["--mesh", "2x2", "--moe-dispatch",
+                                    "global"]])
+def test_train_cli_refuses_unported_moe_flags(extra):
+    """A model axis without ep (tensor parallelism) and the rowwise
+    dispatch are not ported."""
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--scale-down",
+                    "--device", "cpu", "--steps", "1", "--seq-len", "8",
+                    "--global-batch", "2", *extra])
 
 
 @pytest.mark.parametrize("extra", [["--ckpt-dir", "x"], ["--fail-at-step", "1"],
