@@ -19,8 +19,12 @@ Phases (any failure exits non-zero; none is caught):
    bitwise (finite inputs; ``block_reduce`` NaN-aware) over f32/bf16
    inputs, add/max/min, ragged columns and rows, groups below and equal
    to the row width, and every wire-round shape of both wire paths
-   below, timed at the main path's shapes (``block_reduce`` beside
-   ``torch.add`` as its library yardstick);
+   below, timed at the main path's shapes (``dequant_add`` beside
+   ``torch.addcmul`` as its library yardstick); then ``block_reduce``
+   bitwise over edge cases (ragged tails, 1-element offsets, several
+   rows, empty, NaN) and a sweep of sizes (2**14 ... 2**26 and the FFN
+   leaf's fold), dtypes and ops against ``torch.add`` / ``maximum`` /
+   ``minimum`` (interleaved medians, host microseconds per call apart);
 3. collectives on the card: circulant reduce-scatter and allreduce of
    64M-element float32 payloads per rank on a ``LocalComm``, p in
    {3, 4, 8}, exact and on the int8 wire, fused bitwise equal to eager,
@@ -70,6 +74,13 @@ A profiled step counts only if its profile holds every launch of the
 port's kernels that the step made; otherwise its device time is printed
 as not measured.
 
+``python3 chip_smoke.py --against SRC`` runs nothing of the above: it
+compares this tree's kernels with those of the ``repro_torch`` under
+``SRC`` (another checkout's ``src``) in one process on one card: the
+host microseconds per call of every kernel wrapper of both, beside
+``torch.add``'s, and ``block_reduce``'s device time of both, interleaved
+with ``torch.add``'s, at the FFN leaf's fold.
+
 Prints the card line, one ``{"kernels": [...]}`` JSON line and, last, the
 verdict ``{"ok": true, "device": {...}}``.
 """
@@ -79,6 +90,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -178,6 +190,68 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: cycles a spin kernel holds the stream for each call of a timed sample,
+#: so that the host has queued the sample's calls before the first one
+#: runs: ~40 us a call at the H100's ~2 GHz SM clock, more than any
+#: wrapper or plain version timed here takes to queue one call.
+SPIN_CYCLES_PER_CALL = 80_000
+
+
+def interleaved_ms(fns: dict, reps: int, rounds: int = 7) -> dict:
+    """Device milliseconds per call of each of ``fns`` (name ->
+    zero-argument callable), timed in alternation: after a warm-up, each
+    of ``rounds`` rounds takes one sample of ``reps`` calls of every
+    function, in the given order on even rounds and reversed on odd ones.
+    Before each sample a spin kernel holds the stream while the host
+    queues the calls, so the CUDA events bracket the device's work and not
+    the host's launch time.  Returns name -> ``(median, min, max)`` over
+    the rounds."""
+    import torch
+    names = list(fns)
+    for name in names:
+        for _ in range(2):
+            fns[name]()
+    torch.cuda.synchronize()
+    samples = {name: [] for name in names}
+    for r in range(rounds):
+        events = []
+        for name in (names if r % 2 == 0 else names[::-1]):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
+            start.record()
+            for _ in range(reps):
+                fns[name]()
+            end.record()
+            events.append((name, start, end))
+        torch.cuda.synchronize()
+        for name, start, end in events:
+            samples[name].append(start.elapsed_time(end) / reps)
+    return {name: (statistics.median(s), min(s), max(s))
+            for name, s in samples.items()}
+
+
+def host_us(fn, calls: int) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls queued back
+    to back with no synchronisation between them (the wrapper's and the
+    launch's host cost, not the device's time), after a warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def spread(t: tuple) -> str:
+    """``median [min, max]`` of an :func:`interleaved_ms` entry."""
+    return f"{t[0]:.4f} [{t[1]:.4f}, {t[2]:.4f}]"
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: card and build
 # ---------------------------------------------------------------------------
@@ -201,10 +275,15 @@ def phase_card_and_build():
           f"{time.perf_counter() - t0:.1f} s (set-up)")
     for name, log in logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(a) + int(b) for a, b in re.findall(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        spilled = []
+        for chunk in log.split("Compiling entry function '")[1:]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+            if m and int(m[1]) + int(m[2]):
+                spilled.append((chunk.split("'")[0], int(m[1]) + int(m[2])))
         print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-              f"registers, spill bytes {max(spills)} at most (ptxas -v)")
+              f"registers, {len(spilled)} spilling (ptxas -v)"
+              + "".join(f"\n    {b} spill bytes: {fn}" for fn, b in spilled))
     return smi.splitlines()[0]
 
 
@@ -413,7 +492,6 @@ def phase_wire_kernels():
     from repro_torch.kernels import (block_reduce, dequant_add,
                                      dq_round_bytes, fused_round_dq, quantize,
                                      ref)
-    from repro_torch.kernels.block_reduce import block_reduce_bytes
     from repro_torch.kernels.quantize import (DEFAULT_GROUP,
                                               dequant_add_bytes,
                                               quantize_bytes)
@@ -560,42 +638,257 @@ def phase_wire_kernels():
               f"{st['bound_ms']:.3f} ms, plain {st['plain_ms']:.3f} ms")
 
     # Off the main path: dequant_add at a round-0 receive of the FFN leaf
-    # (the compressed (+) of one row) and block_reduce at its fold (f32
-    # add), each beside its plain version; block_reduce also beside the
-    # one PyTorch call that computes it (torch.add).
+    # (the compressed (+) of one row) beside its plain version and the one
+    # PyTorch call that computes the same function, torch.addcmul over
+    # (rows, groups, g) views (rounded once where the plain version rounds
+    # the product and the sum apart: within 2**-24 |q s| + 1 ulp of it).
+    # The port never calls addcmul.
     leaf, _, _, cols, g = max(wire_leaves(P_MAIN), key=lambda r: r[3])
+    check(cols % g == 0, f"{leaf}: {cols} columns in groups of {g}")
+    ng = cols // g
     acc = randn((1, cols))
     codes, scales = quantize(randn((1, cols), 3.0), group=g)
-    same("dequant_add", dequant_add(acc, codes, scales, group=g),
-         ref.dequant_add_ref(acc, codes, scales, group=g), f"{leaf} receive")
+    want = ref.dequant_add_ref(acc, codes, scales, group=g)
+    same("dequant_add", dequant_add(acc, codes, scales, group=g), want,
+         f"{leaf} receive")
+
+    def addcmul():
+        return torch.addcmul(acc.view(1, ng, g), codes.view(1, ng, g),
+                             scales.view(1, ng, 1)).view(1, cols)
+
+    lib = addcmul()
+    deq = ref.dequant_ref(codes, scales, group=g).double().abs()
+    ulp = torch.nextafter(want.abs(), torch.tensor(math.inf, device="cuda")
+                          ) - want.abs()
+    err = (lib.double() - want.double()).abs()
+    check(lib.dtype == torch.float32 and
+          bool((err <= 2.0**-24 * deq + ulp.double()).all()),
+          f"torch.addcmul is not dequant_add's function: max |diff| "
+          f"{float(err.max())}")
+    print(f"dequant_add yardstick torch.addcmul: max |diff| from the plain "
+          f"version {float(err.max()):.3e}, {int((err > 0).sum())} of {cols} "
+          f"elements differ (within 2**-24 |q s| + 1 ulp)")
+    del lib, deq, ulp, err, want
+    t = interleaved_ms({
+        "kernel": lambda: dequant_add(acc, codes, scales, group=g),
+        "plain": lambda: ref.dequant_add_ref(acc, codes, scales, group=g),
+        "torch.addcmul": addcmul}, reps=20)
     nb_ = dequant_add_bytes(1, cols, 4, g)
     steps["dequant_add"] = {
-        "ms": time_ms(lambda: dequant_add(acc, codes, scales, group=g), 10),
-        "plain_ms": time_ms(lambda: ref.dequant_add_ref(acc, codes, scales,
-                                                        group=g), 10),
-        "bytes": nb_, "bound_ms": nb_ / HBM_BYTES_PER_S * 1e3,
-        "shape": f"(1, {cols}) f32, g={g}"}
+        "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+        "library_ms": t["torch.addcmul"][0], "bytes": nb_,
+        "bound_ms": nb_ / HBM_BYTES_PER_S * 1e3}
+    print(f"dequant_add at (1, {cols}) f32, g={g}: {nb_ / 1e9:.3f} GB, "
+          f"bound {steps['dequant_add']['bound_ms']:.4f} ms; interleaved "
+          f"median [min, max] ms: " + ", ".join(
+              f"{k} {spread(v)}" for k, v in t.items()))
     del acc, codes, scales
-    a, b = randn((2, cols)), randn((2, cols))
-    same("block_reduce", block_reduce(a, b), ref.block_reduce_ref(a, b),
-         f"{leaf} fold")
+    torch.cuda.empty_cache()
+    return errs.max, steps
+
+
+#: block_reduce's sweep: elements per operand, 2**14 ... 2**26, and the
+#: fold of the FFN leaf's round-0 receive, (2, 125829120) flattened.
+BR_SWEEP = [1 << k for k in range(14, 27)] + [2 * 125829120]
+#: its edge cases: single and odd elements, a ragged vector tail, a tail
+#: past the last whole block, passes below and above 64 MiB (where the
+#: kernel's loads per thread change).
+BR_EDGE_N = [1, 3, 4095, (1 << 20) + 7, 3 * (1 << 24) + 5]
+
+
+def phase_block_reduce():
+    """``block_reduce`` on the card: bitwise equal to the plain version
+    over edge cases; the sweep over sizes, dtypes and ops against the
+    matching PyTorch call (the port never calls it); and the table's row
+    at the FFN leaf's fold."""
+    import torch
+    from repro_torch.kernels import block_reduce, ref
+    from repro_torch.kernels.block_reduce import block_reduce_bytes
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    libs = {"add": torch.add, "max": torch.maximum, "min": torch.minimum}
+    max_err = 0.0
+
+    def same(got, want, what):
+        nonlocal max_err
+        ok = same_bits(got, want)
+        if not ok:
+            print(describe_mismatch(got.contiguous(), want.contiguous(), ()))
+        check(ok, f"block_reduce differs from its plain version: {what}")
+        if got.dtype != torch.int32 and got.numel():
+            d = (got.float() - want.float()).abs()
+            d = d[~torch.isnan(d)]
+            if d.numel():
+                max_err = max(max_err, float(d.max()))
+
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for op in ("add", "max", "min"):
+            nan = op != "add" and dtype != torch.int32
+            for n in BR_EDGE_N:
+                for off_a, off_b in ((0, 0), (1, 1), (0, 1)):
+                    base = _rand((1, n + 1), dtype, gen, nan)
+                    a = base[:, off_a:off_a + n]
+                    b = _rand((1, n + 1), dtype, gen, nan)[:, off_b:off_b + n]
+                    want = ref.block_reduce_ref(a, b, op=op)
+                    what = f"{dtype} {op} n={n} offsets {off_a},{off_b}"
+                    same(block_reduce(a, b, op=op), want, what)
+                    n_cases += 1
+            a, b = (_rand((9, 515), dtype, gen, nan) for _ in range(2))
+            same(block_reduce(a, b, op=op), ref.block_reduce_ref(a, b, op=op),
+                 f"{dtype} {op} (9, 515)")
+            n_cases += 1
+            before = block_reduce.launches
+            for shape in ((0, 5), (1, 0)):
+                e = torch.empty(shape, dtype=dtype, device="cuda")
+                check(block_reduce(e, e, op=op).shape == shape,
+                      f"block_reduce of an empty {shape}")
+            check(block_reduce.launches == before, "empty input launched")
+    torch.cuda.synchronize()
+    print(f"block_reduce vs plain: {n_cases} cases ((1, n), n in "
+          f"{BR_EDGE_N}, operands at 16-byte and 1-element offsets; (9, "
+          f"515); NaN for float max/min) x f32/bf16/i32 x add/max/min "
+          f"bitwise equal; empty inputs launch nothing")
+
+    # The sweep: bitwise, then kernel vs the PyTorch call, interleaved.
+    print("block_reduce sweep (1, n), kernel vs the library call; "
+          "interleaved median [min, max] ms over 7 rounds, host us per call "
+          "queued back to back:")
+    print(f"  {'dtype':8s} {'op':3s} {'n':>10s} {'kernel_ms':>26s} "
+          f"{'library_ms':>26s} {'bound_ms':>8s} {'k/lib':>6s} "
+          f"{'k_host_us':>9s} {'lib_host_us':>11s}")
+    losses = []
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for op in ("add", "max", "min"):
+            nan = op != "add" and dtype != torch.int32
+            for n in BR_SWEEP:
+                a, b = (_rand((1, n), dtype, gen, nan) for _ in range(2))
+                same(block_reduce(a, b, op=op),
+                     ref.block_reduce_ref(a, b, op=op),
+                     f"sweep {dtype} {op} n={n}")
+                lib = libs[op]
+                big = n >= 1 << 24
+                t = interleaved_ms(
+                    {"kernel": lambda: block_reduce(a, b, op=op),
+                     "library": lambda: lib(a, b)},
+                    reps=20 if big else 200)
+                h_k = host_us(lambda: block_reduce(a, b, op=op),
+                              20 if big else 200)
+                h_l = host_us(lambda: lib(a, b), 20 if big else 200)
+                bound = (block_reduce_bytes(n, a.element_size())
+                         / HBM_BYTES_PER_S * 1e3)
+                ratio = t["kernel"][0] / t["library"][0]
+                if n >= 1 << 22 and ratio > 1:
+                    losses.append((str(dtype), op, n, ratio))
+                print(f"  {str(dtype)[6:]:8s} {op:3s} {n:10d} "
+                      f"{spread(t['kernel']):>26s} "
+                      f"{spread(t['library']):>26s} {bound:8.4f} "
+                      f"{ratio:6.4f} {h_k:9.2f} {h_l:11.2f}")
+                del a, b
+            torch.cuda.empty_cache()
+    n_big = 9 * sum(n >= 1 << 22 for n in BR_SWEEP)
+    print(f"block_reduce sweep: kernel median <= the library's at "
+          f"{n_big - len(losses)} of {n_big} points with n >= 2**22"
+          + (f"; slower at {losses}" if losses else ""))
+
+    # The table's row: the FFN leaf's fold, kernel vs plain vs torch.add.
+    cols = BR_SWEEP[-1] // 2
+    a, b = (torch.randn((2, cols), device="cuda", generator=gen)
+            for _ in range(2))
+    same(block_reduce(a, b), ref.block_reduce_ref(a, b), "FFN leaf fold")
+    t = interleaved_ms({"kernel": lambda: block_reduce(a, b),
+                        "plain": lambda: ref.block_reduce_ref(a, b),
+                        "torch.add": lambda: torch.add(a, b)}, reps=20)
     nb_ = block_reduce_bytes(2 * cols, 4)
-    steps["block_reduce"] = {
-        "ms": time_ms(lambda: block_reduce(a, b), 10),
-        "plain_ms": time_ms(lambda: ref.block_reduce_ref(a, b), 10),
-        "library_ms": time_ms(lambda: torch.add(a, b), 10),
-        "bytes": nb_, "bound_ms": nb_ / HBM_BYTES_PER_S * 1e3,
-        "shape": f"(2, {cols}) f32 add"}
+    row = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
+           "library_ms": t["torch.add"][0], "bytes": nb_,
+           "bound_ms": nb_ / HBM_BYTES_PER_S * 1e3}
+    print(f"block_reduce at (2, {cols}) f32 add: {nb_ / 1e9:.3f} GB, bound "
+          f"{row['bound_ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f}"
+          f" % of it reached); interleaved median [min, max] ms: "
+          + ", ".join(f"{k} {spread(v)}" for k, v in t.items()))
     del a, b
     torch.cuda.empty_cache()
-    for name in ("dequant_add", "block_reduce"):
-        st = steps[name]
-        lib = (f", torch.add {st['library_ms']:.4f} ms"
-               if "library_ms" in st else "")
-        print(f"{name} at {st['shape']}: {st['bytes'] / 1e9:.3f} GB, kernel "
-              f"{st['ms']:.4f} ms, bound {st['bound_ms']:.4f} ms, plain "
-              f"{st['plain_ms']:.4f} ms{lib}")
-    return errs.max, steps
+    return max_err, row
+
+
+def load_kernels(src: str):
+    """The ``repro_torch.kernels`` package under ``src``, imported as
+    ``against_kernels`` beside this tree's (its modules import only each
+    other; it builds into its own checkout's ``build/``)."""
+    import importlib.util
+    init = Path(src).resolve() / "repro_torch" / "kernels" / "__init__.py"
+    if not init.is_file():
+        fail(f"{src} holds no repro_torch/kernels")
+    spec = importlib.util.spec_from_file_location(
+        "against_kernels", init, submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def against_report(src: str) -> int:
+    """This tree's kernels against those under ``src``, in one process:
+    ``python3 chip_smoke.py --against SRC``.  Prints the host microseconds
+    per call of every kernel wrapper of both trees and of ``torch.add``,
+    at small shapes (device time far below the host's), round-robin; then
+    ``block_reduce`` of both trees, each bitwise equal to the plain
+    version, timed interleaved with ``torch.add`` at the FFN leaf's fold
+    ``(2, 125829120)`` f32 add."""
+    import torch
+    from repro_torch import kernels as here
+    from repro_torch.kernels import ref
+    there = load_kernels(src)
+    print(f"this tree: {Path(here.__file__).parent}; against: "
+          f"{Path(there.__file__).parent}")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((4, 4096), device="cuda", generator=gen)
+    recv = torch.randn((2, 4096), device="cuda", generator=gen)
+    codes, scales = here.quantize(recv, group=512)
+
+    def wrappers(K):
+        return {
+            "block_reduce": lambda: K.block_reduce(x, x),
+            "fused_round": lambda: K.fused_round(x, recv, nb=2, next_lo=2),
+            "fused_round_dq": lambda: K.fused_round_dq(
+                x, codes, scales, nb=2, next_lo=2, group=512),
+            "quantize": lambda: K.quantize(x, group=512),
+            "dequant_add": lambda: K.dequant_add(recv, codes, scales,
+                                                 group=512),
+            "permute_rows": lambda: K.permute_rows(x, (3, 1, 0, 2))}
+
+    fns = {"torch.add": lambda: torch.add(x, x)}
+    for tree, K in (("here", here), ("against", there)):
+        fns.update({f"{tree} {k}": f for k, f in wrappers(K).items()})
+    rounds = {name: [] for name in fns}
+    for _ in range(7):  # round-robin, so a busy host weighs on all alike
+        for name, fn in fns.items():
+            rounds[name].append(host_us(fn, 1000))
+    print("  wrapper                  median [min, max] us per call over 7 "
+          "rounds of 1000 calls; median excess over torch.add in the same "
+          "round")
+    for name, us in rounds.items():
+        extra = statistics.median(u - a for u, a in
+                                  zip(us, rounds["torch.add"]))
+        print(f"  {name:24s} {statistics.median(us):7.2f} [{min(us):.2f}, "
+              f"{max(us):.2f}]  {extra:+7.2f}")
+
+    cols = 125829120
+    a, b = (torch.randn((2, cols), device="cuda", generator=gen)
+            for _ in range(2))
+    want = ref.block_reduce_ref(a, b)
+    for tree, K in (("here", here), ("against", there)):
+        check(same_bits(K.block_reduce(a, b), want),
+              f"block_reduce ({tree}) differs from its plain version")
+    del want
+    t = interleaved_ms({"here": lambda: here.block_reduce(a, b),
+                        "against": lambda: there.block_reduce(a, b),
+                        "torch.add": lambda: torch.add(a, b)}, reps=20)
+    lib = t["torch.add"][0]
+    print(f"block_reduce at (2, {cols}) f32 add, bitwise both; interleaved "
+          f"median [min, max] ms, / torch.add: " + ", ".join(
+              f"{k} {spread(v)} {v[0] / lib:.4f}" for k, v in t.items()))
+    return 0
 
 
 def ep_shape(cfg, pe: int, tokens: int) -> tuple[int, int]:
@@ -859,6 +1152,8 @@ PROFILED_KERNELS = {"fused_round": "fused_round_kernel",
 PROFILE_WIRE_STEP = "--profile-wire-step"
 #: argument that makes it the child process profiling phase 6 (a).
 PROFILE_EP_STEP = "--profile-ep-step"
+#: ``--against SRC``: only this tree's kernels against those under SRC.
+AGAINST = "--against"
 
 
 def timed_step(step) -> float:
@@ -1389,6 +1684,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this test needs a card")
     sys.path.insert(0, str(ROOT / "src"))
     torch.cuda.set_device(0)
+    if len(sys.argv) == 3 and sys.argv[1] == AGAINST:
+        return against_report(sys.argv[2])
     if sys.argv[1:] == [PROFILE_WIRE_STEP]:
         return profile_wire_step()
     if sys.argv[1:] == [PROFILE_EP_STEP]:
@@ -1397,6 +1694,7 @@ def main() -> int:
     phase_card_and_build()
     max_err, step = phase_kernel_vs_plain()
     wire_errs, wire = phase_wire_kernels()
+    br_err, br = phase_block_reduce()
     perm_err, perm = phase_permute_rows()
     phase_collectives()
     phase_wire_collectives()
@@ -1428,8 +1726,8 @@ def main() -> int:
             "src/repro/kernels/quantize.py:131", wire["dequant_add"],
             wire_errs["dequant_add"]),
         row("block_reduce", "src/repro_torch/csrc/block_reduce.cu",
-            "src/repro/kernels/block_reduce.py:40", wire["block_reduce"],
-            wire_errs["block_reduce"]),
+            "src/repro/kernels/block_reduce.py:40", br,
+            max(br_err, wire_errs["block_reduce"])),
         row("permute_rows", "src/repro_torch/csrc/permute_rows.cu",
             "src/repro/kernels/fused_round.py:319", perm, perm_err)]}))
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -2,8 +2,9 @@
 
 CUDA kernel ``csrc/block_reduce.cu``; replaces the Pallas TPU kernel
 ``repro/kernels/block_reduce.py:block_reduce``.  Bound by bytes (``a``
-and ``b`` read once, the result written once, one ⊕ per element): one
-grid-stride pass over 16-byte vectors, with the ⊕ of ``fused_round``
+and ``b`` read once, the result written once, one ⊕ per element): each
+thread folds one or two 8-byte vectors of a contiguous chunk, loaded and
+stored past the caches.  The ⊕ is ``fused_round``'s
 (``csrc/reduce_ops.cuh``: NaN operands returned as they are, bf16 added
 in float and rounded once, int32 wrapping), so it is bitwise
 ``torch.add`` / ``maximum`` / ``minimum``.  The TPU kernel's tile grid,
@@ -29,27 +30,32 @@ def block_reduce(a: torch.Tensor, b: torch.Tensor, *, op: str = "add"
                  ) -> torch.Tensor:
     """``a ⊕ b`` for equal 2-D shapes and dtypes (float32, bfloat16,
     int32; ⊕ add / max / min)."""
-    if a.shape != b.shape or a.ndim != 2:
+    code = _OPS.get(op)
+    if code is None:
+        raise ValueError(f"unknown reduce op {op!r}; have {sorted(_OPS)}")
+    if a.shape != b.shape or a.dim() != 2:
         raise ValueError(f"need equal 2-D shapes, got {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
-    if op not in _OPS:
-        raise ValueError(f"unknown reduce op {op!r}; have {sorted(_OPS)}")
-    if a.device != b.device:
-        raise ValueError(f"a on {a.device}, b on {b.device}")
-    if a.device.type == "cpu":
+    if not a.is_cuda:
+        if a.device != b.device:
+            raise ValueError(f"a on {a.device}, b on {b.device}")
+        if a.device.type != "cpu":
+            raise ValueError(f"block_reduce runs on cuda or cpu, got "
+                             f"{a.device}")
         return _ref.block_reduce_ref(a, b, op=op)
-    if a.device.type != "cuda":
-        raise ValueError(f"block_reduce runs on cuda or cpu, got {a.device}")
+    if a.get_device() != b.get_device():
+        raise ValueError(f"a on {a.device}, b on {b.device}")
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise TypeError(f"block_reduce kernel takes float32/bfloat16/int32 "
                         f"pairs, got {a.dtype} and {b.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("block_reduce kernel needs contiguous operands")
     out = torch.empty_like(a)
-    if out.numel():
+    n = out.numel()
+    if n:
         launch("block_reduce", "repro_block_reduce", "ppplii", a,
-               a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-               _DTYPES[a.dtype], _OPS[op])
+               a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+               _DTYPES[a.dtype], code)
         block_reduce.launches += 1
     return out
 

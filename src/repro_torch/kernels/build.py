@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -105,6 +107,17 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _CTYPES = {"p": ctypes.c_void_p, "l": ctypes.c_int64, "i": ctypes.c_int}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def _resolve(name: str, fn_name: str, signature: str):
+    """The typed ctypes function ``fn_name`` of ``csrc/<name>.cu``,
+    resolved once."""
+    fn = getattr(load(name), fn_name)
+    fn.argtypes = [_CTYPES[c] for c in signature + "p"]
+    fn.restype = ctypes.c_int
+    _fns[name, fn_name] = fn
+    return fn
 
 
 def launch(name: str, fn_name: str, signature: str, like, *args) -> None:
@@ -113,14 +126,19 @@ def launch(name: str, fn_name: str, signature: str, like, *args) -> None:
     device, with that device current.  ``signature`` types the arguments,
     one letter each (``p`` pointer, ``l`` int64, ``i`` int; the stream is
     added).  The launcher returns ``cudaGetLastError()``; a non-zero one
-    raises."""
-    import torch
-    fn = getattr(load(name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = [_CTYPES[c] for c in signature + "p"]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(like.device):
-        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    raises.
+
+    Per call this costs a dict lookup, the current device's index and the
+    raw stream handle (no ``torch.cuda.Stream`` object); the device is
+    switched only when ``like`` is not on the current one.  The caller
+    has initialised CUDA: ``like`` lies on a card."""
+    fn = _fns.get((name, fn_name)) or _resolve(name, fn_name, signature)
+    dev = like.get_device()
+    if dev == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{fn_name} (csrc/{name}.cu) launch failed: CUDA "
                            f"error {err}")

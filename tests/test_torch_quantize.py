@@ -26,6 +26,10 @@ Tolerances, and why:
   codes may then differ by one code step where a rounding boundary moves;
   on these inputs none moves, and the codes are held bitwise.
 * max/min folds have nothing to contract: bitwise everywhere.
+* ``torch.addcmul`` over ``(rows, groups, g)`` views (``chip_smoke.py``'s
+  yardstick for ``dequant_add``; the port never calls it): bitwise
+  against the jitted oracle (it rounds ``acc + q * s`` once, as XLA's
+  FMA does), and within the bound above of the port's plain version.
 """
 import functools
 import zlib
@@ -179,6 +183,36 @@ def test_dequant_add(shape, dtype):
             _fma_bound(got, want, codes, scales, g, f"{what} vs {name}")
 
 
+@pytest.mark.parametrize("shape,group", [
+    ((3, 36), 12), ((2, 10), 5), ((7, 64), 64), ((3, 512), 128),
+    ((130, 515), 515), ((4, 8192), 4), ((2, 65536), 512)])
+def test_addcmul_is_dequant_add(shape, group):
+    """``torch.addcmul`` over ``(rows, groups, g)`` views, the one PyTorch
+    call ``chip_smoke.py`` times beside the ``dequant_add`` kernel, is
+    ``dequant_add``'s function: bitwise equal to the reference's oracle
+    under ``jax.jit`` (both round ``acc + q * s`` once), and so within
+    ``2**-24 * |q * s|`` + 1 ulp of the port's twice-rounded plain
+    version.  Float32 accumulators whose width divides into groups."""
+    rng = _rng("addcmul", shape, group)
+    x = (rng.standard_normal(shape) * 2).astype(np.float32)
+    acc = (rng.standard_normal(shape) * 2).astype(np.float32)
+    jc, js = JR.quantize_ref(jnp.asarray(x), group=group)
+    codes, scales = _t(jc), _t(js)
+    rows, cols = shape
+    ng = cols // group
+    got = torch.addcmul(_t(acc).view(rows, ng, group),
+                        codes.view(rows, ng, group),
+                        scales.view(rows, ng, 1)).view(rows, cols)
+    assert got.dtype == torch.float32
+    what = f"addcmul {shape} g={group}"
+    _same(got, jax.jit(functools.partial(JR.dequant_add_ref, group=group))(
+        jnp.asarray(acc), jc, js), what + " vs jit ref")
+    _same(got, XF.dequant_add(_t(acc), codes, scales, group=group),
+          what + " vs the contracted plain version")
+    _fma_bound(got, TR.dequant_add_ref(_t(acc), codes, scales, group=group),
+               codes, scales, group, what + " vs the plain version")
+
+
 # ---------------------------------------------------------------------------
 # fused_round_dq
 # ---------------------------------------------------------------------------
@@ -278,6 +312,26 @@ def test_block_reduce_bitwise(dtype, op):
         np.testing.assert_array_equal(got_b.view(np.uint32),
                                       want.view(np.uint32),
                                       err_msg=f"{dtype} {op} vs {name}")
+
+
+@pytest.mark.parametrize("a,b,kw", [
+    ((2, 3), (3, 2), {}),                  # shapes differ
+    ((6,), (6,), {}),                      # not 2-D
+    ((2, 3), (2, 3), {"op": "mul"}),       # unknown op
+], ids=["shapes", "1-D", "op"])
+def test_block_reduce_validates(a, b, kw):
+    with pytest.raises(ValueError):
+        block_reduce(torch.ones(a), torch.ones(b), **kw)
+
+
+def test_block_reduce_on_the_cpu_launches_nothing():
+    """On CPU tensors the wrapper runs the plain version and counts no
+    launch."""
+    a, b = torch.arange(6.0).view(2, 3), torch.ones(2, 3)
+    before = block_reduce.launches
+    torch.testing.assert_close(block_reduce(a, b, op="max"),
+                               torch.maximum(a, b), rtol=0, atol=0)
+    assert block_reduce.launches == before
 
 
 # ---------------------------------------------------------------------------
