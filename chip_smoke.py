@@ -63,12 +63,30 @@ Phases (any failure exits non-zero; none is caught):
    pe = 3 (experts owned 6/5/5): fused bitwise equal to eager, ep equal
    to the global dispatch within ``1e-5 * max|global|``.
 
+7. Corollary 3 and the conformance harness: (a) the port's conformance
+   sweep (``repro_torch.core.conformance.run_sweep``) on the card at
+   every p of ``DEFAULT_PS``, with the launch counts set to 0 just
+   before and read just after: ``fused_round``, ``fused_round_dq``,
+   ``quantize`` and ``permute_rows`` must each launch; (b) non-uniform
+   (``counts=``) reduce-scatter and allreduce of qwen3-1.7b's embedding
+   gradient leaf, ``(151936, 2048)`` float32 per rank, add and max,
+   halving, at balanced counts (p = 3, 7: the unpadded ZeRO shards) and
+   the harness's ``ragged``, ``zero_ranks`` and ``one_column`` patterns
+   scaled to the leaf (p = 5): the first 16 columns bitwise equal to the
+   simulator run on the CPU, rows past each count zero, the allreduce
+   replicated bitwise, ``ceil_log2(p)`` exchanges per RS and twice that
+   per AR, ``comm.bytes`` equal to ``nonuniform_round_widths`` rows of
+   every rank, no kernel launched, peak memory per case; (c) at p = 7 the
+   non-uniform RS (balanced) timed against the uniform RS of the same
+   leaf padded to 7 equal blocks (``interleaved_ms``), ms and GB/s.
+
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
 rows, a misaligned base, every alltoall shape of phases 3 and 6) and
-times it at phase 6 (a)'s shape beside ``torch.index_select``; phase 3
-also runs the uniform alltoall of 64M-element payloads at p in {4, 5, 8},
-fused bitwise equal to eager, with exact exchange and launch counts.
+times it at phase 6 (a)'s shape beside ``torch.index_select``
+(interleaved medians, and back to back per call); phase 3 also runs the
+uniform alltoall of 64M-element payloads at p in {4, 5, 8}, fused
+bitwise equal to eager, with exact exchange and launch counts.
 
 A profiled step counts only if its profile holds every launch of the
 port's kernels that the step made; otherwise its device time is printed
@@ -197,7 +215,8 @@ def time_ms(fn, reps: int) -> float:
 SPIN_CYCLES_PER_CALL = 80_000
 
 
-def interleaved_ms(fns: dict, reps: int, rounds: int = 7) -> dict:
+def interleaved_ms(fns: dict, reps: int, rounds: int = 7,
+                   spin_per_call: int = SPIN_CYCLES_PER_CALL) -> dict:
     """Device milliseconds per call of each of ``fns`` (name ->
     zero-argument callable), timed in alternation: after a warm-up, each
     of ``rounds`` rounds takes one sample of ``reps`` calls of every
@@ -218,7 +237,7 @@ def interleaved_ms(fns: dict, reps: int, rounds: int = 7) -> dict:
         for name in (names if r % 2 == 0 else names[::-1]):
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
-            torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
+            torch.cuda._sleep(spin_per_call * reps)
             start.record()
             for _ in range(reps):
                 fns[name]()
@@ -961,18 +980,32 @@ def phase_permute_rows():
     check(same_bits(torch.index_select(x, 0, idx), permute_rows(x, perm)),
           "index_select differs from permute_rows")
     nbytes = permute_bytes(rows, cols, 2)
-    one = {"ms": time_ms(lambda: permute_rows(x, perm), 50),
-           "plain_ms": time_ms(lambda: ref.permute_rows_ref(x, perm), 50),
-           "library_ms": time_ms(lambda: torch.index_select(x, 0, idx), 50),
+    # Interleaved, the stream held while the host queues each sample: a
+    # launch takes the card ~30 us, about what the host takes to issue it.
+    t = interleaved_ms({
+        "kernel": lambda: permute_rows(x, perm),
+        "plain": lambda: ref.permute_rows_ref(x, perm),
+        "index_select": lambda: torch.index_select(x, 0, idx)}, reps=50)
+    one = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
+           "library_ms": t["index_select"][0],
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    # Back to back, the host issues each launch while the card runs the
+    # last one: this reading shows where the host, not the card, bounds it.
+    b2b = {"kernel": time_ms(lambda: permute_rows(x, perm), 50),
+           "plain": time_ms(lambda: ref.permute_rows_ref(x, perm), 50),
+           "index_select": time_ms(lambda: torch.index_select(x, 0, idx),
+                                   50)}
     del x
     torch.cuda.empty_cache()
     k = ep_main_launches()
     print(f"permute_rows at phase 6 (a)'s shape ({rows}, {cols}) bf16, "
-          f"{nbytes / 1e6:.1f} MB per launch: kernel {one['ms']:.4f} ms, "
-          f"bound {one['bound_ms']:.4f} ms, plain {one['plain_ms']:.4f} ms, "
-          f"index_select {one['library_ms']:.4f} ms "
+          f"{nbytes / 1e6:.1f} MB per launch: kernel {spread(t['kernel'])} "
+          f"ms, bound {one['bound_ms']:.4f} ms, plain {spread(t['plain'])} "
+          f"ms, index_select {spread(t['index_select'])} ms "
           f"({nbytes / one['ms'] / 1e6:.0f} GB/s)")
+    print(f"permute_rows back to back at the same shape, per call: kernel "
+          f"{b2b['kernel']:.4f} ms, plain {b2b['plain']:.4f} ms, "
+          f"index_select {b2b['index_select']:.4f} ms")
     step = {key: k * v for key, v in one.items()}
     print(f"permute_rows per phase 6 (a) step ({k} launches): kernel "
           f"{step['ms']:.4f} ms, bound {step['bound_ms']:.4f} ms, plain "
@@ -1676,6 +1709,196 @@ def phase_ep_path():
     return run_a, run_b
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: conformance sweep and Corollary 3's non-uniform collectives
+# ---------------------------------------------------------------------------
+
+#: the kernels the conformance sweep must launch (its fused, int8-wire and
+#: fused alltoall cases); none of them may fall back to the plain version.
+SWEEP_KERNELS = ("fused_round", "fused_round_dq", "quantize", "permute_rows")
+#: phase 7 (b): qwen3-1.7b's embedding gradient leaf, (vocab, d_model) f32.
+NU_ROWS, NU_COLS = 151936, 2048
+#: leading columns of every result held bitwise against the simulator.
+NU_CHECK_COLS = 16
+#: spin cycles per call before each timed sample of phase 7 (c): one
+#: reduce-scatter over 7 virtual ranks takes the host ~1-3 ms to queue.
+NU_SPIN_PER_CALL = 8_000_000
+
+
+def balanced_counts(rows: int, p: int) -> tuple[int, ...]:
+    """The unpadded ZeRO shard rows of a ``rows``-row leaf at p ranks."""
+    return tuple(rows // p + (i < rows % p) for i in range(p))
+
+
+def scaled_counts(pattern, rows: int) -> tuple[int, ...]:
+    """``pattern`` scaled to ``rows`` rows in all, zeros kept; the rows
+    lost to rounding go to the largest entry."""
+    out = [c * rows // sum(pattern) for c in pattern]
+    out[out.index(max(out))] += rows - sum(out)
+    return tuple(out)
+
+
+def nonuniform_cases() -> list:
+    """(pattern, p, counts) of phase 7 (b)."""
+    from repro_torch.core.conformance import nonuniform_counts_cases
+    pats = nonuniform_counts_cases(5)
+    return [("balanced", 3, balanced_counts(NU_ROWS, 3)),
+            ("balanced", 7, balanced_counts(NU_ROWS, 7))] + [
+        (name, 5, scaled_counts(pats[name], NU_ROWS))
+        for name in ("ragged", "zero_ranks", "one_column")]
+
+
+def phase_conformance(smi: str) -> dict:
+    """Phase 7 (a): the port's conformance sweep on the card at every p
+    of ``DEFAULT_PS``, launch counts set to 0 just before and read just
+    after; every kernel of ``SWEEP_KERNELS`` must have launched."""
+    import torch
+    from repro_torch.core import conformance
+    zero_counts()
+    t0 = time.perf_counter()
+    for p in conformance.DEFAULT_PS:
+        rep = conformance.run_sweep(p, device="cuda")
+        print(f"conformance p={p}: {rep['n_cases']} cases, "
+              f"{len(rep['rounds'])} schedule variants, "
+              f"{rep['nonuniform']['n_cases']} non-uniform, "
+              f"{rep['alltoall']['n_cases']} alltoall cases pass")
+    torch.cuda.synchronize()
+    c = read_counts()
+    for name in SWEEP_KERNELS:
+        check(c[name] > 0, f"conformance sweep launched no {name}: its "
+              f"fused cases fell back to the plain version ({c})")
+    print(f"conformance on the card: p = {conformance.DEFAULT_PS} in "
+          f"{time.perf_counter() - t0:.1f} s ({smi}), launches "
+          f"{ {k: c[k] for k in SWEEP_KERNELS} }")
+    return c
+
+
+def phase_nonuniform(smi: str) -> None:
+    """Phase 7 (b): non-uniform RS and AR of qwen3-1.7b's embedding
+    gradient leaf per rank, add and max, halving schedule, on a
+    ``LocalComm``: the first columns bitwise equal to the simulator run on
+    the CPU (columns are independent), rows past each count zero, the AR
+    replicated bitwise, exact exchanges and bytes, no kernel launched."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import LocalComm
+    from repro_torch.core import CollectiveSpec, ceil_log2, plan
+    from repro_torch.core.cost_model import nonuniform_round_widths
+    from repro_torch.core.simulator import simulate_reduce_scatter
+    np_ops = {"add": np.add, "max": np.maximum}
+    row = NU_COLS * 4
+    print(f"non-uniform collectives: ({NU_ROWS}, {NU_COLS}) f32 per rank "
+          f"({NU_ROWS * row / 1e9:.3f} GB), halving; no case cut ({smi})")
+    for name, p, counts in nonuniform_cases():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(70 + p)
+        xs = [torch.randn((NU_ROWS, NU_COLS), device="cuda", generator=gen)
+              for _ in range(p)]
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        heads = [x[:, :NU_CHECK_COLS].cpu().numpy() for x in xs]
+        inputs = [[h[offs[i]:offs[i + 1]] for i in range(p)] for h in heads]
+        q, bmax = ceil_log2(p), max(counts)
+        rs_bytes = sum(nonuniform_round_widths(counts)) * row * p
+        ar_bytes = rs_bytes + sum(
+            nonuniform_round_widths(counts, phase="ag")) * row * p
+        what = f"non-uniform {name} p={p}"
+        for op in ("add", "max"):
+            pl = plan(CollectiveSpec(op=op, counts=counts), p=p)
+            check(pl.backend_for("cuda") == "nonuniform",
+                  f"{what}: backend {pl.backend_for('cuda')}")
+            W, _ = simulate_reduce_scatter(inputs, np_ops[op])
+            want = np.concatenate(W)
+            zero_counts()
+            comm = LocalComm(p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = pl.reduce_scatter(xs, comm)
+            torch.cuda.synchronize()
+            t_rs = time.perf_counter() - t0
+            check((comm.exchanges, comm.bytes) == (q, rs_bytes),
+                  f"{what} {op} RS: {comm.exchanges} exchanges, "
+                  f"{comm.bytes} bytes; want {q}, {rs_bytes}")
+            for r in range(p):
+                c = counts[r]
+                check(tuple(rs[r].shape) == (bmax, NU_COLS),
+                      f"{what} {op}: rank {r} shape {tuple(rs[r].shape)}")
+                got = rs[r][:c, :NU_CHECK_COLS].cpu().numpy()
+                check(got.view(np.uint32).tobytes()
+                      == W[r].view(np.uint32).tobytes(),
+                      f"{what} {op}: rank {r} differs from the simulator")
+                check(not rs[r][c:].any(),
+                      f"{what} {op}: rank {r} rows past {c} not zero")
+            del rs
+            comm = LocalComm(p)
+            ar = pl.allreduce(xs, comm)
+            torch.cuda.synchronize()
+            check((comm.exchanges, comm.bytes) == (2 * q, ar_bytes),
+                  f"{what} {op} AR: {comm.exchanges} exchanges, "
+                  f"{comm.bytes} bytes; want {2 * q}, {ar_bytes}")
+            for r in range(1, p):
+                check(same_bits(ar[r], ar[0]),
+                      f"{what} {op}: AR rank {r} differs from rank 0")
+            got = ar[0][:, :NU_CHECK_COLS].cpu().numpy()
+            check(got.view(np.uint32).tobytes()
+                  == want.view(np.uint32).tobytes(),
+                  f"{what} {op}: AR differs from the simulator")
+            c = read_counts()
+            check(not any(c.values()), f"{what}: kernels launched {c}")
+            del ar
+            print(f"{what} {op}: counts {counts}, RS {t_rs * 1e3:.2f} ms "
+                  f"(host clock), exchanges RS {q} AR {2 * q}, bytes RS "
+                  f"{rs_bytes} AR {ar_bytes}; {NU_CHECK_COLS} columns "
+                  f"bitwise the simulator's ({smi})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{what}: peak max_memory_allocated {peak:.2f} GiB ({smi})")
+        del xs
+    torch.cuda.empty_cache()
+
+
+def phase_nonuniform_timing(smi: str) -> None:
+    """Phase 7 (c): at p = 7, the non-uniform RS of the embedding leaf
+    (balanced counts, no padding) against the uniform RS of the same leaf
+    padded to 7 equal blocks (auto backend: ``fused_round`` on the card),
+    interleaved.  A finding, not a claim."""
+    import torch
+    from repro_torch.comm import LocalComm
+    from repro_torch.core import CollectiveSpec, plan
+    p = 7
+    counts = balanced_counts(NU_ROWS, p)
+    blk = max(counts)
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    xs = [torch.randn((NU_ROWS, NU_COLS), device="cuda", generator=gen)
+          for _ in range(p)]
+    padded = [torch.cat([x, x.new_zeros((p * blk - NU_ROWS, NU_COLS))])
+              for x in xs]
+    nonu = plan(CollectiveSpec(counts=counts), p=p)
+    uni = plan(CollectiveSpec(), p=p)
+    wire = {}
+
+    def run(name, pl, inputs):
+        def fn():
+            comm = LocalComm(p)
+            pl.reduce_scatter(inputs, comm)
+            wire[name] = comm.bytes
+        return fn
+
+    fns = {"non-uniform": run("non-uniform", nonu, xs),
+           "uniform padded": run("uniform padded", uni, padded)}
+    res = interleaved_ms(fns, reps=3, spin_per_call=NU_SPIN_PER_CALL)
+    in_bytes = {"non-uniform": p * NU_ROWS * NU_COLS * 4,
+                "uniform padded": p * p * blk * NU_COLS * 4}
+    for name, t in res.items():
+        print(f"RS timing p={p} {name}: {spread(t)} ms per call "
+              f"(interleaved, 7 rounds x 3 calls), wire {wire[name]} bytes "
+              f"= {wire[name] / t[0] / 1e6:.1f} GB/s, input "
+              f"{in_bytes[name] / t[0] / 1e6:.1f} GB/s ({smi})")
+    print(f"RS timing p={p}: non-uniform / uniform padded = "
+          f"{res['non-uniform'][0] / res['uniform padded'][0]:.3f} ({smi})")
+    del xs, padded
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout")
@@ -1691,7 +1914,7 @@ def main() -> int:
     if sys.argv[1:] == [PROFILE_EP_STEP]:
         return profile_ep_step()
     t_all = time.perf_counter()
-    phase_card_and_build()
+    smi = phase_card_and_build()
     max_err, step = phase_kernel_vs_plain()
     wire_errs, wire = phase_wire_kernels()
     br_err, br = phase_block_reduce()
@@ -1702,13 +1925,19 @@ def main() -> int:
     counts, _, _, f32_rs_bytes = phase_main_path()
     paths = phase_wire_path(f32_rs_bytes)
     ep_a, ep_b = phase_ep_path()
+    sweep = phase_conformance(smi)
+    phase_nonuniform(smi)
+    phase_nonuniform_timing(smi)
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
-               "6a": ep_a[1], "6b": ep_b[1]}
+               "6a": ep_a[1], "6b": ep_b[1], "7a": sweep}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}
+        # ``launches`` counts the workload paths (4 to 6) only: the sweep
+        # of 7 (a) is a correctness check on tiny blocks, not a workload.
+        work = sum(k for path, k in n.items() if path != "7a")
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": sum(n.values()),
+                "replaces": replaces, "launches": work,
                 "launches_by_path": n, "max_abs_err": err, "ms": st["ms"],
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                 "bound_by": "bytes", "library_ms": st.get("library_ms")}

@@ -38,6 +38,16 @@ from typing import Sequence
 import torch
 
 
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``torch.device(device)``, refusing ``cuda`` where there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device cuda asked for but torch.cuda.is_available() is False "
+            "(pass device='cpu' / --device cpu to run on the CPU)")
+    return dev
+
+
 class LocalComm:
     """``p`` virtual ranks in one process (lists hold ``p`` tensors), or
     one axis of a :class:`LocalMesh`: lists then hold all ``size`` ranks

@@ -13,8 +13,11 @@ New code should hold a spec and call ``plan()`` directly::
     spec = CollectiveSpec(schedule="power2", use_fused_kernel=True)
     shards = plan(spec, p=comm.p).reduce_scatter(xs, comm)
 
-The alltoall by concatenation (paper §4) and its ragged alltoallv form
-take ``ceil(log2 p)`` exchanges too.  The reference's ring /
+``counts=`` (flat per-rank block row counts) selects Corollary 3's
+non-uniform reduce-scatter / allgather / allreduce (``MPI_Reduce_scatter``)
+with the same round and exchange counts.  The alltoall by concatenation
+(paper §4) and its ragged alltoallv form take ``ceil(log2 p)`` exchanges
+too.  The reference's ring /
 recursive-halving / xla baselines, broadcast and the hierarchical and
 pipelined forms are not ported yet (ROADMAP.md queue 1).
 """
@@ -40,7 +43,8 @@ def circulant_reduce_scatter(xs: Tensors, comm, *, schedule: str = "halving",
                              group: int | None = None,
                              use_fused_kernel: bool | None = None,
                              wire_dtype: str | None = None,
-                             wire_group: int = DEFAULT_GROUP
+                             wire_group: int = DEFAULT_GROUP,
+                             counts: Sequence[int] | None = None
                              ) -> list[torch.Tensor]:
     """Paper Algorithm 1.  Each rank's input has a leading dim n divisible
     by p; rank r gets its reduced block ``(n/p, *rest)``:
@@ -50,10 +54,14 @@ def circulant_reduce_scatter(xs: Tensors, comm, *, schedule: str = "halving",
     folded per rank (Theorem 1).  ``use_fused_kernel`` routes each
     round's fold and next-send layout through one kernel launch;
     ``wire_dtype="int8"`` sends every round on the packed int8 wire
-    (``wire_group`` elements per scale; ~4x fewer bytes, lossy)."""
+    (``wire_group`` elements per scale; ~4x fewer bytes, lossy);
+    ``counts`` enables Corollary 3's per-rank block row sizes: input
+    ``sum(counts)`` rows, output ``max(counts)`` rows with rows past this
+    rank's count zeroed."""
     spec = _circulant_spec(schedule=schedule, op=op, group=group,
                            use_fused_kernel=use_fused_kernel,
-                           wire_dtype=wire_dtype, wire_group=wire_group)
+                           wire_dtype=wire_dtype, wire_group=wire_group,
+                           counts=counts)
     return plan(spec, p=comm.p).reduce_scatter(xs, comm)
 
 
@@ -61,15 +69,20 @@ def circulant_allgather(xs: Tensors, comm, *, schedule: str = "halving",
                         group: int | None = None,
                         use_fused_kernel: bool | None = None,
                         wire_dtype: str | None = None,
-                        wire_group: int = DEFAULT_GROUP
+                        wire_group: int = DEFAULT_GROUP,
+                        counts: Sequence[int] | None = None
                         ) -> list[torch.Tensor]:
     """Gather rank blocks in rank order: each rank's ``(blk, *rest)`` to
     ``(p*blk, *rest)``, identical on every rank.  Replays the
     reduce-scatter skips in reverse; p-1 blocks communicated per rank.
-    On the int8 wire each block is quantized once, by its owner."""
+    On the int8 wire each block is quantized once, by its owner.  With
+    ``counts`` (Corollary 3 layout) the input is the non-uniform
+    reduce-scatter's ``(max(counts), *rest)`` block and the output
+    ``(sum(counts), *rest)`` in rank order, replicated."""
     spec = _circulant_spec(schedule=schedule, group=group,
                            use_fused_kernel=use_fused_kernel,
-                           wire_dtype=wire_dtype, wire_group=wire_group)
+                           wire_dtype=wire_dtype, wire_group=wire_group,
+                           counts=counts)
     return plan(spec, p=comm.p).allgather(xs, comm)
 
 
@@ -78,15 +91,19 @@ def circulant_allreduce(xs: Tensors, comm, *, schedule: str = "halving",
                         group: int | None = None,
                         use_fused_kernel: bool | None = None,
                         wire_dtype: str | None = None,
-                        wire_group: int = DEFAULT_GROUP
+                        wire_group: int = DEFAULT_GROUP,
+                        counts: Sequence[int] | None = None
                         ) -> list[torch.Tensor]:
     """Paper Algorithm 2: reduce-scatter + reversed allgather;
     2*ceil(log2 p) exchanges, 2(p-1) blocks moved, p-1 folds per rank.
     ``wire_dtype="int8"`` compresses both phases (a wire RS, then a wire
-    AG of the reduced blocks)."""
+    AG of the reduced blocks); ``counts`` runs both phases on
+    Corollary 3's per-rank block sizes (``(sum(counts), *rest)`` in and
+    out, replicated)."""
     spec = _circulant_spec(schedule=schedule, op=op, group=group,
                            use_fused_kernel=use_fused_kernel,
-                           wire_dtype=wire_dtype, wire_group=wire_group)
+                           wire_dtype=wire_dtype, wire_group=wire_group,
+                           counts=counts)
     return plan(spec, p=comm.p).allreduce(xs, comm)
 
 

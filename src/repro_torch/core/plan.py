@@ -28,6 +28,13 @@ quantizer and compressed round) and ``fused+int8`` (the ``quantize`` and
 the backend is chosen per call from the payload's device
 (``resolve_fused``).
 
+A flat per-rank ``counts`` spec (Corollary 3, ``MPI_Reduce_scatter``)
+compiles a :class:`BlockLayout` and per-round absolute-row tables and
+runs on the ``nonuniform`` backend: each round gathers a rank's rows into
+one fixed-width wire, one ``comm.shift``, and ⊕-folds the received rows
+in place.  It runs one-shot only (no round protocol) and no kernel, as
+in the reference, whose fused kernel assumes equal blocks.
+
 :meth:`CollectivePlan.alltoall` is the alltoall by concatenation (paper
 §4, Algorithm 1 with ⊕ = concatenation) on the ``eager`` and ``fused``
 backends (the fused one stacks each slot into one buffer and lays the
@@ -76,18 +83,88 @@ def resolve_op(op) -> ReduceFn:
 
 
 # ---------------------------------------------------------------------------
-# Block layout — the padding path
+# Block layout — uniform blocks and the non-uniform row tables
 # ---------------------------------------------------------------------------
 
-def as_blocks(x: torch.Tensor, p: int) -> torch.Tensor:
-    """Reshape the leading axis of ``x`` into ``(p, n/p, *rest)`` equal
-    blocks: the reference's uniform ``BlockLayout`` (its non-uniform row
-    tables are not ported)."""
-    n = x.shape[0]
-    if n % p:
-        raise ValueError(
-            f"leading dim {n} not divisible by axis size {p}; pad first")
-    return x.reshape(p, n // p, *x.shape[1:])
+@dataclass(frozen=True)
+class BlockLayout:
+    """Per-rank block row counts along the leading axis.
+
+    The one place block geometry is derived from: the uniform blocks
+    (:meth:`uniform`, :meth:`as_blocks`) and the non-uniform row tables
+    of Corollary 3 (:meth:`window_rows`) both consume a layout.
+    """
+
+    counts: tuple[int, ...]
+
+    @classmethod
+    def uniform(cls, p: int, n: int) -> "BlockLayout":
+        """Equal blocks of ``ceil(n/p)`` rows (zero-pad to fit)."""
+        if p < 1:
+            raise ValueError(f"p must be >= 1, got {p}")
+        b = -(-n // p) if n else 0
+        return cls(counts=(b,) * p)
+
+    @property
+    def p(self) -> int:
+        return len(self.counts)
+
+    @property
+    def total(self) -> int:
+        return sum(self.counts)
+
+    @property
+    def bmax(self) -> int:
+        return max(self.counts)
+
+    @property
+    def offsets(self) -> tuple[int, ...]:
+        """Row offset of each block (plus the total as a sentinel)."""
+        off, acc = [], 0
+        for c in self.counts:
+            off.append(acc)
+            acc += c
+        off.append(acc)
+        return tuple(off)
+
+    @property
+    def is_uniform(self) -> bool:
+        return len(set(self.counts)) <= 1
+
+    def as_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """Reshape the leading axis into (p, bmax, *rest) — uniform only."""
+        if not self.is_uniform:
+            raise ValueError(
+                f"non-uniform layout {self.counts} cannot reshape to "
+                f"equal blocks; use the row tables")
+        n, p = x.shape[0], self.p
+        if n != self.total:
+            raise ValueError(
+                f"leading dim {n} not divisible by axis size {p}; pad first")
+        return x.reshape(p, self.bmax, *x.shape[1:])
+
+    def window_rows(self, window: Sequence[int]) -> np.ndarray:
+        """Per-rank row index table for a rotated block window.
+
+        Row ``r`` lists, in block order, the absolute row indices of
+        blocks ``(r + i) mod p`` for ``i`` in ``window``, padded with the
+        sentinel ``total`` (a dummy row) to the worst-case window width
+        (at least 1) — the quantity Corollary 3's round bound maximizes
+        over, and ``cost_model.nonuniform_round_widths``'s.
+        """
+        p, off, total = self.p, self.offsets, self.total
+        widths = [sum(self.counts[(r + i) % p] for i in window)
+                  for r in range(p)]
+        W = max(widths) if widths else 0
+        tab = np.full((p, max(W, 1)), total, dtype=np.int32)
+        for r in range(p):
+            j = 0
+            for i in window:
+                c = (r + i) % p
+                tab[r, j:j + self.counts[c]] = np.arange(
+                    off[c], off[c] + self.counts[c], dtype=np.int32)
+                j += self.counts[c]
+        return tab
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +319,13 @@ class CollectivePlan:
     ``rs_send_blocks[k]`` / ``rs_recv_blocks[k]`` are the rotated block
     indices moved in reduce-scatter round k (``ag_*`` likewise for the
     reversed allgather); over all rounds the send sets partition
-    ``{1, .., p-1}`` exactly (Theorem 1).  ``backend`` is ``"eager"``,
-    ``"fused"``, ``"eager+int8"``, ``"fused+int8"``, ``"alltoallv"``
-    (a p×p ``counts`` spec; ``a2a`` holds its row tables) or ``"auto"``
-    (resolved from each payload's device).
+    ``{1, .., p-1}`` exactly (Theorem 1).  For flat ``counts``,
+    ``rs_row_tables[k]`` (``ag_row_tables[k]``) is the ``(p, W_k)``
+    absolute-row gather/scatter table realizing those block sets at row
+    granularity.  ``backend`` is ``"eager"``, ``"fused"``,
+    ``"eager+int8"``, ``"fused+int8"``, ``"nonuniform"`` (flat
+    ``counts``), ``"alltoallv"`` (a p×p ``counts`` spec; ``a2a`` holds
+    its row tables) or ``"auto"`` (resolved from each payload's device).
     """
 
     spec: CollectiveSpec
@@ -258,7 +338,12 @@ class CollectivePlan:
     rs_recv_blocks: tuple[tuple[int, ...], ...]
     ag_send_blocks: tuple[tuple[int, ...], ...]
     ag_recv_blocks: tuple[tuple[int, ...], ...]
-    a2a: A2APlan | None = None
+    layout: BlockLayout | None = None     # non-None iff flat spec.counts
+    rs_row_tables: tuple[np.ndarray, ...] | None = None
+    ag_row_tables: tuple[np.ndarray, ...] | None = None
+    a2a: A2APlan | None = None            # non-None iff matrix spec.counts
+    #: device copies of the row tables' rows (``_rows``), filled on use.
+    rows_cache: dict = field(default_factory=dict, repr=False)
 
     def backend_for(self, device: torch.device | str | None) -> str:
         """The backend that runs a payload on ``device``."""
@@ -272,7 +357,13 @@ class CollectivePlan:
                        ) -> list[torch.Tensor]:
         """Paper Algorithm 1: each rank's ``(n, *rest)`` input (n divisible
         by p) to its reduced ``(n/p, *rest)`` block; one exchange per
-        round."""
+        round.  With flat ``counts``: ``(sum(counts), *rest)`` to
+        ``(max(counts), *rest)``, rank r's block in rows ``[0,
+        counts[r])`` and zeros above."""
+        self._check_not_a2a("reduce_scatter")
+        if self.backend == "nonuniform":
+            self._check_world(xs, comm)
+            return list(xs) if self.p == 1 else _rs_nonuniform(self, xs, comm)
         st = self.rs_begin(xs, comm)
         while not st.done:
             self.finish_round(self.start_round(st))
@@ -281,7 +372,13 @@ class CollectivePlan:
     def allgather(self, xs: Sequence[torch.Tensor], comm
                   ) -> list[torch.Tensor]:
         """Algorithm 2's second phase standalone: each rank's block
-        ``(blk, *rest)`` to ``(p*blk, *rest)`` in rank order."""
+        ``(blk, *rest)`` to ``(p*blk, *rest)`` in rank order.  With flat
+        ``counts``: ``(max(counts), *rest)`` to ``(sum(counts), *rest)``,
+        replicated bitwise."""
+        self._check_not_a2a("allgather")
+        if self.backend == "nonuniform":
+            self._check_world(xs, comm)
+            return list(xs) if self.p == 1 else _ag_nonuniform(self, xs, comm)
         st = self.ag_begin(xs, comm)
         while not st.done:
             self.finish_round(self.start_round(st))
@@ -310,10 +407,20 @@ class CollectivePlan:
                 "alltoall does not support wire_dtype (blocks hop through "
                 "intermediate ranks; requantizing per hop would compound "
                 "the error)")
+        if self.layout is not None:
+            raise NotImplementedError(
+                "alltoall does not support flat (Corollary 3) counts; "
+                "pass a p×p per-pair counts matrix for alltoallv")
         self._check_world(xs, comm)
         if self.p == 1:
             return list(xs)
         return _A2A_IMPLS[self.backend_for(xs[0].device)](self, xs, comm)
+
+    def _check_not_a2a(self, fn: str) -> None:
+        if self.a2a is not None:
+            raise ValueError(
+                f"a p×p per-pair counts matrix is alltoall(v)-only; "
+                f"{fn} takes flat per-rank counts (Corollary 3)")
 
     def _check_world(self, xs, comm) -> None:
         if comm.p != self.p:
@@ -336,12 +443,15 @@ class CollectivePlan:
         return self._begin(xs, comm, "ag")
 
     def _begin(self, xs, comm, phase: str) -> RoundState:
+        self._check_not_a2a(f"{phase}_begin")
         self._check_world(xs, comm)
         _check_wire_payload(self, xs[0])
         backend = self.backend_for(xs[0].device)
         if (backend, phase) not in _ASYNC_IMPLS:
-            raise ValueError(f"backend {backend!r} runs alltoall only, "
-                             f"not a {phase} phase")
+            supported = sorted({b for (b, _) in _ASYNC_IMPLS})
+            raise NotImplementedError(
+                f"backend {backend!r} has no multi-call round protocol "
+                f"({phase}_begin); async-capable backends: {supported}")
         nrounds = len(self.rs_rounds if phase == "rs" else self.ag_rounds)
         st = RoundState(plan=self, comm=comm, phase=phase, backend=backend,
                         nrounds=nrounds)
@@ -441,6 +551,20 @@ def _resolve_backend(spec: CollectiveSpec, device=None) -> str:
                 "use_fused_kernel does not support per-pair counts (the "
                 "ragged wire is table-gathered, not slot-stacked)")
         return "alltoallv"
+    if spec.counts is not None:
+        if spec.wire_dtype is not None:
+            raise ValueError(
+                "non-uniform counts and wire_dtype cannot be combined yet "
+                "(quantization groups would straddle ragged blocks)")
+        if spec.use_fused_kernel is True:
+            raise ValueError(
+                "use_fused_kernel does not support non-uniform counts "
+                "(the fused round kernel assumes equal blocks)")
+        if spec.op not in NAMED_OPS:
+            raise ValueError(
+                f"non-uniform counts need a named op {NAMED_OPS}, "
+                f"got {spec.op!r}")
+        return "nonuniform"
     if spec.wire_dtype is not None:
         if not isinstance(spec.op, str):
             raise ValueError(
@@ -503,23 +627,31 @@ _PLAN_CACHE = _PlanCache(maxsize=4096)
 
 def _build_plan(spec: CollectiveSpec, p: int) -> CollectivePlan:
     backend = _resolve_backend(spec)  # validates op x kernel choice
-    if spec.use_fused_kernel is None and backend != "alltoallv":
+    if spec.use_fused_kernel is None and spec.counts is None:
         backend = "auto"
-    a2a = None
+    rs = reduce_scatter_plan(p, spec.schedule, spec.group)
+    ag = allgather_plan(p, spec.schedule, spec.group)
+    rs_send = tuple(tuple(range(pl.lo, pl.hi)) for pl in rs)
+    ag_send = tuple(tuple(range(0, pl.nblocks)) for pl in ag)
+    layout = rs_tables = ag_tables = a2a = None
     if spec.counts is not None:
         if len(spec.counts) != p:
             raise ValueError(
-                f"counts has {len(spec.counts)} rows for axis size {p}")
-        a2a = _build_a2a(spec.counts, p, spec.schedule, spec.group)
-    rs = reduce_scatter_plan(p, spec.schedule, spec.group)
-    ag = allgather_plan(p, spec.schedule, spec.group)
+                f"counts has {len(spec.counts)} entries for axis size {p}")
+        if spec.counts_matrix:
+            a2a = _build_a2a(spec.counts, p, spec.schedule, spec.group)
+        else:
+            layout = BlockLayout(counts=spec.counts)
+            rs_tables = tuple(layout.window_rows(w) for w in rs_send)
+            ag_tables = tuple(layout.window_rows(w) for w in ag_send)
     return CollectivePlan(
         spec=spec, p=p, backend=backend,
         skips=tuple(pl.skip for pl in rs), rs_rounds=rs, ag_rounds=ag,
-        rs_send_blocks=tuple(tuple(range(pl.lo, pl.hi)) for pl in rs),
+        rs_send_blocks=rs_send,
         rs_recv_blocks=tuple(tuple(range(0, pl.nblocks)) for pl in rs),
-        ag_send_blocks=tuple(tuple(range(0, pl.nblocks)) for pl in ag),
+        ag_send_blocks=ag_send,
         ag_recv_blocks=tuple(tuple(range(pl.lo, pl.hi)) for pl in ag),
+        layout=layout, rs_row_tables=rs_tables, ag_row_tables=ag_tables,
         a2a=a2a)
 
 
@@ -544,7 +676,8 @@ plan.invalidate = _PLAN_CACHE.invalidate
 def _rotated_blocks(plan: CollectivePlan, x: torch.Tensor, r: int
                     ) -> torch.Tensor:
     """Rotate ``x`` into block coordinates: R[i] = block of rank (r+i)."""
-    return torch.roll(as_blocks(x, plan.p), -r, dims=0)
+    blocks = BlockLayout.uniform(plan.p, x.shape[0]).as_blocks(x)
+    return torch.roll(blocks, -r, dims=0)
 
 
 def _next_lo(plan: CollectivePlan, st: RoundState) -> int:
@@ -848,8 +981,17 @@ def final_slot_order(p: int, schedule: str = "halving",
     return tuple(sorted(range(p), key=lambda i: offs[0][i]))
 
 
-def _rows(table: np.ndarray, r: int, device) -> torch.Tensor:
-    return torch.as_tensor(table[r], dtype=torch.long, device=device)
+def _rows(plan: CollectivePlan, table: np.ndarray, r: int,
+          device) -> torch.Tensor:
+    """Row ``r`` of one of ``plan``'s tables as an index tensor on
+    ``device``, uploaded once per plan (no host-to-device copy, and so no
+    stream synchronisation, inside the rounds)."""
+    key = (id(table), r, str(device))
+    rows = plan.rows_cache.get(key)
+    if rows is None:
+        rows = plan.rows_cache[key] = torch.as_tensor(
+            table[r], dtype=torch.long, device=device)
+    return rows
 
 
 def _a2a_v(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
@@ -871,20 +1013,21 @@ def _a2a_v(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
         zero = x2.new_zeros((1, x2.shape[1]))
         xpad = torch.cat([x2, zero])
         buf = x2.new_zeros((a2a.total + 1, x2.shape[1]))
-        buf = buf.index_put((_rows(a2a.seed_dst, r, x.device),),
-                            xpad[_rows(a2a.seed_src, r, x.device)])
+        buf = buf.index_put((_rows(plan, a2a.seed_dst, r, x.device),),
+                            xpad[_rows(plan, a2a.seed_src, r, x.device)])
         bufs.append(buf)
         shapes.append(x.shape[1:])
     for k, pl in enumerate(plan.rs_rounds):
         table = a2a.round_tables[k]
-        sends = [b[_rows(table, r, b.device)]
+        sends = [b[_rows(plan, table, r, b.device)]
                  for b, r in zip(bufs, comm.ranks)]
         got = comm.shift(sends, pl.skip)
-        bufs = [b.index_put((_rows(table, (r - pl.skip) % p, b.device),), T)
+        bufs = [b.index_put(
+                    (_rows(plan, table, (r - pl.skip) % p, b.device),), T)
                 for b, T, r in zip(bufs, got, comm.ranks)]
     outs = []
     for b, r, shape in zip(bufs, comm.ranks, shapes):
-        out = b[_rows(a2a.out_rows, r, b.device)]
+        out = b[_rows(plan, a2a.out_rows, r, b.device)]
         keep = torch.arange(a2a.out_height, device=b.device) < \
             a2a.recv_total[r]
         out = torch.where(keep[:, None], out, torch.zeros_like(out))
@@ -899,3 +1042,85 @@ _A2A_IMPLS = {
     "fused": _a2a_fused,
     "alltoallv": _a2a_v,
 }
+
+
+# ---------------------------------------------------------------------------
+# Non-uniform counts (paper Corollary 3) — gather/scatter over row tables
+# ---------------------------------------------------------------------------
+
+def _rs_nonuniform(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
+    """Corollary 3: reduce-scatter with per-rank block sizes (the
+    reference's ``_rs_nonuniform``).
+
+    Each buffer stays in ABSOLUTE column order (blocks differ in size, so
+    the rotation lives in the row tables), with a sentinel row ``N``.
+    Round k gathers a rank's rows for its rotated send window into one
+    wire of fixed width ``W_k`` (the worst windowed count sum over ranks,
+    padding rows included, so every rank ships the same shape), one
+    ``comm.shift`` by ``+skip``, and the receiver ⊕-folds the rows in
+    place through the SENDER's row of the same table: both store column
+    c at the same absolute rows.  The fold is gather, ⊕ (own partial
+    first, as the simulator folds), store, so each ⊕ rounds once in the
+    payload's dtype.  Real rows are unique within a round; padding rows
+    all land on the sentinel, which is never read back as data.
+
+    Input: ``(sum(counts), *rest)`` per rank.  Output: ``(max(counts),
+    *rest)``, rank r's block in rows ``[0, counts[r])``, zeros above.
+    """
+    layout, p = plan.layout, plan.p
+    N, bmax = layout.total, layout.bmax
+    op = resolve_op(plan.spec.op)
+    bufs = []
+    for x in xs:
+        if x.shape[0] != N:
+            raise ValueError(f"input has {x.shape[0]} rows, counts "
+                             f"{layout.counts} need {N}")
+        x2 = x.reshape(N, -1)
+        buf = x2.new_empty((N + 1, x2.shape[1]))
+        buf[:N] = x2
+        buf[N] = 0
+        bufs.append(buf)
+    for k, pl in enumerate(plan.rs_rounds):
+        table = plan.rs_row_tables[k]
+        sends = [b.index_select(0, _rows(plan, table, r, b.device))
+                 for b, r in zip(bufs, comm.ranks)]
+        for b, T, r in zip(bufs, comm.shift(sends, pl.skip), comm.ranks):
+            rows = _rows(plan, table, (r - pl.skip) % p, b.device)
+            b.index_copy_(0, rows, op(b.index_select(0, rows), T))
+    outs = []
+    for b, x, r in zip(bufs, xs, comm.ranks):
+        c, off = layout.counts[r], layout.offsets[r]
+        out = b.new_zeros((bmax, b.shape[1]))
+        out[:c] = b[off:off + c]
+        outs.append(out.reshape(bmax, *x.shape[1:]))
+    return outs
+
+
+def _ag_nonuniform(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
+    """Allgather(v): the inverse layout of :func:`_rs_nonuniform` (the
+    reference's ``_ag_nonuniform``).  Each rank's ``(max(counts),
+    *rest)``, its block in rows ``[0, counts[r])``, seeds its rows of an
+    absolute-order buffer; round k ships the rows of the table's window
+    by ``-skip`` and the receiver stores them through the sender's row
+    of the table.  Output ``(sum(counts), *rest)`` in rank order, the
+    same bits on every rank (no ⊕)."""
+    layout, p = plan.layout, plan.p
+    N, bmax = layout.total, layout.bmax
+    bufs = []
+    for x, r in zip(xs, comm.ranks):
+        if x.shape[0] != bmax:
+            raise ValueError(f"input has {x.shape[0]} rows, counts "
+                             f"{layout.counts} need max(counts) = {bmax}")
+        x2 = x.reshape(bmax, -1)
+        c, off = layout.counts[r], layout.offsets[r]
+        buf = x2.new_zeros((N + 1, x2.shape[1]))
+        buf[off:off + c] = x2[:c]
+        bufs.append(buf)
+    for k, pl in enumerate(plan.ag_rounds):
+        table = plan.ag_row_tables[k]
+        sends = [b.index_select(0, _rows(plan, table, r, b.device))
+                 for b, r in zip(bufs, comm.ranks)]
+        for b, T, r in zip(bufs, comm.shift(sends, -pl.skip), comm.ranks):
+            rows = _rows(plan, table, (r + pl.skip) % p, b.device)
+            b.index_copy_(0, rows, T)
+    return [b[:N].reshape(N, *x.shape[1:]) for b, x in zip(bufs, xs)]

@@ -5,14 +5,15 @@ kernel choice) and nothing execution provides (the payload, the
 communicator).  Specs are frozen and hashable so ``plan()`` can memoize
 on them.
 
-The port implements the uniform circulant kind, exact or on the int8
-wire (``wire_dtype="int8"``), and the p×p per-pair ``counts`` matrix of
-the ragged alltoallv.  The reference's other fields and kinds (flat
-``counts`` for Corollary 3, ``broadcast`` and the ring /
-recursive-halving / xla baselines) are accepted by name and raise
-``NotImplementedError`` pointing at ROADMAP.md's queue 1, so a request
-for them is never silently ignored.  Combinations the reference rejects
-raise ``ValueError`` here too.
+The port implements the circulant kind: uniform blocks, exact or on the
+int8 wire (``wire_dtype="int8"``); the flat per-rank ``counts`` of
+Corollary 3's non-uniform blocks (``MPI_Reduce_scatter``); and the p×p
+per-pair ``counts`` matrix of the ragged alltoallv.  The reference's
+other kinds (``broadcast`` and the ring / recursive-halving / xla
+baselines) are accepted by name and raise ``NotImplementedError``
+pointing at ROADMAP.md's queue 1, so a request for them is never
+silently ignored.  Combinations the reference rejects raise
+``ValueError`` here too.
 """
 from __future__ import annotations
 
@@ -49,11 +50,14 @@ class CollectiveSpec:
     wire_group:       elements per quantization group on the wire.
     use_fused_kernel: ``None`` = auto (the CUDA kernel when the payload
                       lies on a card), ``True``/``False`` explicit.
-    counts:           ``None``, or a p×p matrix (tuple of tuples):
-                      ``counts[src][dst]`` rows travel from src to dst
-                      in the ragged alltoallv.  A flat per-rank tuple
-                      (Corollary 3's non-uniform blocks) raises
-                      ``NotImplementedError``.
+    counts:           ``None`` (uniform blocks); a flat per-rank tuple of
+                      block row counts (Corollary 3): ``reduce_scatter``
+                      takes a ``sum(counts)``-row input and returns a
+                      ``max(counts)``-row block, rows past this rank's
+                      count zeroed, and ``allgather`` / ``allreduce``
+                      invert that layout; or a p×p matrix (tuple of
+                      tuples): ``counts[src][dst]`` rows travel from src
+                      to dst in the ragged alltoallv.
     """
 
     kind: str = "circulant"
@@ -86,17 +90,18 @@ class CollectiveSpec:
             raise NotImplementedError(f"kind={self.kind!r} is {_TODO}")
         if self.counts is not None:
             rows = list(self.counts)
-            if not (rows and hasattr(rows[0], "__len__")):
-                raise NotImplementedError(
-                    f"flat counts= (Corollary 3) is {_TODO} (item 7); pass "
-                    f"a p×p per-pair counts matrix for alltoallv")
-            # p×p per-pair matrix (alltoallv): counts[src][dst].
-            counts = tuple(tuple(int(c) for c in row) for row in rows)
-            if any(len(row) != len(counts) for row in counts):
-                raise ValueError(
-                    f"counts matrix must be square (p×p), got row lengths "
-                    f"{[len(r) for r in counts]} for {len(counts)} rows")
-            flat = [c for row in counts for c in row]
+            if rows and hasattr(rows[0], "__len__"):
+                # p×p per-pair matrix (alltoallv): counts[src][dst].
+                counts = tuple(tuple(int(c) for c in row) for row in rows)
+                if any(len(row) != len(counts) for row in counts):
+                    raise ValueError(
+                        f"counts matrix must be square (p×p), got row "
+                        f"lengths {[len(r) for r in counts]} for "
+                        f"{len(counts)} rows")
+                flat = [c for row in counts for c in row]
+            else:
+                counts = tuple(int(c) for c in rows)
+                flat = list(counts)
             if any(c < 0 for c in flat):
                 raise ValueError(f"counts must be non-negative, got {counts}")
             if sum(flat) == 0:
@@ -109,12 +114,27 @@ class CollectiveSpec:
     @property
     def counts_matrix(self) -> bool:
         """True when ``counts`` is the p×p per-pair (alltoallv) form."""
-        return self.counts is not None
+        return self.counts is not None and isinstance(self.counts[0], tuple)
 
     @property
     def wired(self) -> bool:
         """True when the rounds run on a compressed wire."""
         return self.wire_dtype is not None
+
+    @property
+    def label(self) -> str:
+        """Compact tag (conformance case names), as the reference's."""
+        bits = [self.kind, self.schedule]
+        if isinstance(self.op, str):
+            bits.append(self.op)
+        if self.use_fused_kernel:
+            bits.append("fused")
+        if self.wire_dtype:
+            bits.append(f"wire={self.wire_dtype}")
+        if self.counts is not None:
+            tag = "a2av" if self.counts_matrix else "counts"
+            bits.append(f"{tag}={len(self.counts)}")
+        return ":".join(bits)
 
 
 def as_spec(spec_or_kind: "CollectiveSpec | str | None" = None,

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import tree as T
-from ..comm import LocalComm, LocalMesh
+from ..comm import LocalComm, LocalMesh, resolve_device
 from ..configs import get_config
 from ..data import for_model
 from ..models import build, is_ep
@@ -55,16 +55,6 @@ class Session:
     params: Any = None
     opt: Any = None
     ep_comm: Any = None
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``torch.device(device)``, refusing ``cuda`` where there is none."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device cuda asked for but torch.cuda.is_available() is False "
-            "(pass device='cpu' / --device cpu to run on the CPU)")
-    return dev
 
 
 def resolve_cfg(arch: str, *, scale_down: bool = False,

@@ -4,7 +4,10 @@
 Rank r reads row r of every array in ``<in.npz>``, runs the port's
 circulant reduce-scatter and allreduce (eager and fused, add and max)
 over ``torch.distributed`` with one ``shift`` per round, and writes its
-results and exchange count to ``<out_prefix>.<r>.npz``.
+results and exchange count to ``<out_prefix>.<r>.npz``.  Arrays keyed
+``nu_*`` run the non-uniform (Corollary 3) reduce-scatter and allreduce
+over the per-rank block rows in ``nu_counts`` (add and max), counted
+apart in ``nu_exchanges`` and ``nu_bytes``.
 
 Run: python tests/_torch_dist_worker.py <rank> <world> <port> <in.npz> <out_prefix>
 """
@@ -28,7 +31,7 @@ def main(rank, world, port, src, prefix):
         comm = DistComm()
         inp = np.load(src)
         out = {}
-        for key in inp.files:
+        for key in (k for k in inp.files if not k.startswith("nu_")):
             x = torch.from_numpy(inp[key][rank])
             for op in ("add", "max"):
                 for fused in (False, True):
@@ -38,6 +41,17 @@ def main(rank, world, port, src, prefix):
                     out[f"{tag}_rs"] = pl.reduce_scatter([x], comm)[0].numpy()
                     out[f"{tag}_ar"] = pl.allreduce([x], comm)[0].numpy()
         out["exchanges"] = np.asarray(comm.exchanges)
+        comm = DistComm()
+        counts = tuple(int(c) for c in inp["nu_counts"])
+        for key in (k for k in inp.files if k.startswith("nu_")
+                    and k != "nu_counts"):
+            x = torch.from_numpy(inp[key][rank])
+            for op in ("add", "max"):
+                pl = plan(CollectiveSpec(op=op, counts=counts), p=world)
+                out[f"{key}_{op}_rs"] = pl.reduce_scatter([x], comm)[0].numpy()
+                out[f"{key}_{op}_ar"] = pl.allreduce([x], comm)[0].numpy()
+        out["nu_exchanges"] = np.asarray(comm.exchanges)
+        out["nu_bytes"] = np.asarray(comm.bytes)
         np.savez(f"{prefix}.{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

@@ -360,8 +360,9 @@ def test_local_mesh_axes():
 
 
 def test_alltoall_refusals_and_cache_key():
-    with pytest.raises(NotImplementedError):
-        CollectiveSpec(counts=(1, 2))       # flat counts (Corollary 3)
+    with pytest.raises(NotImplementedError):  # flat counts (Corollary 3)
+        plan(CollectiveSpec(counts=(1, 2)), p=2).alltoall(
+            [torch.ones(3, 1)] * 2, LocalComm(2))
     with pytest.raises(ValueError):
         CollectiveSpec(counts=((1, 2), (3,)))
     with pytest.raises(ValueError):

@@ -37,6 +37,8 @@ from repro_torch.comm import LocalComm
 from repro_torch.core import (CollectiveSpec, allgather, ceil_log2, plan,
                               reduce_scatter)
 from repro_torch.core import collectives as C
+from repro_torch.core.conformance import nonuniform_counts_cases
+from repro_torch.core.cost_model import nonuniform_round_widths
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.quantize import wire_width
 
@@ -150,7 +152,8 @@ def test_round_protocol_guards():
 
 
 @pytest.mark.parametrize("kw", [dict(kind="ring"), dict(kind="broadcast"),
-                                dict(kind="xla"), dict(counts=(1, 2))])
+                                dict(kind="xla"),
+                                dict(kind="recursive_halving")])
 def test_unported_spec_fields_raise(kw):
     with pytest.raises(NotImplementedError):
         CollectiveSpec(**kw)
@@ -266,12 +269,19 @@ def test_plan_cache_identity_and_invalidate():
 
 def test_dist_comm_gloo_matches_local(tmp_path):
     """Three gloo processes, one ``shift`` per round, agree bitwise with
-    the in-process world."""
+    the in-process world, uniform and with the harness's ``ragged``
+    non-uniform counts."""
     world = 3
     rng = np.random.default_rng(9)
+    counts = nonuniform_counts_cases(world)["ragged"]
     inputs = {"f32": rng.standard_normal((world, world * 4, 3)).astype(
         np.float32),
-        "i32": rng.integers(-50, 50, (world, world * 4, 3)).astype(np.int32)}
+        "i32": rng.integers(-50, 50, (world, world * 4, 3)).astype(np.int32),
+        "nu_counts": np.asarray(counts),
+        "nu_f32": rng.standard_normal((world, sum(counts), 3)).astype(
+            np.float32),
+        "nu_i32": rng.integers(-50, 50, (world, sum(counts), 3)).astype(
+            np.int32)}
     np.savez(tmp_path / "in.npz", **inputs)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -291,7 +301,25 @@ def test_dist_comm_gloo_matches_local(tmp_path):
     for r in range(world):
         # 2 keys x 2 ops x 2 backends x (RS + AR = 3 rounds' worth of q)
         assert int(outs[r]["exchanges"]) == 2 * 2 * 2 * 3 * q
-    for key, arr in inputs.items():
+    for r in range(world):
+        # 2 keys x 2 ops x (RS + AR = 3 rounds' worth of q), rows of
+        # every round's worst window (f32 and i32: 4-byte elements)
+        rows = sum(nonuniform_round_widths(counts)) * 2 + sum(
+            nonuniform_round_widths(counts, phase="ag"))
+        assert int(outs[r]["nu_exchanges"]) == 2 * 2 * 3 * q
+        assert int(outs[r]["nu_bytes"]) == 2 * 2 * rows * 3 * 4
+    for key in ("nu_f32", "nu_i32"):
+        xs = [torch.from_numpy(a) for a in inputs[key]]
+        for op in ("add", "max"):
+            pl = plan(CollectiveSpec(op=op, counts=counts), p=world)
+            rs = pl.reduce_scatter(xs, LocalComm(world))
+            ar = pl.allreduce(xs, LocalComm(world))
+            for r in range(world):
+                np.testing.assert_array_equal(outs[r][f"{key}_{op}_rs"],
+                                              rs[r].numpy())
+                np.testing.assert_array_equal(outs[r][f"{key}_{op}_ar"],
+                                              ar[r].numpy())
+    for key, arr in ((k, inputs[k]) for k in ("f32", "i32")):
         xs = [torch.from_numpy(a) for a in arr]
         for op in ("add", "max"):
             for fused in (False, True):
