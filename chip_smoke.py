@@ -80,6 +80,29 @@ Phases (any failure exits non-zero; none is caught):
    non-uniform RS (balanced) timed against the uniform RS of the same
    leaf padded to 7 equal blocks (``interleaved_ms``), ms and GB/s.
 
+8. the paper's baselines and the grad-sync modes built on them: (a)
+   reduce-scatter and allreduce of 64M-element float32 payloads per
+   rank on a ``LocalComm`` at p in {3, 4, 8} by circulant fused,
+   circulant eager, ring, recursive halving (p = 4, 8; reduce-scatter
+   only) and the native call: exchanges, native calls and bytes exact,
+   results within the reference's float32 tolerance of a float64 sum,
+   timed interleaved; each at 1M elements bitwise the same function on
+   the CPU; (b) broadcast at p = 3, 8 and hierarchical RS / AR on a 2x4
+   ``LocalMesh``, bitwise the CPU's, exchanges exact; (c) phase 4's
+   argv plus ``--bucket-bytes 25000000`` and ``2147483648``, each a
+   4-step session built from that argv with the launch counts set to 0
+   just before: ``fused_round`` launches, exchanges and sync bytes
+   exact (``plan_grad_buckets``), step 0's loss and the params after it
+   bitwise phase 4's, warm step ms and peak memory, and a warm step
+   profiled in a process of its own (``chip_smoke.py
+   --profile-bucket-step B``); (d) phase 5 (a)'s argv plus
+   ``--bucket-bytes 25000000``: ``quantize`` / ``fused_round_dq``
+   launches exact, params after step 1 within one update of phase 5
+   (a)'s; (e) ``--grad-sync ring`` and ``xla``, 2 steps: step-0 loss
+   bitwise phase 4's, params within one update, exchanges exact, warm
+   step; (f) ``--grad-sync allreduce`` on a 2x1 mesh through the
+   launcher (three ranks' full moments do not fit one card).
+
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
 rows, a misaligned base, every alltoall shape of phases 3 and 6) and
@@ -1289,15 +1312,46 @@ def ranks_agree(params: list, label: str) -> None:
             check(same_bits(a, b), f"{label}: ranks disagree on {path}")
 
 
-def run_path(argv, label: str, want: dict, p: int, wire: bool):
+def step0_state(sess, metrics, label: str) -> dict:
+    """A session's state once step 0 has finished, every rank's params
+    first checked bitwise equal to rank 0's: the loss, the grad norm, and
+    on the host rank 0's params and every rank's AdamW first moments
+    (each leaf's synced gradient shard times the clip scale and ``1 -
+    beta1``: what the sync decided, element by element)."""
+    from repro_torch import tree as T
+    ranks_agree(sess.params, label)
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "params": [(p, t.cpu()) for p, t in T.flatten(sess.params[0])],
+            "m": [[(p, t.cpu()) for p, t in T.flatten(o.m)]
+                  for o in sess.opt]}
+
+
+def run_path(argv, label: str, want: dict, p: int, wire: bool,
+             sync: tuple | None = None, exchanges: int | None = None,
+             at_step0=None):
     """Drive the launcher's ``main(argv)`` with every launch count set to 0
     just before and read just after; check the counts and the sync's
-    bytes per step, and print what the run measured."""
+    bytes per step (``sync``: the reduce-scatter's and the allgather's,
+    by default those of the per-leaf sync) and, when given, its
+    exchanges per step; print what the run measured.  ``at_step0(sess,
+    metrics)``, when given, runs once step 0 has finished (outside its
+    timing); what it returns comes last."""
     import torch
     from repro_torch.launch import train as trainer
+    kept, hook_s = [], []
+
+    def on_step(step, sess, metrics):
+        if step == 0 and at_step0 is not None:
+            t0 = time.perf_counter()
+            kept.append(at_step0(sess, metrics))
+            hook_s.append(time.perf_counter() - t0)
+
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    run = trainer.main(argv)
+    t0 = time.perf_counter()
+    run = trainer.main(argv, on_step=on_step)
+    wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     left = torch.cuda.memory_allocated()  # the session is gone: ~0 unless
@@ -1307,7 +1361,11 @@ def run_path(argv, label: str, want: dict, p: int, wire: bool):
               f"times, expected {w}")
     check(all(math.isfinite(x) for x in run.losses),
           f"{label}: non-finite loss {run.losses}")
-    rs, ag = sync_bytes(p, wire)
+    rs, ag = sync if sync is not None else sync_bytes(p, wire)
+    check(exchanges is None or all(x == exchanges
+                                   for x in run.sync_exchanges),
+          f"{label}: exchanges per step {run.sync_exchanges}, expected "
+          f"{exchanges}")
     check(all(b == rs + ag for b in run.sync_bytes),
           f"{label}: sync bytes per step {run.sync_bytes}, expected "
           f"{rs} (reduce-scatter) + {ag} (allgather)")
@@ -1318,10 +1376,15 @@ def run_path(argv, label: str, want: dict, p: int, wire: bool):
     print(f"{label}: peak memory allocated {peak / 2**30:.2f} GiB; "
           f"{left / 2**30:.2f} GiB still allocated once the run returned")
     print(f"{label}: sync bytes per step {run.sync_bytes[0]} = "
-          f"reduce-scatter {rs} + allgather {ag}")
+          f"reduce-scatter {rs} + allgather {ag}; exchanges per step "
+          f"{run.sync_exchanges[0]}")
+    print(f"{label}: {wall:.1f} s in the launcher: steps "
+          f"{sum(run.step_seconds):.1f}, step 0's state kept or held "
+          f"{sum(hook_s):.1f}, the rest (the session's build) "
+          f"{wall - sum(run.step_seconds) - sum(hook_s):.1f}")
     gc.collect()
     torch.cuda.empty_cache()
-    return run, counts, peak, rs
+    return run, counts, peak, rs, (kept[0] if kept else None)
 
 
 def phase_main_path():
@@ -1337,8 +1400,8 @@ def phase_main_path():
     print("reduced: none (every width and all 28 layers)")
     want = {name: 0 for name in counters()}
     want["fused_round"] = STEPS * P_MAIN * n_zero * 2
-    run, counts, peak, rs_bytes = run_path(MAIN_ARGV, "main path", want,
-                                           P_MAIN, wire=False)
+    run, counts, peak, rs_bytes, _ = run_path(MAIN_ARGV, "main path", want,
+                                              P_MAIN, wire=False)
     launches = counts["fused_round"]
     print(f"main path: fused_round launches {launches} "
           f"(= {STEPS} steps x {P_MAIN} ranks x {n_zero} leaves x 2 rounds)")
@@ -1347,32 +1410,39 @@ def phase_main_path():
         sess = bootstrap.build_session(
             arch="qwen3-1.7b", steps=STEPS, seq_len=2048, global_batch=3,
             dp=P_MAIN, mode="zero1", use_fused_kernel=fused, device="cuda")
-        return float(bootstrap.run_step(sess, 0)["loss"]), sess
+        return bootstrap.run_step(sess, 0), sess
 
-    loss_on, sess = one_step(True)
-    ranks_agree(sess.params, "main path")
-    snapshot = [(p, t.cpu()) for p, t in T.flatten(sess.params[0])]
+    metrics, sess = one_step(True)
+    ref = step0_state(sess, metrics, "main path")
+    loss_on, snapshot = ref["loss"], ref["params"]
     # Two more steps of this session: step 1 unprofiled, step 2 profiled,
     # so the idle share is read on one warm step against its own wall time.
     wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
+    print(f"main path: warm step 1 of a kernel-on session {wall_1:.1f} ms "
+          f"(host clock to device sync)")
     profiled_step(lambda: bootstrap.run_step(sess, 2),
                   "warm step 2 of a kernel-on session", wall_1)
     del sess
     gc.collect()
     torch.cuda.empty_cache()
-    loss_off, sess = one_step(False)
+    metrics, sess = one_step(False)
+    loss_off = float(metrics["loss"])
     check(loss_on == run.losses[0], f"step-0 loss {loss_on} != main path's "
           f"{run.losses[0]}")
     check(loss_on == loss_off, f"step-0 loss fused {loss_on} != off {loss_off}")
+    check(ref["grad_norm"] == float(metrics["grad_norm"]),
+          f"step-0 grad norm fused {ref['grad_norm']} != off "
+          f"{float(metrics['grad_norm'])}")
     for (path, want_t), got in zip(snapshot, T.leaves(sess.params[0])):
         check(same_bits(want_t, got.cpu()),
               f"params after step 1 differ with the kernel off: {path}")
     print("main path: --fused-kernel off gives a bitwise-equal step-0 loss "
-          "and bitwise-equal params after step 1")
-    del sess, snapshot
+          "and grad norm and bitwise-equal params after step 1")
+    del sess
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, run, peak, rs_bytes
+    ref.update(warm_ms=wall_1, peak=peak)
+    return counts, run, peak, rs_bytes, ref
 
 
 def wire_session_a(fused: bool):
@@ -1414,29 +1484,30 @@ def phase_wire_path(f32_rs_bytes: int):
     want.update(quantize=STEPS * P_MAIN * n_a,
                 quantize_rows=STEPS * P_MAIN * n_a,
                 fused_round_dq=STEPS * P_MAIN * n_a * 2)
-    run_a, counts_a, peak_a, rs_a = run_path(WIRE_A_ARGV, "wire path (a)",
-                                             want, P_MAIN, wire=True)
+    run_a, counts_a, peak_a, rs_a, _ = run_path(
+        WIRE_A_ARGV, "wire path (a)", want, P_MAIN, wire=True)
     print(f"wire path (a): reduce-scatter bytes per step {rs_a} vs "
           f"{f32_rs_bytes} in float32 (phase 4): {f32_rs_bytes / rs_a:.4f}x "
           f"fewer")
 
     def one_step(fused):
-        """Step 0 of a fresh session: its loss, the launches it made, and
-        rank 0's params after it (on the host), once every rank's params
-        are checked bitwise equal to rank 0's."""
+        """Step 0 of a fresh session: its loss and grad norm, the launches
+        it made, and rank 0's params after it (on the host), once every
+        rank's params are checked bitwise equal to rank 0's."""
         sess = wire_session_a(fused)
         zero_counts()
-        loss = float(bootstrap.run_step(sess, 0)["loss"])
+        metrics = bootstrap.run_step(sess, 0)
         counts = read_counts()
         ranks_agree(sess.params, "wire path (a)")
         params = [(path, t.cpu()) for path, t in T.flatten(sess.params[0])]
         del sess
         gc.collect()
         torch.cuda.empty_cache()
-        return loss, counts, params
+        return (float(metrics["loss"]), float(metrics["grad_norm"]), counts,
+                params)
 
-    loss_on, c_on, on = one_step(True)
-    loss_off, c_off, off = one_step(False)
+    loss_on, gn_on, c_on, on = one_step(True)
+    loss_off, gn_off, c_off, off = one_step(False)
     want_on = {name: 0 for name in counters()}
     want_on.update(quantize=P_MAIN * n_a, quantize_rows=P_MAIN * n_a,
                    fused_round_dq=P_MAIN * n_a * 2)
@@ -1445,11 +1516,14 @@ def phase_wire_path(f32_rs_bytes: int):
     check(loss_on == run_a.losses[0] and loss_on == loss_off,
           f"wire step-0 loss: main {run_a.losses[0]}, on {loss_on}, off "
           f"{loss_off}")
+    check(gn_on == gn_off, f"wire step-0 grad norm: on {gn_on}, off {gn_off}")
     for (path, a), (_, b) in zip(on, off):
         check(same_bits(a, b), f"wire params after step 1 differ with the "
               f"kernels off: {'.'.join(path)}")
     print("wire path (a): kernels on and off give a bitwise-equal step-0 "
-          "loss and bitwise-equal params after step 1, on every rank")
+          "loss and grad norm and bitwise-equal params after step 1, on "
+          "every rank")
+    wire_ref = {"loss": loss_on, "grad_norm": gn_on}
     del on, off
     gc.collect()
     torch.cuda.empty_cache()
@@ -1469,9 +1543,10 @@ def phase_wire_path(f32_rs_bytes: int):
     want.update(quantize=STEPS * P_EF * n_b * 2,
                 quantize_rows=STEPS * P_EF * n_b,
                 fused_round_dq=STEPS * P_EF * n_b)
-    run_b, counts_b, peak_b, _ = run_path(WIRE_B_ARGV, "wire path (b)", want,
-                                          P_EF, wire=True)
-    return {"a": (run_a, counts_a, peak_a), "b": (run_b, counts_b, peak_b)}
+    run_b, counts_b, peak_b, _, _ = run_path(WIRE_B_ARGV, "wire path (b)",
+                                             want, P_EF, wire=True)
+    return {"a": (run_a, counts_a, peak_a), "b": (run_b, counts_b, peak_b),
+            "ref": wire_ref}
 
 
 # ---------------------------------------------------------------------------
@@ -1899,6 +1974,437 @@ def phase_nonuniform_timing(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the paper's baselines, broadcast, hierarchical, bucketed and
+# baseline grad syncs
+# ---------------------------------------------------------------------------
+
+#: phase 8 (a): elements per rank of the timed payloads (phase 3's), and
+#: of the payloads held bitwise against the CPU.
+ALGO_N, ALGO_CPU_N = 64 << 20, 1 << 20
+#: phase 8 (c): the reference launcher's example bucket size, and one
+#: above the largest leaf (every bucket holds whole leaves).
+BUCKETS = (25_000_000, 2_147_483_648)
+#: argument that makes this script the child profiling a bucketed step.
+PROFILE_BUCKET_STEP = "--profile-bucket-step"
+#: phase 8 (f): the no-ZeRO baseline on two ranks (three ranks' full
+#: moments do not fit one card).
+P_ALLREDUCE = 2
+ALLREDUCE_ARGV = argv_with(MAIN_ARGV, grad_sync="allreduce",
+                           mesh=f"{P_ALLREDUCE}x1", global_batch=P_ALLREDUCE)
+
+
+def rs_algorithms(p: int) -> dict:
+    """Phase 8 (a)'s reduce-scatter algorithms at p ranks."""
+    from repro_torch.core import CollectiveSpec
+    algos = {"circulant fused": CollectiveSpec(use_fused_kernel=True),
+             "circulant eager": CollectiveSpec(use_fused_kernel=False),
+             "ring": CollectiveSpec(kind="ring"),
+             "recursive halving": CollectiveSpec(kind="recursive_halving"),
+             "native": CollectiveSpec(kind="xla")}
+    if p & (p - 1):
+        del algos["recursive halving"]
+    return algos
+
+
+def algo_counts(name: str, coll: str, p: int) -> tuple[int, int]:
+    """(exchanges, native calls) of one call of ``name``'s ``coll``."""
+    from repro_torch.core import ceil_log2
+    rounds = {"ring": p - 1, "recursive halving": ceil_log2(p),
+              "native": 0}.get(name, ceil_log2(p))
+    return rounds * (2 if coll == "AR" else 1), int(name == "native")
+
+
+def phase_paper_comparison(smi: str) -> None:
+    """Phase 8 (a): reduce-scatter and allreduce of 64M float32 elements
+    per rank on a ``LocalComm`` at p = 3, 4, 8, by every algorithm:
+    exchanges, native calls and bytes exact (every reduce-scatter sends
+    p - 1 blocks per rank); results within the reference's float32
+    tolerance of a float64 sum on the card, the allreduce replicated
+    bitwise; device ms per call interleaved.  Then each algorithm at 1M
+    elements per rank bitwise equal to the same function on the CPU."""
+    import torch
+    from repro_torch.comm import LocalComm
+    from repro_torch.core import plan
+    tol = 2e-5  # the reference's float32 add tolerance (rtol = atol)
+    for p in (3, 4, 8):
+        n = ALGO_N - ALGO_N % p
+        blk = n // p
+        gen = torch.Generator(device="cuda").manual_seed(80 + p)
+        xs = [torch.randn(n, device="cuda", generator=gen) for _ in range(p)]
+        ref = xs[0].double()
+        for x in xs[1:]:
+            ref += x.double()
+        for coll in ("RS", "AR"):
+            fns = {}
+            for name, spec in rs_algorithms(p).items():
+                if coll == "AR" and name == "recursive halving":
+                    continue
+                pl = plan(spec, p=p)
+                run = pl.reduce_scatter if coll == "RS" else pl.allreduce
+                comm = LocalComm(p)
+                out = run(xs, comm)
+                ex, nat = algo_counts(name, coll, p)
+                nbytes = 0 if name == "native" else \
+                    p * (p - 1) * blk * 4 * (2 if coll == "AR" else 1)
+                check((comm.exchanges, comm.natives, comm.bytes) ==
+                      (ex, nat, nbytes),
+                      f"{coll} {name} p={p}: exchanges {comm.exchanges}, "
+                      f"natives {comm.natives}, bytes {comm.bytes}; want "
+                      f"{(ex, nat, nbytes)}")
+                for r, o in enumerate(out):
+                    want = ref[r * blk:(r + 1) * blk] if coll == "RS" else ref
+                    err = (o.double() - want).abs() - tol * want.abs()
+                    check(bool((err <= tol).all()),
+                          f"{coll} {name} p={p} rank {r}: beyond the "
+                          f"reference's tolerance of the float64 sum")
+                    if coll == "AR":
+                        check(same_bits(o, out[0]), f"AR {name} p={p}: "
+                              f"rank {r} differs from rank 0")
+                del out
+                fns[name] = (lambda run=run: run(xs, LocalComm(p)))
+            res = interleaved_ms(fns, reps=3, spin_per_call=NU_SPIN_PER_CALL)
+            del fns  # its calls hold xs
+            base = res["circulant fused"][0]
+            for name, t in res.items():
+                print(f"paper comparison {coll} p={p} {name}: {spread(t)} ms "
+                      f"per call ({t[0] / base:.3f} of circulant fused; "
+                      f"{n} f32 per rank, interleaved, 7 rounds x 3 calls; "
+                      f"{smi})")
+        del xs, ref
+        torch.cuda.empty_cache()
+    for p in (3, 4, 8):
+        n = ALGO_CPU_N - ALGO_CPU_N % p
+        gen = torch.Generator().manual_seed(90 + p)
+        xs = [torch.randn(n, generator=gen) for _ in range(p)]
+        for name, spec in rs_algorithms(p).items():
+            pl = plan(spec, p=p)
+            runs = [pl.reduce_scatter] + \
+                ([] if name == "recursive halving" else [pl.allreduce])
+            for run in runs:
+                cpu = run(xs, LocalComm(p))
+                card = run([x.cuda() for x in xs], LocalComm(p))
+                for a, b in zip(cpu, card):
+                    check(same_bits(a, b.cpu()), f"{name} p={p}: the card "
+                          f"differs from the CPU")
+    print(f"paper comparison: every algorithm at {ALGO_CPU_N} f32 per rank "
+          f"bitwise equal on the card and the CPU, p = 3, 4, 8")
+
+
+def phase_broadcast_hierarchical(smi: str) -> None:
+    """Phase 8 (b): broadcast at p = 3, 8 (bitwise replicated,
+    ``ceil_log2(p)`` exchanges) and hierarchical RS / AR on a 2x4
+    ``LocalMesh``, fused (``fused_round`` on the card): bitwise the CPU's,
+    exchanges per axis exact."""
+    import torch
+    from repro_torch.comm import LocalComm, LocalMesh
+    from repro_torch.core import ceil_log2
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import fused_round
+    gen = torch.Generator().manual_seed(88)
+    for p in (3, 8):
+        xs = [torch.randn(ALGO_CPU_N // p, generator=gen) for _ in range(p)]
+        comm = LocalComm(p)
+        out = C.broadcast([x.cuda() for x in xs], comm)
+        full = torch.cat(xs)
+        check(comm.exchanges == ceil_log2(p),
+              f"broadcast p={p}: {comm.exchanges} exchanges")
+        for r, o in enumerate(out):
+            check(same_bits(o.cpu(), full), f"broadcast p={p}: rank {r}")
+        print(f"broadcast p={p}: {ALGO_CPU_N // p} f32 per rank delivered "
+              f"bitwise to every rank in {comm.exchanges} exchanges")
+    axes, shape = ("x", "y"), (2, 4)
+    xs = [torch.randn(ALGO_CPU_N, generator=gen) for _ in range(8)]
+    for name, fn, per in (("RS", C.hierarchical_reduce_scatter, 1),
+                          ("AR", C.hierarchical_allreduce, 2)):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            mesh = LocalMesh(shape, axes)
+            before = fused_round.launches
+            out = fn([x.to(dev) for x in xs], mesh, axes,
+                     use_fused_kernel=True)
+            got[dev] = [o.cpu() for o in out]
+            ex = (mesh.axis("x").exchanges, mesh.axis("y").exchanges)
+            check(ex == (per * 1, per * 2),
+                  f"hierarchical {name} 2x4: exchanges {ex}")
+            if dev == "cuda":
+                check(fused_round.launches > before,
+                      f"hierarchical {name}: no fused_round launched")
+        check(all(same_bits(a, b) for a, b in zip(got["cpu"], got["cuda"])),
+              f"hierarchical {name} 2x4: the card differs from the CPU")
+    print(f"hierarchical RS / AR on a 2x4 LocalMesh, fused: bitwise the "
+          f"CPU's, exchanges x 1 / 2, y 2 / 4 ({smi})")
+
+
+def bucket_sync(p: int, bucket_bytes: int, wire: bool):
+    """``(buckets, reduce-scatter bytes, allgather bytes)`` of one step of
+    the bucketed sync at p ranks: every bucket's block sent p - 1 times
+    per rank, float32 or on the int8 wire (padded to whole groups of
+    ``min(DEFAULT_GROUP, width)``), the allgather in the parameters'
+    dtype."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import DEFAULT_GROUP, wire_width
+    from repro_torch.optim.zero1 import plan_grad_buckets
+    itemsize = getattr(torch, get_config("qwen3-1.7b").dtype).itemsize
+    shapes = [shape for _, shape, _, _, _ in wire_leaves(p)]
+    buckets = plan_grad_buckets(shapes, p, bucket_bytes)
+    rs = ag = 0
+    for b in buckets:
+        w = sum((hi - lo) * math.prod(shapes[li][1:]) for li, lo, hi in b)
+        g = min(DEFAULT_GROUP, w)
+        rs += p * (p - 1) * (wire_width(-(-w // g) * g, g) if wire else 4 * w)
+        ag += p * (p - 1) * itemsize * w
+    return buckets, rs, ag
+
+
+#: phase 8 (e), (f): the zero1 test's tolerance (rtol, atol) for syncs
+#: that fold in another order.  Their bfloat16 params after step 0 are
+#: held bitwise all the same: the first update, about ``lr * sign(g)``,
+#: moves each param by less than half its bfloat16 spacing or by whole
+#: spacings, so a last-bit difference in a gradient does not reach them.
+FOLD_TOL = (1e-5, 1e-9)
+#: phase 8 (d): the reference's int8-wire rtol (``_tolerances``), held on
+#: the L2 norm of each rank's first moments and on the grad norm.
+WIRE_RTOL = 0.1
+
+
+def hold_step0(sess, metrics, ref: dict, label: str, mode: str) -> str:
+    """Hold a session's state after step 0 against ``ref`` (what
+    :func:`step0_state` kept), leaf by leaf on the card (each of the
+    reference's leaves copied there in turn: the whole of it beside a
+    full-width session does not fit), every rank's
+    params first checked equal; returns what was held.  The loss is held
+    bitwise in every mode.  ``"bitwise"``: the grad norm, rank 0's params
+    and every rank's first moments bitwise.  ``"fold"``: the params
+    bitwise, the grad norm and the first moments within ``FOLD_TOL``.
+    ``"wire"``: each rank's first moments (its whole shard) within
+    ``WIRE_RTOL`` of the reference's in the L2 norm; a small leaf can
+    be further off, its quantization groups shared with larger
+    neighbours in a bucket, and is printed, not held.  A leaf whose moments are whole
+    here and sharded in ``ref`` is held on each rank's shard rows."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.optim.zero1 import local_rows
+    ranks_agree(sess.params, label)
+    loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+    check(loss == ref["loss"], f"{label}: step-0 loss {loss} != {ref['loss']}")
+    rtol, atol = FOLD_TOL
+    if mode == "bitwise":
+        check(gn == ref["grad_norm"], f"{label}: grad norm {gn} != "
+              f"{ref['grad_norm']}")
+    elif mode == "fold":
+        check(abs(gn - ref["grad_norm"]) <= atol + rtol * ref["grad_norm"],
+              f"{label}: grad norm {gn} vs {ref['grad_norm']}")
+    if mode != "wire" and "params" in ref:
+        for (path, want), got in zip(ref["params"], T.leaves(sess.params[0])):
+            check(same_bits(got, want.to(got.device)), f"{label}: params "
+                  f"after step 1 differ: {'.'.join(path)}")
+    world = len(ref["m"])
+    check(len(sess.opt) == world, f"{label}: {len(sess.opt)} ranks, the "
+          f"reference's {world}")
+    worst, sums, leaf_worst = 0.0, [0.0, 0.0], (0.0, "")
+    for j, (want_m, o) in enumerate(zip(ref["m"], sess.opt)):
+        for (path, want), got in zip(want_m, T.leaves(o.m)):
+            name = f"rank {j} {'.'.join(path)}"
+            want = want.to(got.device)
+            if got.shape != want.shape:
+                got = local_rows(got, j, world)
+            check(got.shape == want.shape, f"{label}: first moments of "
+                  f"shape {tuple(got.shape)}, the reference's "
+                  f"{tuple(want.shape)}: {name}")
+            if mode == "bitwise":
+                check(same_bits(got, want), f"{label}: first moments "
+                      f"differ: {name}")
+            elif mode == "fold":
+                d = (got - want).abs()
+                check(bool((d <= atol + rtol * want.abs()).all()),
+                      f"{label}: first moments beyond {FOLD_TOL}: {name}")
+                worst = max(worst, float(d.max()) if d.numel() else 0.0)
+            else:
+                e2 = float(torch.linalg.vector_norm(got - want)) ** 2
+                w2 = float(torch.linalg.vector_norm(want)) ** 2
+                sums[0] += e2
+                sums[1] += w2
+                leaf_worst = max(leaf_worst, ((e2 / max(w2, 1e-60)) ** 0.5,
+                                              name))
+        if mode == "wire":
+            rel = (sums[0] / max(sums[1], 1e-60)) ** 0.5
+            check(rel <= WIRE_RTOL, f"{label}: rank {j}'s first moments "
+                  f"{rel:.4f} off the reference's in the L2 norm")
+            worst = max(worst, rel)
+            sums = [0.0, 0.0]
+    return {"bitwise": "loss, grad norm, params and every rank's first "
+                       "moments bitwise",
+            "fold": f"loss bitwise, params "
+                    f"{'bitwise' if 'params' in ref else 'not held'}; "
+                    f"grad norm {gn!r} vs "
+                    f"{ref['grad_norm']!r}, every rank's first moments "
+                    f"within rtol {rtol} / atol {atol} (largest absolute "
+                    f"difference {worst:.3e})",
+            "wire": f"loss bitwise; every rank's first moments within "
+                    f"{WIRE_RTOL} of the reference's in the L2 norm "
+                    f"(largest {worst:.3e}; of one leaf {leaf_worst[0]:.3e}, "
+                    f"{leaf_worst[1]})"}[mode]
+
+
+def warm_ms(run) -> list:
+    return [round(t * 1e3, 1) for t in run.step_seconds[1:]]
+
+
+def profile_bucket_step(bucket_bytes: int) -> int:
+    """The child process of phase 8 (c): a bucketed session takes step 0,
+    step 1 unprofiled and step 2 profiled, as phase 4's (TF32 off)."""
+    import torch
+    from repro_torch.launch import bootstrap
+    from repro_torch.launch import train as trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, sess = trainer.build(argv_with(MAIN_ARGV, bucket_bytes=bucket_bytes))
+    bootstrap.run_step(sess, 0)
+    wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
+    profiled_step(lambda: bootstrap.run_step(sess, 2),
+                  f"warm step 2 of a bucketed session, --bucket-bytes "
+                  f"{bucket_bytes}, in a fresh process", wall_1)
+    return 0
+
+
+def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
+    """Phase 8 (c)-(f), 2 steps a run (1 for (d)), each run's state after
+    step 0 held against a reference's (:func:`hold_step0`): the bucketed
+    main path at both bucket sizes bitwise phase 4's per-leaf sync
+    (``ref``), the 25 MB one's warm step profiled in a process of its
+    own; the bucketed
+    int8 wire with the kernels on bitwise the same with them off, its
+    moments within the wire tolerance of phase 4's exact ones and its
+    grad norm of phase 5 (a)'s (``wire_ref``); the ring and xla grad
+    syncs within the fold tolerance of phase 4's; the allreduce baseline
+    at p = 2 within it of a per-leaf circulant run at p = 2.  Returns
+    each workload run's launch counts."""
+    import torch
+    from repro_torch.core import ceil_log2
+    n_zero, q = len(wire_leaves(P_MAIN)), ceil_log2(P_MAIN)
+    none = {name: 0 for name in counters()}
+    steps = 2
+    out = {}
+    print(f"grad syncs: phase 4's full-width session (every width, all 28 "
+          f"layers), warm step {ref['warm_ms']:.1f} ms, peak "
+          f"{ref['peak'] / 2**30:.2f} GiB; {steps} steps a run, 1 for the "
+          f"int8 wire ({smi})")
+
+    def report(label, run, peak, held):
+        print(f"{label}: after step 0 {held}")
+        print(f"{label}: warm step ms {warm_ms(run)} (host clock to device "
+              f"sync; step 0 {run.step_seconds[0] * 1e3:.1f}), peak memory "
+              f"allocated {peak / 2**30:.2f} GiB ({smi})")
+
+    for bb in BUCKETS:
+        t0 = time.perf_counter()
+        buckets, rs, ag = bucket_sync(P_MAIN, bb, wire=False)
+        nb = len(buckets)
+        argv = argv_with(MAIN_ARGV, bucket_bytes=bb, steps=steps)
+        label = f"bucketed --bucket-bytes {bb}"
+        print(f"{label}: {' '.join(argv)}; {nb} buckets for {n_zero} zero "
+              f"leaves; reduced: none")
+        run, counts, peak, _, held = run_path(
+            argv, label, dict(none, fused_round=steps * P_MAIN * nb * q),
+            P_MAIN, wire=False, sync=(rs, ag), exchanges=2 * q * nb,
+            at_step0=lambda s, m: hold_step0(s, m, ref, label, "bitwise"))
+        report(label, run, peak, held)
+        out[f"8c-{bb}"] = counts
+        if bb == BUCKETS[0]:
+            sys.stdout.flush()
+            child = subprocess.run([sys.executable,
+                                    str(Path(__file__).resolve()),
+                                    PROFILE_BUCKET_STEP, str(bb)],
+                                   timeout=600)
+            check(child.returncode == 0,
+                  f"{label}: profile process exited {child.returncode}")
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    bb = BUCKETS[0]
+    buckets, rs, ag = bucket_sync(P_MAIN, bb, wire=True)
+    nb = len(buckets)
+    label = f"bucketed int8 wire --bucket-bytes {bb}"
+    on = {}
+
+    def wire_step0(sess, metrics):
+        held = hold_step0(sess, metrics, ref, label, "wire")
+        gn = float(metrics["grad_norm"])
+        check(abs(gn - wire_ref["grad_norm"]) <=
+              WIRE_RTOL * wire_ref["grad_norm"],
+              f"{label}: grad norm {gn} vs phase 5 (a)'s "
+              f"{wire_ref['grad_norm']}")
+        on.update(step0_state(sess, metrics, label))
+        return (f"{held}, of phase 4's; grad norm {gn!r}, phase 5 (a)'s "
+                f"{wire_ref['grad_norm']!r}")
+
+    for fused in ("on", "off"):
+        argv = argv_with(WIRE_A_ARGV, bucket_bytes=bb, steps=1,
+                         fused_kernel=fused)
+        print(f"{label}: {' '.join(argv)}; {nb} buckets; reduced: none")
+        want = dict(none) if fused == "off" else dict(
+            none, quantize=P_MAIN * nb, quantize_rows=P_MAIN * nb,
+            fused_round_dq=P_MAIN * nb * q)
+        run, counts, peak, _, held = run_path(
+            argv, f"{label}, kernels {fused}", want, P_MAIN, wire=True,
+            sync=(rs, ag), exchanges=2 * q * nb,
+            at_step0=wire_step0 if fused == "on" else
+            lambda s, m: hold_step0(s, m, on, label, "bitwise") +
+            " with the kernels on and off")
+        report(f"{label}, kernels {fused}", run, peak, held)
+        if fused == "on":
+            out["8d"] = counts
+    del on
+    print(f"{label}: {time.perf_counter() - t0:.1f} s")
+
+    for impl in ("ring", "xla"):
+        t0 = time.perf_counter()
+        argv = argv_with(MAIN_ARGV, grad_sync=impl, steps=steps)
+        label = f"--grad-sync {impl}"
+        print(f"{label}: {' '.join(argv)}; reduced: none")
+        # ring: p - 1 rounds per RS (volume-optimal: the same bytes) and
+        # the circulant allgather's q; xla: native calls only
+        if impl == "ring":
+            ex, sync = n_zero * ((P_MAIN - 1) + q), sync_bytes(P_MAIN, False)
+        else:
+            ex, sync = 0, (0, 0)
+        run, counts, peak, _, held = run_path(
+            argv, label, dict(none), P_MAIN, wire=False, sync=sync,
+            exchanges=ex,
+            at_step0=lambda s, m: hold_step0(s, m, ref, label, "fold"))
+        report(label, run, peak, held)
+        out[f"8e-{impl}"] = counts
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    label = "--grad-sync allreduce"
+    circ = argv_with(ALLREDUCE_ARGV, grad_sync="circulant", steps=1)
+    n2 = len(wire_leaves(P_ALLREDUCE))
+    print(f"{label}: its reference {' '.join(circ)}")
+    _, _, _, _, ref2 = run_path(  # one step, one round at p = 2
+        circ, f"{label}'s reference", dict(none, fused_round=P_ALLREDUCE * n2),
+        P_ALLREDUCE, wire=False,
+        at_step0=lambda s, m: step0_state(s, m, label))
+    del ref2["params"]  # AdamW on whole leaves or on shards: not held
+    argv = argv_with(ALLREDUCE_ARGV, steps=steps)
+    print(f"{label}: {' '.join(argv)}; reduced: p = 2, not 3 (three ranks' "
+          f"full float32 moments, 3 x 13.8 GB, do not fit beside the model)")
+    run, counts, peak, _, held = run_path(
+        argv, label, dict(none), P_ALLREDUCE, wire=False, sync=(0, 0),
+        exchanges=0,
+        at_step0=lambda s, m: hold_step0(s, m, ref2, label, "fold"))
+    report(label, run, peak, held)
+    out["8f"] = counts
+    del ref2
+    print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout")
@@ -1913,6 +2419,8 @@ def main() -> int:
         return profile_wire_step()
     if sys.argv[1:] == [PROFILE_EP_STEP]:
         return profile_ep_step()
+    if len(sys.argv) == 3 and sys.argv[1] == PROFILE_BUCKET_STEP:
+        return profile_bucket_step(int(sys.argv[2]))
     t_all = time.perf_counter()
     smi = phase_card_and_build()
     max_err, step = phase_kernel_vs_plain()
@@ -1922,19 +2430,27 @@ def main() -> int:
     phase_collectives()
     phase_wire_collectives()
     phase_alltoall()
-    counts, _, _, f32_rs_bytes = phase_main_path()
+    counts, _, _, f32_rs_bytes, ref = phase_main_path()
     paths = phase_wire_path(f32_rs_bytes)
     ep_a, ep_b = phase_ep_path()
     sweep = phase_conformance(smi)
     phase_nonuniform(smi)
     phase_nonuniform_timing(smi)
+    t8 = time.perf_counter()
+    phase_paper_comparison(smi)
+    phase_broadcast_hierarchical(smi)
+    print(f"phase 8 (a), (b) in {time.perf_counter() - t8:.1f} s")
+    syncs = phase_grad_syncs(smi, ref, paths["ref"])
+    print(f"phase 8 in {time.perf_counter() - t8:.1f} s ({smi})")
+    del ref, paths["ref"]
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
-               "6a": ep_a[1], "6b": ep_b[1], "7a": sweep}
+               "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}
-        # ``launches`` counts the workload paths (4 to 6) only: the sweep
-        # of 7 (a) is a correctness check on tiny blocks, not a workload.
+        # ``launches`` counts the workload paths (4 to 6 and 8's) only:
+        # the sweep of 7 (a) is a correctness check on tiny blocks, not a
+        # workload.
         work = sum(k for path, k in n.items() if path != "7a")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": work,

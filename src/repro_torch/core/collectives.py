@@ -1,8 +1,9 @@
-"""Träff's circulant collectives over a communicator (the wrapper layer).
+"""Träff's circulant collectives over a communicator (the wrapper layer),
+with the baselines the paper measures against.
 
-Ported from ``repro/core/collectives.py``: every function here assembles
-a :class:`CollectiveSpec` and executes its cached plan, so the round
-loops live in ``core.plan`` only.  Each takes ``xs``, the list of
+Ported from ``repro/core/collectives.py``: every circulant function here
+assembles a :class:`CollectiveSpec` and executes its cached plan, so the
+round loops live in ``core.plan`` only.  Each takes ``xs``, the list of
 per-rank tensors of the ranks ``comm`` holds in this process, and returns
 the list of per-rank results.  Every round is exactly one
 ``comm.shift``: ``ceil(log2 p)`` per reduce-scatter or allgather and
@@ -17,9 +18,28 @@ New code should hold a spec and call ``plan()`` directly::
 non-uniform reduce-scatter / allgather / allreduce (``MPI_Reduce_scatter``)
 with the same round and exchange counts.  The alltoall by concatenation
 (paper §4) and its ragged alltoallv form take ``ceil(log2 p)`` exchanges
-too.  The reference's ring /
-recursive-halving / xla baselines, broadcast and the hierarchical and
-pipelined forms are not ported yet (ROADMAP.md queue 1).
+too.
+
+Baselines, each a plan kind (``CollectiveSpec(kind=...)``) whose backend
+is the function of that name, defined beside the other backends in
+``core.plan`` and exported here, with the reference's operand order in
+every fold:
+
+* ``ring_reduce_scatter`` / ``ring_allreduce`` — p-1 rounds of one
+  exchange to rank r+1 (volume-optimal, latency linear in p);
+* ``recursive_halving_reduce_scatter`` — the butterfly, log2 p rounds of
+  one exchange with partner ``r ^ d`` (``comm.permute``), power-of-two p
+  only;
+* ``xla_*`` — the native one-call collectives of the communicator
+  (``comm.reduce_scatter_sum`` etc.: no exchange counted, one native
+  call), the reference's ``psum_scatter`` / ``psum`` / ``all_gather`` /
+  ``all_to_all``.
+
+``broadcast`` (the allgather phase standalone), the software-pipelined
+``reduce_scatter_pipelined`` / ``allgather_pipelined`` and the
+hierarchical (multi-axis) forms over a ``LocalMesh`` or ``DistMesh``
+complete the reference's layer.  The dispatchers take ``spec=`` (or bare
+spec kwargs), never an implementation name.
 """
 from __future__ import annotations
 
@@ -28,7 +48,10 @@ from typing import Callable, Sequence
 import torch
 
 from ..kernels.quantize import DEFAULT_GROUP
-from .plan import plan
+from .plan import (_BASELINE_AG, _BASELINE_AR, _BASELINE_RS,  # noqa: F401
+                   plan, recursive_halving_reduce_scatter, ring_allreduce,
+                   ring_reduce_scatter, xla_allgather, xla_allreduce,
+                   xla_alltoall, xla_reduce_scatter)
 from .spec import CollectiveSpec, as_spec
 
 Tensors = Sequence[torch.Tensor]
@@ -139,6 +162,19 @@ def circulant_alltoallv(xs: Tensors, comm, counts: Sequence[Sequence[int]],
                               counts=counts)
 
 
+#: the reference's dispatch tables, by kind (for introspection: the
+#: dispatchers below take ``spec=``, not a name); the baselines are
+#: ``core.plan``'s backends.
+RS_IMPLS = {"circulant": circulant_reduce_scatter, **_BASELINE_RS}
+AR_IMPLS = {"circulant": circulant_allreduce, **_BASELINE_AR}
+AG_IMPLS = {"circulant": circulant_allgather, **_BASELINE_AG}
+A2A_IMPLS = {"circulant": circulant_alltoall, "xla": xla_alltoall}
+
+
+# ---------------------------------------------------------------------------
+# Dispatchers, broadcast, pipelined and hierarchical forms
+# ---------------------------------------------------------------------------
+
 def reduce_scatter(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
                    **kw) -> list[torch.Tensor]:
     """Reduce-scatter dispatcher: ``spec=CollectiveSpec(...)`` or bare
@@ -163,3 +199,67 @@ def alltoall(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
     """Alltoall(v) dispatcher — see :func:`reduce_scatter`.  A spec with a
     p×p ``counts`` matrix runs the ragged alltoallv."""
     return plan(as_spec(spec, **kw), p=comm.p).alltoall(xs, comm)
+
+
+def broadcast(xs: Tensors, comm, *, spec: CollectiveSpec | None = None,
+              **kw) -> list[torch.Tensor]:
+    """All-broadcast (Träff, arXiv:2407.18004): every rank's block
+    ``(blk, *rest)`` reaches every rank as ``(p*blk, *rest)`` in rank
+    order, bitwise replicated, in ``ceil(log2 p)`` exchanges.  Bare
+    kwargs (``schedule=``...) build the ``kind="broadcast"`` spec."""
+    s = as_spec(spec if spec is not None else "broadcast", **kw)
+    return plan(s, p=comm.p).broadcast(xs, comm)
+
+
+def reduce_scatter_pipelined(xss, comm, *,
+                             spec: CollectiveSpec | None = None) -> list:
+    """Software-pipelined reduce-scatter of independent payloads
+    (``xss``: an iterable of per-rank lists): each payload's result is
+    bitwise its one-shot result, with the rounds interleaved (payload
+    b's round-k exchange posted before payload b-1's round-k fold) and
+    ``len(xss) * rounds`` exchanges.  The bucketed ZeRO-1 sync runs on
+    it."""
+    s = spec if spec is not None else CollectiveSpec()
+    return plan(s, p=comm.p).reduce_scatter_pipelined(xss, comm)
+
+
+def allgather_pipelined(xss, comm, *,
+                        spec: CollectiveSpec | None = None) -> list:
+    """Software-pipelined allgather — see :func:`reduce_scatter_pipelined`."""
+    s = spec if spec is not None else CollectiveSpec()
+    return plan(s, p=comm.p).allgather_pipelined(xss, comm)
+
+
+def hierarchical_reduce_scatter(xs: Tensors, mesh, axis_names: Sequence[str],
+                                *, spec: CollectiveSpec | None = None, **kw
+                                ) -> list[torch.Tensor]:
+    """Nested reduce-scatter over several axes of ``mesh`` (a
+    ``LocalMesh`` or ``DistMesh``), in ``axis_names`` order, each on the
+    shard the previous one left: rank (r0, r1) ends with linear block
+    ``r0 * p1 + r1``.  Each axis runs its own cached plan of the same
+    spec."""
+    out = list(xs)
+    for ax in axis_names:
+        out = reduce_scatter(out, mesh.axis(ax), spec=spec, **kw)
+    return out
+
+
+def hierarchical_allgather(xs: Tensors, mesh, axis_names: Sequence[str],
+                           *, spec: CollectiveSpec | None = None, **kw
+                           ) -> list[torch.Tensor]:
+    """Inverse of :func:`hierarchical_reduce_scatter` (reverse axis
+    order)."""
+    out = list(xs)
+    for ax in reversed(list(axis_names)):
+        out = allgather(out, mesh.axis(ax), spec=spec, **kw)
+    return out
+
+
+def hierarchical_allreduce(xs: Tensors, mesh, axis_names: Sequence[str],
+                           *, spec: CollectiveSpec | None = None, **kw
+                           ) -> list[torch.Tensor]:
+    """Multi-axis allreduce: hierarchical reduce-scatter over
+    ``axis_names`` in order, then hierarchical allgather in reverse
+    (Theorem 2 composed per axis)."""
+    out = hierarchical_reduce_scatter(xs, mesh, axis_names, spec=spec, **kw)
+    return hierarchical_allgather(out, mesh, axis_names, spec=spec, **kw)

@@ -1,13 +1,17 @@
-"""Conformance harness of the port's circulant collectives.
+"""Conformance harness of the port's collectives.
 
 The port's counterpart of ``repro/core/conformance.py``, run in one
 process on a :class:`~repro_torch.comm.LocalComm` of p virtual ranks, on
-the card or on the CPU.  It sweeps every meaningful (collective ×
-schedule × op × dtype × use_fused_kernel × wire_dtype) combination of
-the circulant kind at axis size ``p`` (int8-wire mirrors with the
-reference's quantization-aware tolerances, everything else exact), the
-Corollary-3 non-uniform counts (``run_nonuniform``) and the alltoall(v)
-(``run_alltoall``).  Per case it asserts:
+the card or on the CPU.  It sweeps the reference's case list at axis
+size ``p``: the baselines (ring and xla for both collectives, recursive
+halving on the reduce-scatter at power-of-two p) and every meaningful
+(collective × schedule × op × dtype × use_fused_kernel × wire_dtype)
+combination of the circulant kind (int8-wire mirrors with the
+reference's quantization-aware tolerances, everything else exact); then
+the Corollary-3 non-uniform counts (``run_nonuniform``), the
+alltoall(v) (``run_alltoall``), the broadcast kind (``run_broadcast``)
+and the hierarchical collectives over a two-axis ``LocalMesh``
+(``run_hierarchical``).  Per case it asserts:
 
   (a) agreement with a host numpy reference: bitwise for integer and
       max/min reductions, within the reference's tolerances for float
@@ -21,11 +25,14 @@ Corollary-3 non-uniform counts (``run_nonuniform``) and the alltoall(v)
       ceil_log2(p)`` for halving / power2 (Theorems 1 and 2), fused and
       on the wire alike; and ``comm.bytes`` equal to the rows the plan
       ships, ``nonuniform_round_widths`` / ``alltoallv_round_widths``
-      for the ragged forms.
+      for the ragged forms; for the baselines p-1 (ring) or log2 p
+      (recursive halving) exchanges per reduce-scatter, 2(p-1) per ring
+      allreduce, p-1 blocks sent per rank and phase (all three
+      reduce-scatters are volume-optimal), and for xla no exchange and
+      one native call.
 
-The reference's ring / recursive-halving / xla baselines, its broadcast,
-hierarchical and elastic re-plan sweeps are not ported yet (ROADMAP.md
-queue 1 items 14, 9, 9 and 11).  Run::
+The reference's elastic re-plan sweep waits for the elastic runtime
+(ROADMAP.md queue 1 item 11).  Run::
 
     python -m repro_torch.core.conformance <p> [--device cpu]
 
@@ -42,7 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..comm import LocalComm, resolve_device
+from ..comm import LocalComm, LocalMesh, resolve_device
 from ..kernels.quantize import wire_width
 from . import collectives as C
 from . import simulator as sim
@@ -90,10 +97,10 @@ def schedule_rounds(p: int, schedule: str) -> int:
 
 @dataclass(frozen=True)
 class Case:
-    """One conformance-matrix cell: a (collective, schedule, op, dtype,
-    fused, wire) combination of the circulant kind."""
+    """One conformance-matrix cell: a (collective, impl, schedule, op,
+    dtype, fused, wire) combination to execute and check."""
     collective: str            # reduce_scatter | allreduce
-    impl: str = "circulant"    # the only ported kind
+    impl: str = "circulant"    # circulant | ring | recursive_halving | xla
     schedule: str = "halving"
     op: str = "add"
     dtype: str = "float32"
@@ -109,23 +116,30 @@ class Case:
 
 
 def sweep_cases(p: int) -> list[Case]:
-    """Every meaningful circulant combination for axis size p,
-    deduplicated: both collectives at the defaults, then schedule / op /
-    dtype sweeps.  Every case is mirrored with ``use_fused_kernel=True``
-    and every float case (fused and not) with ``wire_dtype="int8"``."""
+    """Every meaningful combination for axis size p, deduplicated (the
+    reference's list): the impls × both collectives at the defaults,
+    then schedule / op / dtype sweeps on the circulant kind.  Every
+    circulant case is mirrored with ``use_fused_kernel=True`` and every
+    float circulant case (fused and not) with ``wire_dtype="int8"``."""
+    pow2 = p & (p - 1) == 0
     cases: list[Case] = []
     for coll in ("reduce_scatter", "allreduce"):
-        base = [Case(coll)]
+        impls = ["circulant", "ring", "xla"]
+        if coll == "reduce_scatter" and pow2 and p > 1:
+            impls.append("recursive_halving")
+        base = [Case(coll, impl) for impl in impls]
         base.extend(Case(coll, schedule=s) for s in SCHEDULES
                     if s != "halving")
         base.extend(Case(coll, op=op) for op in OPS if op != "add")
         base.extend(Case(coll, dtype=dt) for dt in DTYPES
                     if dt != "float32")
         base.extend(Case(c.collective, c.impl, c.schedule, c.op, c.dtype,
-                         fused=True) for c in list(base))
+                         fused=True) for c in list(base)
+                    if c.impl == "circulant")
         base.extend(Case(c.collective, c.impl, c.schedule, c.op, c.dtype,
                          fused=c.fused, wire="int8")
-                    for c in list(base) if c.dtype != "int32")
+                    for c in list(base)
+                    if c.impl == "circulant" and c.dtype != "int32")
         cases.extend(base)
     return cases
 
@@ -133,9 +147,24 @@ def sweep_cases(p: int) -> list[Case]:
 def case_spec(case: Case, p: int) -> CollectiveSpec:
     """The CollectiveSpec a sweep case means — every case executes
     through the plan/execute API."""
+    if case.impl != "circulant":
+        return CollectiveSpec(kind=case.impl, op=case.op)
     return CollectiveSpec(kind=case.impl, schedule=case.schedule, op=case.op,
                           use_fused_kernel=case.fused, wire_dtype=case.wire,
                           group=_group(p, case.schedule))
+
+
+def case_exchanges(case: Case, p: int) -> int:
+    """Exchanges one run of ``case`` takes at ``p`` ranks."""
+    if case.impl == "xla":
+        return 0
+    if case.impl == "ring":
+        rounds = p - 1
+    elif case.impl == "recursive_halving":
+        rounds = ceil_log2(p)
+    else:
+        rounds = schedule_rounds(p, case.schedule)
+    return rounds * (2 if case.collective == "allreduce" else 1)
 
 
 def _bf16_exact(x: np.ndarray) -> np.ndarray:
@@ -205,7 +234,20 @@ def run_case(p: int, case: Case, rng: np.random.Generator,
     spec = case_spec(case, p)
     fn = C.reduce_scatter if case.collective == "reduce_scatter" \
         else C.allreduce
-    out = np.stack([_host(o) for o in fn(xs, LocalComm(p), spec=spec)])
+    comm = LocalComm(p)
+    out = np.stack([_host(o) for o in fn(xs, comm, spec=spec)])
+    want = (case_exchanges(case, p), int(case.impl == "xla"))
+    if (comm.exchanges, comm.natives) != want:
+        raise AssertionError(
+            f"{case.label} (p={p}): {comm.exchanges} exchanges, "
+            f"{comm.natives} native calls; want {want}")
+    if case.impl in ("ring", "recursive_halving"):
+        # volume-optimal: p - 1 blocks leave each rank per phase
+        nbytes = p * (p - 1) * BLK * xs[0].element_size() * \
+            (2 if case.collective == "allreduce" else 1)
+        if comm.bytes != nbytes:
+            raise AssertionError(f"{case.label} (p={p}): {comm.bytes} "
+                                 f"bytes, want {nbytes}")
     ref = _reference(case, xg)
     tol = _tolerances(case, p)
     try:
@@ -223,7 +265,8 @@ def run_case(p: int, case: Case, rng: np.random.Generator,
     except AssertionError as e:
         raise AssertionError(f"{case.label} vs host reference (p={p}): {e}") \
             from None
-    if case.wire is not None or case.dtype == "bfloat16":
+    if case.wire is not None or case.dtype == "bfloat16" or \
+            case.impl != "circulant":
         return
     # Same fold order as the simulator: bitwise, add included.
     inputs = [[xg[r, i * BLK:(i + 1) * BLK] for i in range(p)]
@@ -542,6 +585,144 @@ def run_alltoall(p: int, device="cuda", verbose: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Broadcast plan kind (Träff, arXiv:2407.18004) — all-broadcast
+# ---------------------------------------------------------------------------
+
+BROADCAST_SCHEDULES = OPTIMAL_SCHEDULES + ("fully_connected",)
+
+
+def run_broadcast(p: int, device="cuda", verbose: bool = False) -> dict:
+    """``kind="broadcast"`` conformance: per schedule × dtype every rank
+    contributes a ``(BLK, 2)`` block and every rank's ``(p*BLK, 2)``
+    result holds rank j's block at row-block j, bitwise (payloads move
+    uncompressed), with exactly one exchange per schedule round:
+    ``ceil(log2 p)`` for halving / power2, the broadcast paper's lower
+    bound at any p.  The reference first proves each plan with its
+    static verifier (``assert_verified``), which waits for ROADMAP.md
+    queue 1 item 10."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(777 + p)
+    n_cases = 0
+    rounds: dict[str, int] = {}
+    for sched in BROADCAST_SCHEDULES:
+        spec = CollectiveSpec(kind="broadcast", schedule=sched)
+        want_rounds = schedule_rounds(p, sched)
+        if sched in OPTIMAL_SCHEDULES:
+            assert want_rounds == ceil_log2(p)
+        for dtype in ("float32", "int32"):
+            xg = (rng.standard_normal((p, BLK, 2)).astype(dtype)
+                  if dtype == "float32" else
+                  rng.integers(-50, 50, (p, BLK, 2)).astype(dtype))
+            comm = LocalComm(p)
+            out = C.broadcast(_to_ranks(xg, _TORCH_DTYPES[dtype], device),
+                              comm, spec=spec)
+            want = xg.reshape(p * BLK, 2)
+            for r in range(p):
+                if not _same_bits(_host(out[r]), want):
+                    raise AssertionError(
+                        f"broadcast[{sched}:{dtype}] p={p} rank {r}: not "
+                        f"every block delivered bitwise")
+            assert comm.exchanges == want_rounds, \
+                (f"broadcast[{sched}] p={p}: {comm.exchanges} exchanges, "
+                 f"want {want_rounds} (one per round)")
+            n_cases += 1
+        rounds[sched] = want_rounds
+        if verbose:
+            print(f"ok: broadcast[{sched}] p={p}: bitwise all-delivery, "
+                  f"{want_rounds} exchanges (ceil_log2={ceil_log2(p)})")
+    return {"n_cases": n_cases, "rounds": rounds}
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical (multi-axis) sweep — nested RS/AG/AR over a 2-D mesh
+# ---------------------------------------------------------------------------
+
+def hierarchical_factors(p: int) -> tuple[int, int] | None:
+    """(p // g, g) mesh factorization for the two-axis sweep; None for
+    primes (no non-trivial 2-D mesh exists)."""
+    g = two_level_group(p)
+    if g <= 1:
+        return None
+    return (p // g, g)
+
+
+def run_hierarchical(p: int, device="cuda", verbose: bool = False
+                     ) -> dict | None:
+    """Two-axis conformance: hierarchical reduce-scatter / allgather /
+    allreduce over a ``LocalMesh`` of ``(p//g, g)`` ranks, axes ``("x",
+    "y")``, eager and fused, exact and on the int8 wire, against the
+    host reference (rank (rx, ry) holds linear block ``rx*g + ry``; the
+    allreduce replicated bitwise, on the wire too), with exchanges summed
+    over the axes equal to ``ceil_log2(p//g) + ceil_log2(g)`` per phase.
+    Returns None for prime p."""
+    device = resolve_device(device)
+    fac = hierarchical_factors(p)
+    if fac is None:
+        return None
+    a, b = fac
+    axes = ("x", "y")
+    rng = np.random.default_rng(977 + p)
+    n = p * BLK
+    xg = rng.standard_normal((p, n)).astype(np.float32)
+    ref = xg.astype(np.float64).sum(axis=0)
+    ref_blocks = ref.reshape(p, BLK)
+    blocks = rng.standard_normal((p, BLK)).astype(np.float32)
+    xs = _to_ranks(xg, torch.float32, device)
+    bs = _to_ranks(blocks, torch.float32, device)
+    n_cases = 0
+    rounds_want = ceil_log2(a) + ceil_log2(b)
+    results: dict[str, tuple[int, int]] = {}
+
+    def exchanges(mesh):
+        return sum(mesh.axis(ax).exchanges for ax in axes)
+
+    for fused in (False, True):
+        for wire in (None, "int8"):
+            kw = {"use_fused_kernel": fused}
+            if wire:
+                kw["wire_dtype"] = wire
+            tol = ({"rtol": 2e-5, "atol": 2e-5} if wire is None
+                   else {"rtol": 0.1, "atol": 0.05 * p + 0.1})
+            tag = f"{a}x{b}" + (":fused" if fused else "") + \
+                (":w8" if wire else "")
+            mesh = LocalMesh((a, b), axes)
+            out = [_host(o) for o in C.hierarchical_reduce_scatter(
+                xs, mesh, axes, **kw)]
+            n_rs = exchanges(mesh)
+            for rr in range(p):
+                np.testing.assert_allclose(
+                    out[rr].astype(np.float64), ref_blocks[rr], **tol,
+                    err_msg=f"hierarchical RS[{tag}] p={p}")
+            ag = [_host(o) for o in C.hierarchical_allgather(
+                bs, LocalMesh((a, b), axes), axes, **kw)]
+            ag_tol = ({"rtol": 0, "atol": 0} if wire is None
+                      else {"rtol": 0.02, "atol": 0.05})
+            for rr in range(p):
+                np.testing.assert_allclose(
+                    ag[rr].reshape(p, BLK).astype(np.float64),
+                    blocks.astype(np.float64), **ag_tol,
+                    err_msg=f"hierarchical AG[{tag}] p={p}")
+            mesh = LocalMesh((a, b), axes)
+            ar = [_host(o) for o in C.hierarchical_allreduce(
+                xs, mesh, axes, **kw)]
+            n_ar = exchanges(mesh)
+            for rr in range(p):
+                np.testing.assert_allclose(
+                    ar[rr].astype(np.float64), ref, **tol,
+                    err_msg=f"hierarchical AR[{tag}] p={p}")
+                np.testing.assert_array_equal(ar[rr], ar[0])
+            n_cases += 3
+            assert (n_rs, n_ar) == (rounds_want, 2 * rounds_want), \
+                (f"hierarchical [{tag}] p={p}: RS {n_rs}, AR {n_ar} "
+                 f"exchanges, want {rounds_want}, {2 * rounds_want}")
+            results[tag] = (n_rs, n_ar)
+            if verbose:
+                print(f"ok: hierarchical[{tag}] p={p} RS/AG/AR "
+                      f"(exchanges {n_rs}/{n_ar})")
+    return {"mesh": (a, b), "n_cases": n_cases, "rounds": results}
+
+
+# ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
 
@@ -561,8 +742,11 @@ def run_sweep(p: int, device="cuda", verbose: bool = False) -> dict:
                   f"{b_rs} / {b_ar} bytes (ceil_log2={ceil_log2(p)})")
     nonuni = run_nonuniform(p, dev, verbose=verbose)
     a2a = run_alltoall(p, dev, verbose=verbose)
+    bcast = run_broadcast(p, dev, verbose=verbose)
+    hier = run_hierarchical(p, dev, verbose=verbose)
     return {"p": p, "n_cases": len(cases), "rounds": rounds,
-            "nonuniform": nonuni, "alltoall": a2a}
+            "nonuniform": nonuni, "alltoall": a2a, "broadcast": bcast,
+            "hierarchical": hier}
 
 
 def main(argv=None) -> int:
@@ -580,11 +764,15 @@ def main(argv=None) -> int:
         print(f"conformance: {e}", file=sys.stderr)
         return 2
     report = run_sweep(args.p, device=args.device, verbose=True)
+    hier = report["hierarchical"]
+    hier_note = (f", hierarchical {hier['mesh'][0]}x{hier['mesh'][1]}: "
+                 f"{hier['n_cases']} cases" if hier else "")
     print(f"CONFORMANCE OK (p={args.p}, {report['n_cases']} cases, "
           f"{len(report['rounds'])} schedules, "
           f"{report['nonuniform']['n_cases']} non-uniform cases, "
           f"{report['alltoall']['n_cases']} alltoall cases, "
-          f"device {args.device})")
+          f"{report['broadcast']['n_cases']} broadcast cases"
+          f"{hier_note}, device {args.device})")
     return 0
 
 

@@ -26,7 +26,23 @@ the int8 wire (``wire_dtype="int8"``) ``eager+int8`` (the plain
 quantizer and compressed round) and ``fused+int8`` (the ``quantize`` and
 ``fused_round_dq`` kernels on a card).  With ``use_fused_kernel=None``
 the backend is chosen per call from the payload's device
-(``resolve_fused``).
+(``resolve_fused``).  ``broadcast`` is the allgather phase run
+standalone (:meth:`CollectivePlan.broadcast`); the baselines ``ring``,
+``recursive_halving`` and ``xla`` run one-shot only, by the functions of
+this module's Baselines section, which ``core/collectives.py`` exports
+(their folds are plain ``reduce_fn``, as in the reference: no kernel).  ``BACKENDS`` lists which collectives each
+backend implements.
+
+The uniform circulant reduce-scatter takes per-round ``compress=`` /
+``decompress=`` hooks (``kernels.ops.make_compressors``): the payload a
+round sends is ``compress(send)``, a dict of tensors, each of which is
+one counted exchange (the reference's pytree ``ppermute`` is one
+collective-permute per leaf), and the fold takes ``decompress`` of what
+arrived.  ``reduce_scatter_pipelined`` / ``allgather_pipelined`` run
+many payloads of one plan with their rounds interleaved: payload b's
+round-k exchange is posted before payload b-1's round-k fold
+(``comm.post``), with ``len(payloads) * rounds`` exchanges, each payload
+bitwise its one-shot result.
 
 A flat per-rank ``counts`` spec (Corollary 3, ``MPI_Reduce_scatter``)
 compiles a :class:`BlockLayout` and per-round absolute-row tables and
@@ -279,10 +295,11 @@ class RoundState:
     plan / comm: what runs it; phase: ``"rs"`` or ``"ag"``; backend: the
     resolved ops (``eager``/``fused``, ``eager+int8``/``fused+int8``);
     nrounds: rounds of the phase (0 for p == 1); k: rounds finished;
-    started: an exchange is in flight; inflight: the received payloads of
-    the started round, one per local rank; data: backend-private per-rank
-    buffers, one dict per local rank (``data[i]["r"]`` is that rank's
-    index).
+    started: an exchange is in flight; inflight: the started round's
+    pending exchange (``wait()`` gives the received payloads, one per
+    local rank); data: backend-private per-rank buffers, one dict per
+    local rank; compress / decompress: the round hooks (reduce-scatter
+    only).
     """
 
     plan: "CollectivePlan"
@@ -292,8 +309,10 @@ class RoundState:
     nrounds: int
     k: int = 0
     started: bool = False
-    inflight: list | None = None
+    inflight: object = None
     data: list = field(default_factory=list)
+    compress: Callable | None = None
+    decompress: Callable | None = None
 
     @property
     def done(self) -> bool:
@@ -325,7 +344,9 @@ class CollectivePlan:
     granularity.  ``backend`` is ``"eager"``, ``"fused"``,
     ``"eager+int8"``, ``"fused+int8"``, ``"nonuniform"`` (flat
     ``counts``), ``"alltoallv"`` (a p×p ``counts`` spec; ``a2a`` holds
-    its row tables) or ``"auto"`` (resolved from each payload's device).
+    its row tables), ``"auto"`` (resolved from each payload's device),
+    ``"broadcast"``, or a baseline kind (``"ring"``,
+    ``"recursive_halving"``, ``"xla"``: no rounds are planned).
     """
 
     spec: CollectiveSpec
@@ -353,18 +374,24 @@ class CollectivePlan:
 
     # -- one-shot execution -------------------------------------------------
 
-    def reduce_scatter(self, xs: Sequence[torch.Tensor], comm
+    def reduce_scatter(self, xs: Sequence[torch.Tensor], comm, *,
+                       compress=None, decompress=None
                        ) -> list[torch.Tensor]:
         """Paper Algorithm 1: each rank's ``(n, *rest)`` input (n divisible
         by p) to its reduced ``(n/p, *rest)`` block; one exchange per
-        round.  With flat ``counts``: ``(sum(counts), *rest)`` to
-        ``(max(counts), *rest)``, rank r's block in rows ``[0,
-        counts[r])`` and zeros above."""
+        round (per tensor of a ``compress``-ed payload).  With flat
+        ``counts``: ``(sum(counts), *rest)`` to ``(max(counts), *rest)``,
+        rank r's block in rows ``[0, counts[r])`` and zeros above."""
+        self._check_hooks(compress, decompress)
         self._check_not_a2a("reduce_scatter")
+        if self.backend in _BASELINE_RS:
+            self._check_world(xs, comm)
+            return _BASELINE_RS[self.backend](xs, comm, op=self.spec.op)
         if self.backend == "nonuniform":
             self._check_world(xs, comm)
             return list(xs) if self.p == 1 else _rs_nonuniform(self, xs, comm)
-        st = self.rs_begin(xs, comm)
+        st = self.rs_begin(xs, comm, compress=compress,
+                           decompress=decompress)
         while not st.done:
             self.finish_round(self.start_round(st))
         return self.rs_end(st)
@@ -376,6 +403,9 @@ class CollectivePlan:
         ``counts``: ``(max(counts), *rest)`` to ``(sum(counts), *rest)``,
         replicated bitwise."""
         self._check_not_a2a("allgather")
+        if self.backend in _BASELINE_AG:
+            self._check_world(xs, comm)
+            return _BASELINE_AG[self.backend](xs, comm, op=self.spec.op)
         if self.backend == "nonuniform":
             self._check_world(xs, comm)
             return list(xs) if self.p == 1 else _ag_nonuniform(self, xs, comm)
@@ -384,10 +414,44 @@ class CollectivePlan:
             self.finish_round(self.start_round(st))
         return self.ag_end(st)
 
-    def allreduce(self, xs: Sequence[torch.Tensor], comm
+    def allreduce(self, xs: Sequence[torch.Tensor], comm, *,
+                  compress=None, decompress=None) -> list[torch.Tensor]:
+        """Paper Algorithm 2: reduce-scatter + reversed allgather (the
+        hooks compress the reduce-scatter's rounds only)."""
+        if self.backend in _BASELINE_AR:
+            self._check_world(xs, comm)
+            return _BASELINE_AR[self.backend](xs, comm, op=self.spec.op)
+        return self.allgather(self.reduce_scatter(
+            xs, comm, compress=compress, decompress=decompress), comm)
+
+    def broadcast(self, xs: Sequence[torch.Tensor], comm
                   ) -> list[torch.Tensor]:
-        """Paper Algorithm 2: reduce-scatter + reversed allgather."""
-        return self.allgather(self.reduce_scatter(xs, comm), comm)
+        """Round-optimal all-broadcast (Träff, arXiv:2407.18004): every
+        rank's block ``(blk, *rest)`` reaches every rank as ``(p*blk,
+        *rest)``, row-block j rank j's, the same bits on every rank, in
+        ``ceil(log2 p)`` rounds of one exchange each: Algorithm 2's
+        allgather phase run standalone, with no reduction.  A
+        ``kind="broadcast"`` spec moves payloads uncompressed (its
+        ``wire_dtype`` and ``use_fused_kernel`` are refused at spec
+        construction); any uniform circulant plan broadcasts too."""
+        self._check_not_a2a("broadcast")
+        self._check_world(xs, comm)
+        backend = self.backend_for(xs[0].device)
+        impl = _ASYNC_IMPLS.get((backend, "ag"))
+        if impl is None:
+            raise ValueError(
+                f"backend {backend!r} does not implement broadcast; use "
+                f"kind='broadcast' (or any uniform circulant backend)")
+        if self.p == 1:
+            return list(xs)
+        # ag_begin refuses a plan with no reduce-scatter phase (the paired
+        # protocol); broadcast has none, so it opens the state directly.
+        st = RoundState(plan=self, comm=comm, phase="ag", backend=backend,
+                        nrounds=len(self.ag_rounds))
+        st.data = [impl.begin(self, x, r) for x, r in zip(xs, comm.ranks)]
+        while not st.done:
+            self.finish_round(self.start_round(st))
+        return self.ag_end(st)
 
     def alltoall(self, xs: Sequence[torch.Tensor], comm
                  ) -> list[torch.Tensor]:
@@ -412,15 +476,36 @@ class CollectivePlan:
                 "alltoall does not support flat (Corollary 3) counts; "
                 "pass a p×p per-pair counts matrix for alltoallv")
         self._check_world(xs, comm)
+        impl = _A2A_IMPLS.get(self.backend_for(xs[0].device))
+        if impl is None:
+            raise ValueError(
+                f"backend {self.backend!r} does not implement alltoall; "
+                f"have {sorted(_A2A_IMPLS)}")
         if self.p == 1:
             return list(xs)
-        return _A2A_IMPLS[self.backend_for(xs[0].device)](self, xs, comm)
+        return impl(self, xs, comm)
 
     def _check_not_a2a(self, fn: str) -> None:
         if self.a2a is not None:
             raise ValueError(
                 f"a p×p per-pair counts matrix is alltoall(v)-only; "
                 f"{fn} takes flat per-rank counts (Corollary 3)")
+
+    def _check_hooks(self, compress, decompress) -> None:
+        if compress is None and decompress is None:
+            return
+        if self.spec.wired:
+            raise ValueError(
+                "wire_dtype and compress/decompress hooks are mutually "
+                "exclusive")
+        if self.layout is not None:
+            raise ValueError(
+                "compress/decompress hooks do not support non-uniform "
+                "counts")
+        if self.spec.kind != "circulant":
+            raise ValueError(
+                f"compress/decompress hooks need kind='circulant' "
+                f"(per-round payloads), got {self.spec.kind!r}")
 
     def _check_world(self, xs, comm) -> None:
         if comm.p != self.p:
@@ -432,11 +517,16 @@ class CollectivePlan:
 
     # -- multi-call round protocol ------------------------------------------
 
-    def rs_begin(self, xs: Sequence[torch.Tensor], comm) -> RoundState:
+    def rs_begin(self, xs: Sequence[torch.Tensor], comm, *, compress=None,
+                 decompress=None) -> RoundState:
         """Open a reduce-scatter over the local ranks' ``xs``: rotate each
         into block coordinates and lay out round 0's send payload, without
-        any exchange."""
-        return self._begin(xs, comm, "rs")
+        any exchange.  Uniform circulant backends only: baselines,
+        non-uniform counts and alltoallv have no round seam and raise."""
+        self._check_hooks(compress, decompress)
+        st = self._begin(xs, comm, "rs")
+        st.compress, st.decompress = compress, decompress
+        return st
 
     def ag_begin(self, xs: Sequence[torch.Tensor], comm) -> RoundState:
         """Open an allgather of the local ranks' blocks ``xs``."""
@@ -447,8 +537,8 @@ class CollectivePlan:
         self._check_world(xs, comm)
         _check_wire_payload(self, xs[0])
         backend = self.backend_for(xs[0].device)
-        if (backend, phase) not in _ASYNC_IMPLS:
-            supported = sorted({b for (b, _) in _ASYNC_IMPLS})
+        if (backend, "rs") not in _ASYNC_IMPLS:  # the paired protocol
+            supported = sorted({b for (b, ph) in _ASYNC_IMPLS if ph == "rs"})
             raise NotImplementedError(
                 f"backend {backend!r} has no multi-call round protocol "
                 f"({phase}_begin); async-capable backends: {supported}")
@@ -463,9 +553,10 @@ class CollectivePlan:
         return st
 
     def start_round(self, st: RoundState) -> RoundState:
-        """Issue round ``st.k``'s single exchange: every local rank's send
+        """Post round ``st.k``'s single exchange: every local rank's send
         payload goes ``+skip`` (reduce-scatter) or ``-skip`` (allgather)
-        in one ``comm.shift``.  Mutates and returns ``st``."""
+        in one ``comm.post`` (one per tensor of a ``compress``-ed
+        payload).  Mutates and returns ``st``."""
         self._check_state(st)
         if st.done:
             raise ValueError(
@@ -477,22 +568,28 @@ class CollectivePlan:
         ops = _ASYNC_IMPLS[(st.backend, st.phase)]
         rnd = st.round
         payloads = [ops.payload(self, d, rnd) for d in st.data]
+        if st.compress is not None:
+            payloads = [st.compress(x) for x in payloads]
         step = rnd.skip if st.phase == "rs" else -rnd.skip
-        st.inflight = st.comm.shift(payloads, step)
+        st.inflight = _post(st.comm, payloads, step)
         st.started = True
         return st
 
     def finish_round(self, st: RoundState) -> RoundState:
-        """Fold round ``st.k``'s received payloads and lay out the next
-        round's send buffers (exchange-free; the fused backend does both
-        in one kernel launch per rank).  Mutates and returns ``st``."""
+        """Complete round ``st.k``'s exchange, fold the received payloads
+        and lay out the next round's send buffers (no exchange; the fused
+        backend does both in one kernel launch per rank).  Mutates and
+        returns ``st``."""
         self._check_state(st)
         if not st.started:
             raise ValueError(
                 f"round {st.k} has no exchange in flight; call "
                 f"start_round() first")
         ops = _ASYNC_IMPLS[(st.backend, st.phase)]
-        for d, t in zip(st.data, st.inflight):
+        received = st.inflight.wait()
+        if st.decompress is not None:
+            received = [st.decompress(t) for t in received]
+        for d, t in zip(st.data, received):
             ops.finish(self, d, t, st)
         st.inflight = None
         st.started = False
@@ -525,6 +622,45 @@ class CollectivePlan:
         if st.plan is not self:
             raise ValueError("RoundState belongs to a different plan")
 
+    # -- software-pipelined execution ---------------------------------------
+
+    def reduce_scatter_pipelined(self, xss, comm, *, compress=None,
+                                 decompress=None) -> list[list]:
+        """Reduce-scatter many independent payloads (``xss``: an iterable
+        of per-rank lists) with their rounds interleaved; returns each
+        payload's per-rank results, bitwise its one-shot result.  Payload
+        b's round-k exchange is posted before payload b-1's round-k fold,
+        so on a ``DistComm`` each fold runs while the next payload's
+        sends are in flight; exchanges are ``len(xss) * rounds``.  Each
+        payload is opened as it is drawn from ``xss``, so a generator's
+        inputs are released once opened."""
+        sts = [self.rs_begin(xs, comm, compress=compress,
+                             decompress=decompress) for xs in xss]
+        return self._run_pipelined(sts, "rs")
+
+    def allgather_pipelined(self, xss, comm) -> list[list]:
+        """Allgather counterpart of :meth:`reduce_scatter_pipelined`."""
+        return self._run_pipelined([self.ag_begin(xs, comm) for xs in xss],
+                                   "ag")
+
+    def _run_pipelined(self, sts: list, phase: str) -> list[list]:
+        q = max((st.nrounds for st in sts), default=0)
+        for _ in range(q):
+            prev = None
+            for st in sts:
+                self.start_round(st)
+                if prev is not None:
+                    self.finish_round(prev)
+                prev = st
+            if prev is not None:
+                self.finish_round(prev)
+        end = self.rs_end if phase == "rs" else self.ag_end
+        out = []
+        for i, st in enumerate(sts):
+            out.append(end(st))
+            sts[i] = None  # its buffers go once its result is taken
+        return out
+
 
 # ---------------------------------------------------------------------------
 # plan(): spec -> CollectivePlan, memoized
@@ -538,8 +674,16 @@ def _check_wire_payload(plan: CollectivePlan, x: torch.Tensor) -> None:
             f"wire_dtype='int8' needs a float payload, got {x.dtype}")
 
 
+#: the baseline kinds: one-shot backends (this module's Baselines).
+_BASELINE_KINDS = ("ring", "recursive_halving", "xla")
+
+
 def _resolve_backend(spec: CollectiveSpec, device=None) -> str:
     """Backend for ``spec`` with a payload on ``device``."""
+    if spec.kind in _BASELINE_KINDS:
+        return spec.kind
+    if spec.kind == "broadcast":
+        return "broadcast"
     if spec.counts_matrix:
         if spec.wire_dtype is not None:
             raise ValueError(
@@ -627,7 +771,13 @@ _PLAN_CACHE = _PlanCache(maxsize=4096)
 
 def _build_plan(spec: CollectiveSpec, p: int) -> CollectivePlan:
     backend = _resolve_backend(spec)  # validates op x kernel choice
-    if spec.use_fused_kernel is None and spec.counts is None:
+    if spec.kind in _BASELINE_KINDS:
+        return CollectivePlan(
+            spec=spec, p=p, backend=backend, skips=(), rs_rounds=(),
+            ag_rounds=(), rs_send_blocks=(), rs_recv_blocks=(),
+            ag_send_blocks=(), ag_recv_blocks=())
+    if (spec.kind == "circulant" and spec.use_fused_kernel is None
+            and spec.counts is None):
         backend = "auto"
     rs = reduce_scatter_plan(p, spec.schedule, spec.group)
     ag = allgather_plan(p, spec.schedule, spec.group)
@@ -731,8 +881,14 @@ class _RsFused:
 
     @staticmethod
     def finish(plan, d, t, st):
+        live = d["live"]
+        if t.dtype != live.dtype:
+            # A decompressed payload (hooks) may be wider than the buffer:
+            # promote both, as the eager path's concatenation does.
+            dt = torch.promote_types(live.dtype, t.dtype)
+            live, t = live.to(dt), t.to(dt)
         d["live"], d["send"] = fused_round(
-            d["live"], t, nb=st.round.nblocks, next_lo=_next_lo(plan, st),
+            live, t, nb=st.round.nblocks, next_lo=_next_lo(plan, st),
             op=plan.spec.op)
 
     @staticmethod
@@ -891,7 +1047,30 @@ _ASYNC_IMPLS: dict[tuple[str, str], type] = {
     ("fused+int8", "rs"): _RsWireFused,
     ("eager+int8", "ag"): _AgWire,
     ("fused+int8", "ag"): _AgWireInPlace,
+    # kind="broadcast" is the allgather phase run standalone: it has no
+    # ("broadcast", "rs") entry, so its only operation is broadcast().
+    ("broadcast", "ag"): _AgPlain,
 }
+
+
+class _PendingDict:
+    """The pending exchanges of a ``compress``-ed payload, one per key."""
+
+    def __init__(self, pending: dict, n: int):
+        self._pending, self._n = pending, n
+
+    def wait(self) -> list[dict]:
+        got = {k: p.wait() for k, p in self._pending.items()}
+        return [{k: v[i] for k, v in got.items()} for i in range(self._n)]
+
+
+def _post(comm, payloads: list, step: int):
+    """Post one round's payloads: one exchange, or one per tensor of a
+    dict payload (a hook's compressed form)."""
+    if isinstance(payloads[0], dict):
+        return _PendingDict({k: comm.post([pl[k] for pl in payloads], step)
+                             for k in payloads[0]}, len(payloads))
+    return comm.post(payloads, step)
 
 
 # ---------------------------------------------------------------------------
@@ -1035,12 +1214,146 @@ def _a2a_v(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
     return outs
 
 
-#: alltoall backends (the reference's ``_A2A_IMPLS``; its xla baseline is
-#: not ported).
+# ---------------------------------------------------------------------------
+# Baselines (one-shot backends; their folds are plain reduce_fn)
+# ---------------------------------------------------------------------------
+
+def _as_blocks(x: torch.Tensor, p: int) -> torch.Tensor:
+    """The leading axis as ``(p, n/p, *rest)`` (n divisible by p)."""
+    return BlockLayout.uniform(p, x.shape[0]).as_blocks(x)
+
+
+def ring_reduce_scatter(xs: Tensors, comm, *, op: str | Callable = "add",
+                        **_ignored) -> list[torch.Tensor]:
+    """The classic p-1-round ring reduce-scatter [Patarasuk-Yuan; paper
+    §1]: volume-optimal, one exchange to rank r+1 per round, latency
+    linear in p.  In rotated coordinates (``R[i]`` = block of rank r+i)
+    step t sends the running partial to r+1 and folds what arrived into
+    ``R[p-2-t]``: ``reduce_fn(R[idx], got)``."""
+    reduce_fn = resolve_op(op)
+    p = comm.p
+    if p == 1:
+        return list(xs)
+    R = [torch.roll(_as_blocks(x, p), -r, dims=0)
+         for x, r in zip(xs, comm.ranks)]
+    bufs = [Rr[p - 1] for Rr in R]
+    for t in range(p - 1):
+        got = comm.shift(bufs, 1)
+        idx = p - 2 - t
+        bufs = [reduce_fn(Rr[idx], g) for Rr, g in zip(R, got)]
+    return bufs
+
+
+def ring_allreduce(xs: Tensors, comm, *, op: str | Callable = "add",
+                   **_ignored) -> list[torch.Tensor]:
+    """Ring reduce-scatter + ring allgather: 2(p-1) exchanges,
+    bandwidth-optimal; replicated bitwise."""
+    p = comm.p
+    if p == 1:
+        return list(xs)
+    w = ring_reduce_scatter(xs, comm, op=op)
+    blocks = [[b] for b in w]
+    cur = w
+    for _ in range(p - 1):
+        cur = comm.shift(cur, 1)
+        for held, got in zip(blocks, cur):
+            held.append(got)
+    outs = []
+    for held, r in zip(blocks, comm.ranks):
+        # held[t] on rank r is block (r - t) mod p; stacked reversed,
+        # row i is block (r + i + 1) mod p.
+        stacked = torch.stack(held[::-1])
+        out = torch.roll(stacked, r + 1, dims=0)
+        outs.append(out.reshape(p * held[0].shape[0], *held[0].shape[1:]))
+    return outs
+
+
+def recursive_halving_reduce_scatter(xs: Tensors, comm, *,
+                                     op: str | Callable = "add",
+                                     **_ignored) -> list[torch.Tensor]:
+    """Hypercube (butterfly) reduce-scatter, power-of-two p only (the
+    classic algorithm whose awkwardness at other p motivates the paper):
+    log2 p rounds, in round d every rank exchanges half its live blocks
+    with partner ``r ^ d`` and folds ``reduce_fn(keep, got)``."""
+    reduce_fn = resolve_op(op)
+    p = comm.p
+    if p == 1:
+        return list(xs)
+    if p & (p - 1):
+        raise ValueError(f"recursive halving needs power-of-two p, got {p}")
+    bufs = [_as_blocks(x, p) for x in xs]  # absolute block coordinates
+    d = p // 2
+    while d >= 1:
+        sends, keeps = [], []
+        for buf, r in zip(bufs, comm.ranks):
+            half = buf.shape[0] // 2
+            low, high = buf[:half], buf[half:]
+            bit = (r // d) % 2  # which half this rank keeps
+            sends.append(low if bit else high)
+            keeps.append(high if bit else low)
+        got = comm.permute(sends, [(i, i ^ d) for i in range(p)])
+        bufs = [reduce_fn(k, g) for k, g in zip(keeps, got)]
+        d //= 2
+    return [b[0] for b in bufs]
+
+
+def xla_reduce_scatter(xs: Tensors, comm, **_) -> list[torch.Tensor]:
+    """The native reduce-scatter (``psum_scatter``'s counterpart; the
+    same block-partition contract as :func:`circulant_reduce_scatter`).
+    Like the reference's it sums whatever ``op`` says."""
+    return comm.reduce_scatter_sum(xs)
+
+
+def xla_allreduce(xs: Tensors, comm, **_) -> list[torch.Tensor]:
+    """The native allreduce (``psum``'s counterpart; sums)."""
+    return comm.all_reduce_sum(xs)
+
+
+def xla_allgather(xs: Tensors, comm, **_) -> list[torch.Tensor]:
+    """The native allgather along the leading axis, the layout
+    :func:`circulant_allgather` produces."""
+    return comm.all_gather(xs)
+
+
+def xla_alltoall(xs: Tensors, comm, **_) -> list[torch.Tensor]:
+    """The native all-to-all, the layout contract of
+    :func:`circulant_alltoall`."""
+    return comm.all_to_all(xs)
+
+
+def _a2a_xla(plan: CollectivePlan, xs, comm) -> list[torch.Tensor]:
+    return xla_alltoall(xs, comm)
+
+
+_BASELINE_RS = {
+    "ring": ring_reduce_scatter,
+    "recursive_halving": recursive_halving_reduce_scatter,
+    "xla": xla_reduce_scatter,
+}
+_BASELINE_AR = {"ring": ring_allreduce, "xla": xla_allreduce}
+_BASELINE_AG = {"xla": xla_allgather}
+#: alltoall backends (the reference's ``_A2A_IMPLS``).
 _A2A_IMPLS = {
     "eager": _a2a_eager,
     "fused": _a2a_fused,
     "alltoallv": _a2a_v,
+    "xla": _a2a_xla,
+}
+
+#: which collectives each backend implements (the reference's
+#: ``BACKENDS``, its ``jnp`` backends named ``eager`` here; ``auto``
+#: resolves to ``eager`` or ``fused`` per payload).
+BACKENDS: dict[str, tuple[str, ...]] = {
+    "eager": ("reduce_scatter", "allgather", "allreduce", "alltoall"),
+    "fused": ("reduce_scatter", "allgather", "allreduce", "alltoall"),
+    "eager+int8": ("reduce_scatter", "allgather", "allreduce"),
+    "fused+int8": ("reduce_scatter", "allgather", "allreduce"),
+    "nonuniform": ("reduce_scatter", "allgather", "allreduce"),
+    "alltoallv": ("alltoall",),
+    "broadcast": ("broadcast",),
+    "ring": ("reduce_scatter", "allreduce"),
+    "recursive_halving": ("reduce_scatter",),
+    "xla": ("reduce_scatter", "allgather", "allreduce", "alltoall"),
 }
 
 

@@ -5,15 +5,15 @@ kernel choice) and nothing execution provides (the payload, the
 communicator).  Specs are frozen and hashable so ``plan()`` can memoize
 on them.
 
-The port implements the circulant kind: uniform blocks, exact or on the
-int8 wire (``wire_dtype="int8"``); the flat per-rank ``counts`` of
-Corollary 3's non-uniform blocks (``MPI_Reduce_scatter``); and the p×p
-per-pair ``counts`` matrix of the ragged alltoallv.  The reference's
-other kinds (``broadcast`` and the ring / recursive-halving / xla
-baselines) are accepted by name and raise ``NotImplementedError``
-pointing at ROADMAP.md's queue 1, so a request for them is never
-silently ignored.  Combinations the reference rejects raise
-``ValueError`` here too.
+Every kind of the reference plans here: ``circulant`` (the paper's:
+uniform blocks, exact or on the int8 wire ``wire_dtype="int8"``; the
+flat per-rank ``counts`` of Corollary 3's non-uniform blocks,
+``MPI_Reduce_scatter``; the p×p per-pair ``counts`` matrix of the
+ragged alltoallv), ``broadcast`` (Träff's round-optimal all-broadcast,
+the allgather phase standalone) and the baselines the paper measures
+against: ``ring`` (p-1 rounds), ``recursive_halving`` (power-of-two p
+only) and ``xla`` (the native one-call collective).  Combinations the
+reference rejects raise ``ValueError`` here too, with its messages.
 """
 from __future__ import annotations
 
@@ -22,24 +22,22 @@ from typing import Callable
 
 from ..kernels.quantize import DEFAULT_GROUP
 
-#: implementation families the reference knows (``repro.core.spec.KINDS``).
+#: implementation families (``repro.core.spec.KINDS``).
 KINDS = ("circulant", "broadcast", "ring", "recursive_halving", "xla")
-
-#: the kinds this port can plan.
-PORTED_KINDS = ("circulant",)
 
 #: wire formats of the circulant backends (None = uncompressed).
 WIRE_DTYPES = (None, "int8")
-
-_TODO = "not ported yet; see ROADMAP.md queue 1"
 
 
 @dataclass(frozen=True)
 class CollectiveSpec:
     """Everything needed to *plan* a collective, nothing needed to run it.
 
-    kind:             implementation family; only ``circulant`` is ported.
-    schedule:         Corollary-2 skip schedule name.
+    kind:             implementation family: ``circulant`` (the paper's),
+                      ``broadcast`` (round-optimal all-broadcast), or the
+                      baselines ``ring`` / ``recursive_halving`` / ``xla``.
+    schedule:         Corollary-2 skip schedule name (circulant and
+                      broadcast).
     group:            intra-group size for the ``two_level`` schedule.
     op:               reduction ⊕ — ``add``/``max``/``min`` or a callable
                       (the eager backend only; named ops unlock the fused
@@ -86,9 +84,11 @@ class CollectiveSpec:
                 raise ValueError(
                     "kind='broadcast' has no fold step; the fused round "
                     "kernel does not apply (use_fused_kernel=True invalid)")
-        if self.kind not in PORTED_KINDS:
-            raise NotImplementedError(f"kind={self.kind!r} is {_TODO}")
         if self.counts is not None:
+            if self.kind != "circulant":
+                raise ValueError(
+                    f"counts= (Corollary 3 / alltoallv) needs "
+                    f"kind='circulant', got {self.kind!r}")
             rows = list(self.counts)
             if rows and hasattr(rows[0], "__len__"):
                 # p×p per-pair matrix (alltoallv): counts[src][dst].
@@ -124,16 +124,20 @@ class CollectiveSpec:
     @property
     def label(self) -> str:
         """Compact tag (conformance case names), as the reference's."""
-        bits = [self.kind, self.schedule]
-        if isinstance(self.op, str):
-            bits.append(self.op)
-        if self.use_fused_kernel:
-            bits.append("fused")
-        if self.wire_dtype:
-            bits.append(f"wire={self.wire_dtype}")
-        if self.counts is not None:
-            tag = "a2av" if self.counts_matrix else "counts"
-            bits.append(f"{tag}={len(self.counts)}")
+        bits = [self.kind]
+        if self.kind == "circulant":
+            bits.append(self.schedule)
+            if isinstance(self.op, str):
+                bits.append(self.op)
+            if self.use_fused_kernel:
+                bits.append("fused")
+            if self.wire_dtype:
+                bits.append(f"wire={self.wire_dtype}")
+            if self.counts is not None:
+                tag = "a2av" if self.counts_matrix else "counts"
+                bits.append(f"{tag}={len(self.counts)}")
+        elif self.kind == "broadcast":
+            bits.append(self.schedule)
         return ":".join(bits)
 
 

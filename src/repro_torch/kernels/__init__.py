@@ -16,7 +16,7 @@ from .fused_round import (dq_round_bytes, fused_round,  # noqa: F401
                           fused_round_dq, permute_bytes, permute_rows,
                           quantize_rows, resolve_fused, round_bytes)
 from .ops import (dequant_accumulate, dequantize_blocks,  # noqa: F401
-                  fused_block_reduce, quantize_blocks)
+                  fused_block_reduce, make_compressors, quantize_blocks)
 from .quantize import (DEFAULT_GROUP, dequant_add, pack_wire,  # noqa: F401
                        pad2d, quantize, unpack_wire, wire_ngroups,
                        wire_width)

@@ -4,11 +4,14 @@
 They take payloads of any rank (flattened to 2-D ``(leading, rest)`` as
 the reference's ``_to2d`` does) and any shape: the kernels bound the
 ragged edge themselves, so nothing is padded here.  A tensor on a card
-runs the kernel, a tensor on the CPU its plain version.  The reference's
-``make_compressors`` (the plan's ``compress=`` / ``decompress=`` hooks)
-is not ported yet (ROADMAP.md).
+runs the kernel, a tensor on the CPU its plain version.
+:func:`make_compressors` builds the plan's per-round ``compress=`` /
+``decompress=`` hooks from :func:`quantize_blocks` and
+:func:`dequantize_blocks`.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -66,3 +69,29 @@ def dequant_accumulate(acc: torch.Tensor, payload: dict) -> torch.Tensor:
     acc2, _ = _to2d(acc)
     out = dequant_add(acc2, payload["codes"], payload["scales"], group=g)
     return out.reshape(shape)
+
+
+def make_compressors(group: int = DEFAULT_GROUP):
+    """``(compress, decompress)`` for the circulant reduce-scatter's
+    per-round hooks (``CollectivePlan.reduce_scatter(..., compress=,
+    decompress=)``): ``compress`` int8-quantizes a round's send payload
+    (the ``quantize`` kernel on a card) to ``{"codes", "scales"}``, each
+    tensor one exchange, and ``decompress`` turns what arrived back into
+    float32 (:func:`dequantize_blocks`).  The static ``meta`` must not
+    travel, so it waits in a queue between the two: payloads are
+    decompressed in the order they were compressed, one-shot (every
+    local rank's send, then every rank's receive) and pipelined (payload
+    b's sends are compressed before payload b-1's receives are
+    decompressed, so the queue holds both, in order; the reference's
+    one-slot cell would hand b-1 the meta of b)."""
+    metas: collections.deque = collections.deque()
+
+    def compress(x: torch.Tensor) -> dict:
+        payload = quantize_blocks(x, group=group)
+        metas.append(payload.pop("meta"))
+        return payload
+
+    def decompress(payload: dict) -> torch.Tensor:
+        return dequantize_blocks(dict(payload, meta=metas.popleft()))
+
+    return compress, decompress

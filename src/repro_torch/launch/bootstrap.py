@@ -96,8 +96,11 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
     runs its ``dp`` ranks on a ``LocalComm``.  ``mp > 1`` needs an
     expert-parallel MoE config (``moe_dispatch="ep"``): the ``dp × mp``
     ranks then run on a ``LocalMesh`` (tensor parallelism is not
-    ported).  ``wire_dtype="int8"`` puts the gradient reduce-scatter on
-    the int8 wire, with EF-SGD residuals unless ``error_feedback=False``;
+    ported).  ``grad_sync`` is the sync's impl (circulant, ring, xla or
+    allreduce) and ``bucket_bytes`` its bucket size (circulant; on an
+    expert-parallel mesh the buckets run over the data axis).
+    ``wire_dtype="int8"`` puts the gradient reduce-scatter on the int8
+    wire, with EF-SGD residuals unless ``error_feedback=False``;
     ``compress`` is its deprecated alias.  ``use_fused_kernel`` picks the
     kernels of every collective (the sync's rounds and the dispatch's
     ``permute_rows``).  With ``init_state=False`` params/opt stay
@@ -140,7 +143,8 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                             ep_world=mp if ep else None)
         world = dp
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        raise NotImplementedError(f"mode {mode!r} is not ported yet "
+                                  f"(ROADMAP.md queue 1 item 13)")
     sess = Session(cfg=cfg, mode=mode, device=dev, comm=comm, model=model,
                    opt_cfg=opt_cfg, sync=sync, built=built, pipe=pipe,
                    world=world, ep_comm=ep_comm)

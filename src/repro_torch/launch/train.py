@@ -15,18 +15,26 @@ Runs on the card unless asked for the CPU::
         --mode zero1 --moe-dispatch ep --steps 2 --seq-len 16 \\
         --global-batch 2
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --scale-down --device cpu --mesh 3x1 --mode zero1 --steps 2 \\
+        --seq-len 16 --global-batch 3 --bucket-bytes 100000
+
 The flags are the reference's plus ``--device``, less ``--ckpt-every``.
-``--wire-dtype int8`` puts the gradient reduce-scatter on the int8 wire
-(with EF-SGD residuals unless ``--no-error-feedback``; ``--compress`` is
-its deprecated alias).  ``--moe-dispatch ep`` trains a MoE arch expert
+``--grad-sync`` picks the gradient sync: ``circulant`` (the paper's),
+the baselines ``ring`` and ``xla`` (the native collectives), or
+``allreduce`` (no ZeRO: full optimizer state on every rank).
+``--bucket-bytes B`` (circulant only) syncs the gradients in buckets of
+about B bytes, the rounds pipelined across buckets.  ``--wire-dtype
+int8`` puts the gradient reduce-scatter on the int8 wire (with EF-SGD
+residuals unless ``--no-error-feedback``; ``--compress`` is its
+deprecated alias).  ``--moe-dispatch ep`` trains a MoE arch expert
 parallel over the mesh's model axis (``--mesh DxM``: D·M virtual ranks,
 zero1 over D, the dispatch's alltoall over M).  Checkpointing, the
 watchdog and failure injection belong to a later slice (ROADMAP.md queue
 1 item 11): ``--ckpt-dir`` and ``--fail-at-step`` raise if given, as do
-the flags of the other features not ported yet (``--bucket-bytes``,
-``--grad-sync`` other than circulant, ``--mode fsdp_auto``, ``--mesh``
-with a model axis but no ``--moe-dispatch ep``, ``--moe-dispatch
-rowwise``).
+the flags of the other features not ported yet (``--mode fsdp_auto``,
+ROADMAP.md item 13; ``--mesh`` with a model axis but no
+``--moe-dispatch ep``, item 13; ``--moe-dispatch rowwise``, item 8).
 """
 from __future__ import annotations
 
@@ -41,12 +49,14 @@ from . import bootstrap
 
 
 class TrainRun(NamedTuple):
-    """What a run returns: per-step losses, wall seconds (each step timed
-    to the end of its work on the device) and the bytes the gradient and
-    parameter sync's exchanges sent (``comm.bytes``; 0 in single mode)."""
+    """What a run returns, per step: losses, wall seconds (each step timed
+    to the end of its work on the device), and the bytes and exchanges of
+    the gradient and parameter sync (``comm.bytes`` / ``comm.exchanges``
+    of the data axis; 0 in single mode)."""
     losses: list
     step_seconds: list
     sync_bytes: list
+    sync_exchanges: list
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -73,7 +83,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="disable the EF-SGD residual for compressed sync")
     ap.add_argument("--compress", default=None, choices=[None, "int8"],
                     help="DEPRECATED alias for --wire-dtype (warns)")
-    ap.add_argument("--bucket-bytes", type=int, default=None)
+    ap.add_argument("--bucket-bytes", type=int, default=None,
+                    help="bucketed, pipelined gradient sync with buckets "
+                         "of about this many bytes (circulant only)")
     ap.add_argument("--fused-kernel", default="auto",
                     choices=["auto", "on", "off"],
                     help="fused_round CUDA kernel for every reduce-scatter "
@@ -92,8 +104,9 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> TrainRun:
-    """Parse ``argv``, build the session, train; returns a :class:`TrainRun`."""
+def build(argv=None):
+    """Parse ``argv`` and build the session it asks for: ``(args,
+    session)``, as :func:`main` trains it."""
     args = _parser().parse_args(argv)
     for flag, val in (("--ckpt-dir", args.ckpt_dir),
                       ("--fail-at-step", args.fail_at_step)):
@@ -115,11 +128,20 @@ def main(argv=None) -> TrainRun:
             lr=args.lr, warmup=args.warmup, device=args.device)
     except (RuntimeError, ValueError, NotImplementedError) as e:
         raise SystemExit(str(e)) from e
+    return args, sess
 
+
+def main(argv=None, on_step=None) -> TrainRun:
+    """Parse ``argv``, build the session, train; returns a :class:`TrainRun`.
+    ``on_step(step, sess, metrics)``, when given, is called after each
+    step, once the step is timed."""
+    args, sess = build(argv)
     cuda = sess.device.type == "cuda"
-    losses, times, nbytes = [], [], []
+    comm = sess.comm
+    losses, times, nbytes, nexch = [], [], [], []
     for step in range(args.steps):
-        b0 = sess.comm.bytes if sess.comm is not None else 0
+        b0 = comm.bytes if comm is not None else 0
+        x0 = comm.exchanges if comm is not None else 0
         t0 = time.perf_counter()
         metrics = bootstrap.run_step(sess, step)
         loss = float(metrics["loss"])
@@ -128,14 +150,18 @@ def main(argv=None) -> TrainRun:
         dt = time.perf_counter() - t0
         losses.append(loss)
         times.append(dt)
-        nbytes.append((sess.comm.bytes if sess.comm is not None else 0) - b0)
+        nbytes.append((comm.bytes if comm is not None else 0) - b0)
+        nexch.append((comm.exchanges if comm is not None else 0) - x0)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"lr {float(metrics['lr']):.2e}  {dt * 1e3:.0f}ms",
                   flush=True)
+        if on_step is not None:
+            on_step(step, sess, metrics)
     print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
-    return TrainRun(losses=losses, step_seconds=times, sync_bytes=nbytes)
+    return TrainRun(losses=losses, step_seconds=times, sync_bytes=nbytes,
+                    sync_exchanges=nexch)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ whole replicas, and its parameters after a step are its own.  Writes
 ``<out.npz>``: the initial parameters (``init/<path>``), the per-step
 metrics of every device (``loss``, ``grad_norm``: ``(steps, 4)``), and
 every device's parameters after the last step (``final/<g>/<path>``,
-device g = data·2 + model).
+device g = data·2 + model); the same again with the bucketed, pipelined
+sync over the data axis (``bucket_bytes=BUCKET``), prefixed ``bucket_``.
 
 Run: python tests/_torch_ep_zero1_ref.py <out.npz>
 """
@@ -39,6 +40,8 @@ from repro.optim.zero1 import GradSyncConfig  # noqa: E402
 from repro.train import build as build_step  # noqa: E402
 
 STEPS, SEQ, BATCH, D, M = 4, 16, 2, 2, 2
+#: the bucketed run's bucket size (= test_torch_ep_zero1.BUCKET).
+BUCKET = 30_000
 
 
 def _path(path):
@@ -61,14 +64,21 @@ def main(dst):
                             devices=jax.devices()[:D * M])
     recipe = ShardingRecipe(data_axes=("data",), model_axis="model")
     model = build(cfg, recipe=recipe)
+    init = model.init(jax.random.PRNGKey(0))
+    out = {"init/" + _path(p): np.asarray(leaf) for p, leaf in
+           jax.tree_util.tree_flatten_with_path(init)[0]}
+    for pre, bucket in (("", None), ("bucket_", BUCKET)):
+        sync = GradSyncConfig(use_fused_kernel=False, bucket_bytes=bucket)
+        out.update(train(cfg, model, mesh, recipe, sync, init, pre))
+    np.savez(dst, **out)
+
+
+def train(cfg, model, mesh, recipe, sync, params, pre):
     built = build_step("zero1", model,
                        AdamWConfig(lr=3e-4, warmup_steps=20,
                                    total_steps=STEPS),
-                       mesh=mesh, recipe=recipe,
-                       sync=GradSyncConfig(use_fused_kernel=False))
-    params = model.init(jax.random.PRNGKey(0))
-    out = {"init/" + _path(p): np.asarray(leaf) for p, leaf in
-           jax.tree_util.tree_flatten_with_path(params)[0]}
+                       mesh=mesh, recipe=recipe, sync=sync)
+    out = {}
     opt = jax.device_put(built.init_opt(params), built.opt_spec(params))
     pipe = for_model(cfg, seq_len=SEQ, global_batch=BATCH)
     losses, gnorms = [], []
@@ -82,11 +92,11 @@ def main(dst):
                 metrics["grad_norm"], mesh)])
     for p, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
         for g, a in enumerate(per_device(leaf, mesh)):
-            out[f"final/{g}/{_path(p)}"] = a
-    out["loss"] = np.asarray(losses, np.float64)
-    out["grad_norm"] = np.asarray(gnorms, np.float64)
-    np.savez(dst, **out)
-    print("REFERENCE OK", losses, gnorms)
+            out[f"{pre}final/{g}/{_path(p)}"] = a
+    out[pre + "loss"] = np.asarray(losses, np.float64)
+    out[pre + "grad_norm"] = np.asarray(gnorms, np.float64)
+    print("REFERENCE OK", pre, losses, gnorms)
+    return out
 
 
 if __name__ == "__main__":

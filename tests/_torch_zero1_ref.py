@@ -2,18 +2,22 @@
 port's parity test (``test_torch_zero1.py``).
 
 Drives ``repro.optim.zero1.zero1_step`` directly under
-``repro.compat.shard_map`` on a ``("data",)`` mesh of 3 fake CPU devices,
+``repro.compat.shard_map`` on a ``("data",)`` mesh of the first p of 4
+fake CPU devices,
 the model built with ``recipe=None`` and ``check_vma=False``: the
 reference's step function without its launcher (whose zero1 mode does
 not run on JAX 0.9's explicit mesh axes).  qwen3-1.7b scaled down,
-seq 16, global batch 3, the launcher's AdamW defaults, circulant
-halving sync on the jnp backend: exact, on the int8 wire with error
-feedback, and exact with a bfloat16 reduce-scatter payload
-(``rs_dtype="bfloat16"``).  Writes ``<out.npz>``: the initial
-parameters (``init/<path>``), the per-step losses and the parameters
-after the last step of the exact run (``losses``, ``final/<path>``), of
-the int8 run (``int8_losses``, ``int8_final/<path>``) and of the
-bfloat16 run (``bf16_losses``, ``bf16_final/<path>``).
+seq 16, global batch p, the launcher's AdamW defaults, halving
+schedule on the jnp backend.  At p = 3: the circulant sync exact, on the
+int8 wire with error feedback, and exact with a bfloat16 reduce-scatter
+payload (``rs_dtype="bfloat16"``); bucketed (``bucket_bytes=BUCKET``)
+exact and on the int8 wire with error feedback; and the ``ring``,
+``xla`` and ``allreduce`` impls.  At p = 2 and 4: the exact circulant
+sync.  Writes ``<out.npz>``: the initial parameters (``init/<path>``),
+and for each run its per-step losses and the parameters after the last
+step: ``losses`` / ``final/<path>`` (exact), ``int8_``, ``bf16_``,
+``bucket_``, ``bucket_int8_``, ``ring_``, ``xla_``, ``allreduce_``,
+``p2_`` and ``p4_`` prefixed likewise.
 
 Run: python tests/_torch_zero1_ref.py <out.npz>
 """
@@ -23,7 +27,7 @@ import sys
 
 _inherited = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
                     os.environ.get("XLA_FLAGS", ""))
-os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=3 "
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            + _inherited)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
@@ -40,7 +44,21 @@ from repro.optim.adamw import AdamWConfig  # noqa: E402
 from repro.optim.zero1 import (GradSyncConfig, init_zero1_state,  # noqa: E402
                                zero1_state_specs, zero1_step)
 
-STEPS, SEQ, BATCH, WORLD = 4, 16, 3, 3
+STEPS, SEQ = 4, 16
+#: bucket size of the bucketed runs (= test_torch_zero1.BUCKET): it
+#: splits the scaled-down model's larger leaves across buckets.
+BUCKET = 30_000
+#: (prefix, world, GradSyncConfig kwargs) of every run
+RUNS = (("", 3, {}),
+        ("int8_", 3, dict(wire_dtype="int8")),
+        ("bf16_", 3, dict(rs_dtype="bfloat16")),
+        ("bucket_", 3, dict(bucket_bytes=BUCKET)),
+        ("bucket_int8_", 3, dict(wire_dtype="int8", bucket_bytes=BUCKET)),
+        ("ring_", 3, dict(impl="ring")),
+        ("xla_", 3, dict(impl="xla")),
+        ("allreduce_", 3, dict(impl="allreduce")),
+        ("p2_", 2, {}),
+        ("p4_", 4, {}))
 
 
 def _flat(prefix, tree):
@@ -53,35 +71,33 @@ def main(dst):
     model = build(cfg, recipe=None)
     params = jax.jit(model.init)(jax.random.PRNGKey(0))
     out = _flat("init/", params)
-    for tag, wire, rs_dtype in (("", None, "float32"),
-                                ("int8_", "int8", "float32"),
-                                ("bf16_", None, "bfloat16")):
-        sync = GradSyncConfig(use_fused_kernel=False, wire_dtype=wire,
-                              rs_dtype=rs_dtype)
-        losses, final = train(model, cfg, params, sync)
+    for tag, world, kw in RUNS:
+        sync = GradSyncConfig(use_fused_kernel=False, **kw)
+        losses, final = train(model, cfg, params, sync, world)
         out.update(_flat(tag + "final/", final))
         out[tag + "losses"] = np.asarray(losses, np.float64)
         print("REFERENCE OK", tag or "f32", losses)
     np.savez(dst, **out)
 
 
-def train(model, cfg, params, sync):
+def train(model, cfg, params, sync, world):
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=STEPS)
-    mesh = compat.make_mesh((WORLD,), ("data",))
+    mesh = compat.make_mesh((world,), ("data",),
+                            devices=jax.devices()[:world])
 
     def inner(prm, opt, batch):
         return zero1_step(jax.value_and_grad(model.loss), prm, opt, batch,
                           axis_names=("data",), opt_cfg=opt_cfg, sync=sync)
 
     pspec = jax.tree.map(lambda _: P(), params)
-    ospec = zero1_state_specs(params, WORLD, sync, ("data",))
+    ospec = zero1_state_specs(params, world, sync, ("data",))
     bspec = {"tokens": P("data"), "targets": P("data")}
     step = jax.jit(compat.shard_map(
         inner, mesh=mesh, in_specs=(pspec, ospec, bspec),
         out_specs=(pspec, ospec, {"loss": P(), "grad_norm": P(), "lr": P()}),
         check_vma=False))
-    opt = init_zero1_state(params, WORLD, sync)
-    pipe = for_model(cfg, seq_len=SEQ, global_batch=BATCH)
+    opt = init_zero1_state(params, world, sync)
+    pipe = for_model(cfg, seq_len=SEQ, global_batch=world)
     losses = []
     for s in range(STEPS):
         batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(s).items()}

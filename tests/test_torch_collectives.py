@@ -155,8 +155,26 @@ def test_round_protocol_guards():
                                 dict(kind="xla"),
                                 dict(kind="recursive_halving")])
 def test_unported_spec_fields_raise(kw):
-    with pytest.raises(NotImplementedError):
-        CollectiveSpec(**kw)
+    """Every kind plans as the reference's does: the same backend, the
+    same label, the collectives that backend implements (``BACKENDS``),
+    and ``counts=`` refused for any kind but circulant.  (These kinds
+    raised ``NotImplementedError`` before they were ported; the
+    refusals of unknown kinds and of callables on the kernel stay.)"""
+    from repro.core import CollectiveSpec as RefSpec
+    from repro.core import plan as ref_plan
+    from repro.core.plan import BACKENDS as REF_BACKENDS
+    from repro_torch.core.plan import BACKENDS
+    spec, ref = CollectiveSpec(**kw), RefSpec(**kw)
+    assert spec.label == ref.label
+    for p in (4, 5):
+        mine = plan(spec, p=p)
+        theirs = ref_plan(ref, p=p, axis_name="x")
+        assert mine.backend == theirs.backend
+        assert BACKENDS[mine.backend] == REF_BACKENDS[theirs.backend]
+        assert mine.skips == theirs.skips
+        assert mine.ag_send_blocks == theirs.ag_send_blocks
+    with pytest.raises(ValueError, match="needs kind='circulant'"):
+        CollectiveSpec(counts=(1, 2, 3, 4), **kw)
     with pytest.raises(ValueError):
         CollectiveSpec(kind="nope")
     with pytest.raises(ValueError):

@@ -26,6 +26,10 @@ gradient (never read).  Each model column's clip scale then comes from
 its own grad norm, which differs between the columns (the reference's
 per-device grad norms, compared below), so the two columns' replicas of
 the shared weights drift apart by rounding.
+
+The bucketed, pipelined sync (``bucket_bytes``) over the data axis is
+held the same way against the reference's ``build_zero1`` with it, and
+within the port is bitwise the per-leaf sync.
 """
 import os
 import subprocess
@@ -43,6 +47,8 @@ from repro_torch.optim.zero1 import is_zero_leaf
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS, D, M = 4, 2, 2
+#: the bucketed run's bucket size (= _torch_ep_zero1_ref.BUCKET).
+BUCKET = 30_000
 
 
 @pytest.fixture(scope="module")
@@ -63,19 +69,21 @@ def reference(tmp_path_factory):
                            for k in z.files if k.startswith(prefix))
 
     return (tree("init/"), z["loss"], z["grad_norm"],
-            [tree(f"final/{g}/") for g in range(D * M)])
+            [tree(f"final/{g}/") for g in range(D * M)],
+            (z["bucket_loss"], z["bucket_grad_norm"],
+             [tree(f"bucket_final/{g}/") for g in range(D * M)]))
 
 
-def _session(fused):
+def _session(fused, bucket_bytes=None):
     return bootstrap.build_session(
         arch="phi3.5-moe-42b-a6.6b", scale_down=True, steps=STEPS,
         seq_len=16, global_batch=2, dp=D, mp=M, mode="zero1",
         moe_dispatch="ep", use_fused_kernel=fused, device="cpu",
-        init_state=False)
+        init_state=False, bucket_bytes=bucket_bytes)
 
 
-def _train(init, fused):
-    sess = _session(fused)
+def _train(init, fused, bucket_bytes=None):
+    sess = _session(fused, bucket_bytes)
     sess.params = [params_from_numpy(init, sess.cfg) for _ in range(D * M)]
     sess.opt = sess.built.init_opt(sess.params)
     metrics = [bootstrap.run_step(sess, s) for s in range(STEPS)]
@@ -84,7 +92,7 @@ def _train(init, fused):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["eager", "fused"])
 def test_ep_zero1_trajectory_matches_reference(reference, fused):
-    init, ref_loss, ref_gnorm, ref_final = reference
+    init, ref_loss, ref_gnorm, ref_final = reference[:4]
     sess, metrics = _train(init, fused)
     losses = [float(m["loss"]) for m in metrics]
     np.testing.assert_allclose(losses, ref_loss[:, 0], rtol=0, atol=1e-5)
@@ -100,7 +108,7 @@ def test_ep_zero1_trajectory_matches_reference(reference, fused):
 def test_ep_zero1_counts_and_model_axis(reference):
     """Exact exchange counts per step on each axis, and the model axis as
     the reference computes it: the columns' grad norms differ."""
-    init, _, ref_gnorm, _ = reference
+    init, _, ref_gnorm, _ = reference[:4]
     assert not np.array_equal(ref_gnorm[:, 0], ref_gnorm[:, 1])
     sess = _session(True)
     sess.params = [params_from_numpy(init, sess.cfg) for _ in range(D * M)]
@@ -119,3 +127,34 @@ def test_ep_zero1_counts_and_model_axis(reference):
     # shifts in the backward
     assert sess.ep_comm.exchanges == cfg.n_layers * 8 * q_model
     assert permute_rows.launches == before  # plain version on the CPU
+
+
+def test_ep_zero1_bucketed_matches_reference(reference):
+    """``bucket_bytes`` on the 2x2 mesh: buckets over the data axis,
+    held against the reference's bucketed ``build_zero1``, bitwise the
+    port's per-leaf run, with one RS and one AG per bucket per step."""
+    from repro_torch.optim.zero1 import plan_grad_buckets
+    init = reference[0]
+    ref_loss, ref_gnorm, ref_final = reference[4]
+    sess, metrics = _train(init, True, BUCKET)
+    np.testing.assert_allclose([float(m["loss"]) for m in metrics],
+                               ref_loss[:, 0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose([float(m["grad_norm"]) for m in metrics],
+                               ref_gnorm[:, 0], rtol=0, atol=1e-5)
+    for g, (got, want) in enumerate(zip(sess.params, ref_final)):
+        for (path, a), (_, b) in zip(T.flatten(params_to_numpy(got)),
+                                     T.flatten(want)):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9,
+                                       err_msg=f"rank {g} {'.'.join(path)}")
+    shapes = [tuple(leaf.shape) for leaf in T.leaves(sess.params[0])
+              if is_zero_leaf(tuple(leaf.shape), D,
+                              sess.sync.min_shard_numel)]
+    buckets = plan_grad_buckets(shapes, D, BUCKET)
+    leaves = [[li for li, _, _ in b] for b in buckets]
+    assert max(map(len, leaves)) > 1  # a bucket holds several leaves
+    assert len({li for b in leaves for li in b}) < sum(map(len, leaves))
+    assert sess.comm.exchanges == STEPS * len(buckets) * 2 * ceil_log2(D)
+    one, _ = _train(init, True)
+    for a, b in zip(sess.params, one.params):
+        for x, y in zip(T.leaves(a), T.leaves(b)):
+            np.testing.assert_array_equal(x.numpy(), y.numpy())

@@ -181,3 +181,99 @@ def test_conformance_sweep_on_card():
     before = [k.launches for k in kernels]
     conformance.run_sweep(5, device="cuda")
     assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [3, 4, 8])
+def test_baselines_on_card_equal_cpu(p):
+    """Ring, recursive halving (p = 4, 8), the native collectives,
+    broadcast and the pipelined RS on the card: bitwise the same
+    functions on the CPU (f32, bf16, i32; add, max, min)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.comm import LocalComm
+    from repro_torch.core import CollectiveSpec, plan
+    from repro_torch.core import collectives as C
+    gen = torch.Generator().manual_seed(p)
+    kinds = ["ring", "xla"] + (["recursive_halving"] if p & (p - 1) == 0
+                               else [])
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        xs = [(torch.randn(p * 64, 33, generator=gen) * 100).to(dtype)
+              for _ in range(p)]
+        for kind in kinds:
+            for op in ("add", "max", "min"):
+                pl = plan(CollectiveSpec(kind=kind, op=op), p=p)
+                outs = []
+                for dev in ("cpu", "cuda"):
+                    inp = [x.to(dev) for x in xs]
+                    res = pl.reduce_scatter(inp, LocalComm(p))
+                    if kind != "recursive_halving":
+                        res += pl.allreduce(inp, LocalComm(p))
+                    outs.append([t.cpu() for t in res])
+                assert all(_same_bits(a, b) for a, b in zip(*outs)), \
+                    (kind, op, dtype)
+        outs = [[t.cpu() for t in C.broadcast([x[:64].to(dev) for x in xs],
+                                              LocalComm(p))]
+                for dev in ("cpu", "cuda")]
+        assert all(_same_bits(a, b) for a, b in zip(*outs))
+    xss = [[torch.randn(p * n, 5, generator=gen) for _ in range(p)]
+           for n in (3, 8)]
+    pl = plan(CollectiveSpec(), p=p)  # auto: fused_round on the card
+    cpu = pl.reduce_scatter_pipelined(xss, LocalComm(p))
+    before = fused_round.launches
+    card = pl.reduce_scatter_pipelined(
+        [[x.cuda() for x in xs] for xs in xss], LocalComm(p))
+    assert fused_round.launches > before
+    for a, b in zip(cpu, card):
+        assert all(_same_bits(x, y.cpu()) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(bucket_bytes=30_000),
+                                dict(bucket_bytes=30_000, wire_dtype="int8"),
+                                dict(impl="ring"), dict(impl="xla")])
+def test_grad_sync_on_card_equals_cpu(kw):
+    """The sync of zero1 alone, p = 4, on the same gradients of
+    scaled-down qwen3-1.7b's shapes: the bucketed reduce-scatter and
+    allgather (exact and on the int8 wire) and the ring and xla
+    reduce-scatters on the card, bitwise the same functions on the CPU
+    (the kernels on the card, their plain versions on the CPU).  p is a
+    power of two so that the average's ``/ world`` is exact: PyTorch's
+    CUDA division by a scalar multiplies by its float32 reciprocal, which
+    at p = 3 is not the CPU's quotient in the last bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import tree as T
+    from repro_torch.comm import LocalComm
+    from repro_torch.launch import bootstrap
+    from repro_torch.optim import zero1 as Z
+    p = 4
+    sess = bootstrap.build_session(arch="qwen3-1.7b", scale_down=True,
+                                   dp=p, global_batch=p, device="cpu")
+    items = [(path, tuple(t.shape)) for path, t in T.flatten(sess.params[0])]
+    gen = torch.Generator().manual_seed(5)
+    grads = [[torch.randn(shape, generator=gen) for _, shape in items]
+             for _ in range(p)]
+    zero_idx = [i for i, (_, shape) in enumerate(items)
+                if Z.is_zero_leaf(shape, p, 1024)]
+    sync = Z.GradSyncConfig(**kw)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        gs = [[g.to(dev) for g in r] for r in grads]
+        comm = LocalComm(p)
+        if sync.bucket_bytes is None:
+            res = [Z.reduce_scatter_leaf([g[i] for g in gs], comm, sync, p)
+                   for i in zero_idx]
+            res = [t for per in res for t in per]
+        else:
+            red = Z._bucketed_reduce(gs, zero_idx, items, comm, sync, p)
+            res = [per[i] for per in red for i in zero_idx]
+            shards = [{i: per[i].to(torch.bfloat16) for i in zero_idx}
+                      for per in red]
+            res += [t for _, full in Z._bucketed_allgather(
+                shards, zero_idx, items, comm, sync, p,
+                [torch.bfloat16] * len(items)) for t in full]
+        outs.append(([t.cpu() for t in res], comm.exchanges))
+    (cpu, x_cpu), (card, x_card) = outs
+    assert x_cpu == x_card
+    assert all(_same_bits(a, b) for a, b in zip(cpu, card))

@@ -6,8 +6,8 @@
 * an AST scan finds no ``jax`` or ``repro`` import in
   ``src/repro_torch/`` or ``chip_smoke.py``;
 * the train CLI runs the zero1 main path on the CPU at a tiny size,
-  exact and on the int8 wire, and the expert-parallel MoE path on a 2x2
-  mesh.
+  exact, on the int8 wire, bucketed and with each baseline grad sync,
+  and the expert-parallel MoE path on a 2x2 mesh.
 """
 import ast
 import math
@@ -111,9 +111,41 @@ def test_train_cli_refuses_unported_moe_flags(extra):
                     "--global-batch", "2", *extra])
 
 
+@pytest.mark.parametrize("extra", [
+    ["--grad-sync", "ring"], ["--grad-sync", "xla"],
+    ["--grad-sync", "allreduce"], ["--bucket-bytes", "100000"],
+    ["--bucket-bytes", "100000", "--wire-dtype", "int8"]])
+def test_train_cli_grad_sync_modes_on_cpu(extra):
+    """``--grad-sync ring|xla|allreduce`` and ``--bucket-bytes`` reach
+    the sync and train (in process: the launcher's ``main``)."""
+    from repro_torch.launch import train
+    run = train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device",
+                      "cpu", "--mesh", "3x1", "--mode", "zero1", "--steps",
+                      "2", "--seq-len", "16", "--global-batch", "3",
+                      "--log-every", "1", *extra])
+    assert len(run.losses) == 2 and all(math.isfinite(x) for x in run.losses)
+
+
+def test_train_cli_on_step_sees_each_step():
+    """``main(argv, on_step=...)`` hands each finished step's session and
+    metrics to the hook, in order, the metrics those the run returns."""
+    from repro_torch.launch import train
+    seen = []
+    run = train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device",
+                      "cpu", "--mesh", "3x1", "--mode", "zero1", "--steps",
+                      "3", "--seq-len", "16", "--global-batch", "3"],
+                     on_step=lambda step, sess, metrics: seen.append(
+                         (step, sess.world, float(metrics["loss"]))))
+    assert seen == [(s, 3, loss) for s, loss in enumerate(run.losses)]
+
+
 @pytest.mark.parametrize("extra", [["--ckpt-dir", "x"], ["--fail-at-step", "1"],
-                                   ["--mesh", "2x2"], ["--bucket-bytes", "1000"]])
+                                   ["--mesh", "2x2"], ["--mode", "fsdp_auto"],
+                                   ["--grad-sync", "ring", "--bucket-bytes",
+                                    "1000"], ["--bucket-bytes", "0"]])
 def test_train_cli_refuses_unported_flags(extra):
+    """Unported features, and the sync's own refusals (bucketing is
+    circulant only and takes a positive size), exit with a message."""
     from repro_torch.launch import train
     with pytest.raises(SystemExit):
         train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
