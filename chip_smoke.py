@@ -103,6 +103,25 @@ Phases (any failure exits non-zero; none is caught):
    step; (f) ``--grad-sync allreduce`` on a 2x1 mesh through the
    launcher (three ranks' full moments do not fit one card).
 
+9. the plan verifier as pre-flight, per-sequence MoE dispatch and the
+   elastic drill: (a) ``verify.run((2, 3, 5, 8, 16))`` clean, a plan with
+   a dropped skip refused, and over phase 4 and (c) every plan a
+   ``build_zero1`` call compiles (and the drill's re-plan) verified,
+   counted (``Preflight``); (b) phi-3.5-MoE every width, 1 layer, seq
+   2048, ``--mesh 2x1 --moe-dispatch rowwise --global-batch 4`` in zero1
+   for 2 steps, ``fused_round`` launches and exchanges exact, peak memory
+   and warm step, and one full-width float32 MoE layer of two sequences
+   against the global dispatch of each sequence alone within 2e-5; (c)
+   the elastic shrink drill at full width (qwen3-1.7b, 28 layers, seq
+   2048): world 3, a checkpoint at step 3, rank 1 lost at step 4,
+   resumed at p' = 2 from step 3, the resumed losses bitwise an
+   uninterrupted p' = 2 run's from the same checkpoint; ``fused_round``
+   launches exact; the recovery report, checkpoint bytes, write and
+   restore seconds and the peak memory of each world printed; then
+   ``resize_zero1_state`` 3 -> 2 -> 3 bitwise on the host over the
+   checkpoint's gathered state.  The checkpoints go to a temporary
+   directory under ``build/``, removed at the end.
+
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
 rows, a misaligned base, every alltoall shape of phases 3 and 6) and
@@ -136,6 +155,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak memory rate (NVIDIA data sheet)
@@ -2405,6 +2426,320 @@ def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the plan verifier as pre-flight, per-sequence MoE dispatch, and
+# the elastic shrink drill
+# ---------------------------------------------------------------------------
+
+#: phase 9 (b): the rowwise MoE path, full width, depth cut as phase 6 (a).
+ROW_MAIN = dict(arch=EP_ARCH, steps=2, seq_len=2048, global_batch=4, dp=2,
+                mp=1, mode="zero1", moe_dispatch="rowwise", n_layers=1,
+                device="cuda")
+#: phase 9 (c): the elastic shrink drill, qwen3-1.7b full width and depth.
+DRILL = dict(arch="qwen3-1.7b", scale_down=False, steps=5, seq_len=2048,
+             global_batch=6, world=3, shrink_at_step=4, fail_rank=1,
+             ckpt_every=3, keep_last=1, device="cuda")
+
+
+class Preflight:
+    """Counts, over a ``with`` block, the plans every ``build_zero1`` call
+    compiles (``collective_specs``) and the ``assert_verified`` calls; on
+    exit the two must agree (plus ``extra`` verified plans, e.g. the
+    elastic re-plan's)."""
+
+    def __init__(self, label: str):
+        self.label, self.plans, self.builds, self.extra = label, 0, 0, 0
+
+    def __enter__(self):
+        from repro_torch.analysis.verify import assert_verified
+        from repro_torch.launch import bootstrap
+        from repro_torch.train.steps import collective_specs
+        self._orig = orig = bootstrap.build_zero1
+
+        def counted(model, comm, opt_cfg, sync, device=None, ep_world=None):
+            self.builds += 1
+            self.plans += len(collective_specs(sync, model.cfg, ep_world))
+            return orig(model, comm, opt_cfg, sync, device, ep_world)
+
+        bootstrap.build_zero1 = counted
+        self._calls0 = assert_verified.calls
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.analysis.verify import assert_verified
+        from repro_torch.launch import bootstrap
+        bootstrap.build_zero1 = self._orig
+        if exc[0] is not None:
+            return False
+        calls = assert_verified.calls - self._calls0
+        want = self.plans + self.extra
+        check(self.builds > 0 and calls == want,
+              f"{self.label}: {calls} assert_verified calls for {self.builds} "
+              f"build_zero1 calls compiling {self.plans} plans "
+              f"(+ {self.extra} re-planned)")
+        print(f"{self.label}: pre-flight verified {calls} plans = "
+              f"{self.plans} compiled by {self.builds} build_zero1 calls"
+              + (f" + {self.extra} re-planned" if self.extra else ""))
+        return False
+
+
+def phase_verifier() -> None:
+    """Phase 9 (a): the registry verifies clean; a corrupted plan (a
+    dropped skip) makes ``assert_verified`` raise."""
+    import dataclasses
+    from repro_torch.analysis import verify
+    from repro_torch.core.plan import plan
+    from repro_torch.core.spec import CollectiveSpec
+    ps = (2, 3, 5, 8, 16)
+    t0 = time.perf_counter()
+    findings = verify.run(ps)
+    n = sum(len(verify.registry_specs(p)) for p in ps)
+    check(findings == [], f"verifier: {len(findings)} findings: "
+          + "; ".join(f.render() for f in findings[:4]))
+    print(f"verifier: run({ps}) clean over {n} plans in "
+          f"{time.perf_counter() - t0:.3f} s")
+    pl = plan(CollectiveSpec(), p=8)
+    bad = dataclasses.replace(
+        pl, skips=pl.skips[:-1], rs_rounds=pl.rs_rounds[:-1],
+        rs_send_blocks=pl.rs_send_blocks[:-1],
+        rs_recv_blocks=pl.rs_recv_blocks[:-1], ag_rounds=pl.ag_rounds[1:],
+        ag_send_blocks=pl.ag_send_blocks[1:],
+        ag_recv_blocks=pl.ag_recv_blocks[1:])
+    try:
+        verify.assert_verified(bad)
+    except AssertionError:
+        rules = sorted({f.rule for f in verify.verify_plan(bad)})
+        print(f"verifier: a dropped skip at p=8 is refused ({rules})")
+    else:
+        fail("verifier: assert_verified accepted a plan with a dropped skip")
+
+
+def rowwise_layer_check() -> None:
+    """One full-width float32 MoE layer, two sequences of 2048: the
+    rowwise dispatch against ``moe_ffn_global`` applied to each sequence
+    alone, within 2e-5 on outputs.  The expert weights are drawn with
+    std ``1/sqrt(fan-in)`` of each matmul (d_model for ``w_gate`` /
+    ``w_up``, d_ff for ``w_down``), so outputs are O(1) and an absolute
+    2e-5 means what it means in ``tests/test_torch_rowwise.py``; the
+    init's own fan-in (the expert count) gives outputs in the thousands,
+    where float32 rounding alone exceeds it."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.dispatch import (moe_ffn_global, moe_ffn_rowwise,
+                                             route)
+    cfg = dataclasses.replace(get_config(EP_ARCH), dtype="float32",
+                              moe_dispatch="rowwise")
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def draw(shape, std):
+        return torch.randn(shape, device="cuda", generator=gen) * std
+
+    params = {"router": draw((d, e), 0.02),
+              "w_gate": draw((e, d, ff), d ** -0.5),
+              "w_up": draw((e, d, ff), d ** -0.5),
+              "w_down": draw((e, ff, d), ff ** -0.5)}
+    x = draw((2, 2048, d), 1.0)
+    with torch.no_grad():
+        zero_counts()
+        out, aux = moe_ffn_rowwise(params, cfg, x)
+        check(not any(read_counts().values()),
+              f"rowwise layer launched {read_counts()}")
+        worst, scale, flips = 0.0, 0.0, 0
+        _, idx_b, _ = route(params["router"], cfg, x)
+        for b in range(x.shape[0]):
+            want, _ = moe_ffn_global(params, cfg, x[b:b + 1])
+            worst = max(worst, float((out[b:b + 1] - want).abs().max()))
+            scale = max(scale, float(want.abs().max()))
+            _, idx_1, _ = route(params["router"], cfg, x[b])
+            flips += int((idx_b[b] != idx_1).any(-1).sum())
+    print(f"rowwise MoE layer (2 x 2048 tokens, d_model {d}, {e} experts, "
+          f"f32): vs the global dispatch of each sequence alone max |diff| "
+          f"{worst:.3e} (max |out| {scale:.3f}, limit 2e-5); tokens routed "
+          f"differently by the batched router: {flips}")
+    check(math.isfinite(float(aux)) and worst <= 2e-5,
+          f"rowwise layer vs global per sequence: max |diff| {worst}")
+    del params, x, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_rowwise() -> dict:
+    """Phase 9 (b): phi-3.5-MoE with ``moe_dispatch="rowwise"`` in zero1 on
+    a 2x1 mesh, two sequences per rank, counts exact."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import ceil_log2
+    from repro_torch.launch import bootstrap
+    from repro_torch.optim.zero1 import is_zero_leaf
+    print(f"rowwise MoE path: build_session({ROW_MAIN})")
+    print("reduced: depth 32 -> 1 layer (as phase 6 (a)); every width kept")
+    torch.cuda.reset_peak_memory_stats()
+    sess = bootstrap.build_session(**ROW_MAIN)
+    d = sess.world
+    n_zero = sum(is_zero_leaf(tuple(x.shape), d, sess.sync.min_shard_numel)
+                 for x in T.leaves(sess.params[0]))
+    q = ceil_log2(d)
+    steps = ROW_MAIN["steps"]
+    zero_counts()
+    x0 = sess.comm.exchanges
+    losses, secs = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(bootstrap.run_step(sess, step)["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in counters()}
+    want["fused_round"] = steps * d * n_zero * q
+    for name, w in want.items():
+        check(counts[name] == w, f"rowwise path: {name} launched "
+              f"{counts[name]} times, expected {w}")
+    exch = sess.comm.exchanges - x0
+    check(exch == steps * 2 * q * n_zero, f"rowwise path: {exch} exchanges, "
+          f"expected {steps} x 2 x {q} x {n_zero}")
+    check(all(math.isfinite(x) for x in losses),
+          f"rowwise path: non-finite loss {losses}")
+    print(f"rowwise path: losses {losses}; launches {counts} (= {steps} "
+          f"steps x {d} ranks x {n_zero} zero leaves x {q} round); "
+          f"exchanges {exch}")
+    print(f"rowwise path: step seconds {[round(t, 4) for t in secs]} (host "
+          f"clock to device sync; warm step {secs[-1] * 1e3:.1f} ms); peak "
+          f"memory allocated {peak / 2**30:.2f} GiB")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    rowwise_layer_check()
+    return counts
+
+
+def drill_launches(n_zero: dict) -> int:
+    """``fused_round`` launches of the drill: the old world's steps before
+    the fault, then the resumed and the reference runs' steps at p'."""
+    from repro_torch.core import ceil_log2
+    w, w2 = DRILL["world"], DRILL["world"] - 1
+    pre = DRILL["shrink_at_step"]
+    post = DRILL["steps"] - DRILL["ckpt_every"]
+    return (pre * w * n_zero[w] * ceil_log2(w)
+            + 2 * post * w2 * n_zero[w2] * ceil_log2(w2))
+
+
+def resize_round_trip(mgr, step: int, world: int, new_world: int) -> None:
+    """``resize_zero1_state`` world -> new_world -> world on the full-width
+    gathered state of the drill's checkpoint, on the host, leaf by leaf:
+    every ``m`` / ``v`` array back bitwise."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import leaf_dtype, param_shapes
+    from repro_torch.optim.zero1 import (GradSyncConfig, Zero1State,
+                                         resize_zero1_state)
+    cfg = get_config(DRILL["arch"])
+    template = T.unflatten(
+        (path, torch.empty(shape, dtype=leaf_dtype(cfg, path),
+                           device="meta"))
+        for path, shape in T.flatten(param_shapes(cfg)))
+    t0 = time.perf_counter()
+    _, _, opt, man = mgr.restore(step, template, device="meta")
+    check(man["world"] == world, f"resize: checkpoint world {man['world']}")
+    items = T.flatten(template)
+    sync, n = GradSyncConfig(), len(items)
+    moved = 0
+    for i, (path, shape_t) in enumerate(items):
+        for half in (0, n):
+            arr = opt[f"leaf_{half + i}"]
+            one = {path[-1]: shape_t}
+            st = Zero1State(m={path[-1]: arr}, v={}, step=0)
+            there = resize_zero1_state(st, one, new_world, sync)
+            back = resize_zero1_state(there, one, world, sync)
+            check(np.array_equal(back.m[path[-1]], arr),
+                  f"resize {world} -> {new_world} -> {world} lost bits in "
+                  f"{'.'.join(path)}")
+            moved += arr.nbytes
+    print(f"resize_zero1_state {world} -> {new_world} -> {world} on the "
+          f"host: every m and v array of the full-width gathered state "
+          f"({moved / 1e9:.2f} GB) back bitwise, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_elastic_drill(smi: str) -> dict:
+    """Phase 9 (c): the elastic shrink drill at full width: 3 -> 2 ranks
+    after a rank loss at step 4, resumed from the step-3 checkpoint, the
+    resumed losses bitwise an uninterrupted p' = 2 run's from the same
+    checkpoint; every build_zero1 plan verified."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.elastic import run_drill
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim.zero1 import is_zero_leaf
+    cfg = get_config(DRILL["arch"])
+    shapes = [s for _, s in T.flatten(param_shapes(cfg))]
+    w, w2 = DRILL["world"], DRILL["world"] - 1
+    n_zero = {p: sum(is_zero_leaf(s, p, 1024) for s in shapes)
+              for p in (w, w2)}
+    print(f"elastic drill: run_drill({DRILL}); {cfg.name} full width, "
+          f"{cfg.n_layers} layers; reduced: none")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    free = shutil.disk_usage(ckpt_dir).free
+    print(f"elastic drill: checkpoints in {ckpt_dir} ({free / 1e9:.1f} GB "
+          f"free on its disk)")
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        with Preflight("elastic drill") as pf:
+            res = run_drill(ckpt_dir=ckpt_dir, compare_ref=True, **DRILL)
+            pf.extra = len(res["report"].replans)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {name: 0 for name in counters()}
+        want["fused_round"] = drill_launches(n_zero)
+        for name, n in want.items():
+            check(counts[name] == n, f"elastic drill: {name} launched "
+                  f"{counts[name]} times, expected {n}")
+        rep, ck = res["report"], res["ckpt"]
+        check(res["resumed_step"] == DRILL["ckpt_every"]
+              and res["lost_steps"] == 1 and not rep.restarted,
+              f"elastic drill: resumed at {res['resumed_step']}, lost "
+              f"{res['lost_steps']}, restarted {rep.restarted}")
+        check(all(r.verified and r.new_p == w2 for r in rep.replans),
+              "elastic drill: a re-planned spec was not verified")
+        check(all(math.isfinite(x) for _, x in res["pre"] + res["post"]),
+              "elastic drill: non-finite loss")
+        check(res["bitwise"], f"elastic drill: resumed losses {res['post']} "
+              f"differ from the p'={w2} reference's {res['ref']}")
+        print(f"elastic drill: pre {res['pre']}")
+        print(f"elastic drill: post {res['post']} bitwise the p'={w2} "
+              f"reference run's {res['ref']}")
+        print(f"elastic drill: detected at step {res['detected_at']}, resumed "
+              f"from step {res['resumed_step']}, {res['lost_steps']} step "
+              f"lost; re-planned {len(rep.replans)} specs in "
+              f"{rep.replan_us:.0f} us, evicted {rep.evicted}; phases "
+              + ", ".join(f"{n} {t:.3f} s" for n, t in rep.phases))
+        write = ck["write"]
+        print(f"elastic drill: checkpoint of step {write['step']}: "
+              f"{write['bytes']} bytes on disk, written in {write['s']:.1f} s "
+              f"(background); restores {[round(t, 1) for t in ck['restore_s']]}"
+              f" s (resume, reference)")
+        print("elastic drill: peak memory allocated per world: "
+              + ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                          for k, v in res["peaks"].items()))
+        print(f"elastic drill: launches {counts}; {wall:.1f} s ({smi})")
+        resize_round_trip(CheckpointManager(ckpt_dir, keep_last=1),
+                          res["resumed_step"], w, w2)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout")
@@ -2430,7 +2765,8 @@ def main() -> int:
     phase_collectives()
     phase_wire_collectives()
     phase_alltoall()
-    counts, _, _, f32_rs_bytes, ref = phase_main_path()
+    with Preflight("main path"):
+        counts, _, _, f32_rs_bytes, ref = phase_main_path()
     paths = phase_wire_path(f32_rs_bytes)
     ep_a, ep_b = phase_ep_path()
     sweep = phase_conformance(smi)
@@ -2443,12 +2779,18 @@ def main() -> int:
     syncs = phase_grad_syncs(smi, ref, paths["ref"])
     print(f"phase 8 in {time.perf_counter() - t8:.1f} s ({smi})")
     del ref, paths["ref"]
+    t9 = time.perf_counter()
+    phase_verifier()
+    rowwise = phase_rowwise()
+    drill = phase_elastic_drill(smi)
+    print(f"phase 9 in {time.perf_counter() - t9:.1f} s ({smi})")
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
-               "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs}
+               "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs,
+               "9b": rowwise, "9c": drill}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}
-        # ``launches`` counts the workload paths (4 to 6 and 8's) only:
+        # ``launches`` counts the workload paths (4 to 6, 8's and 9's) only:
         # the sweep of 7 (a) is a correctness check on tiny blocks, not a
         # workload.
         work = sum(k for path, k in n.items() if path != "7a")

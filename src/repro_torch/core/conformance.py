@@ -31,8 +31,10 @@ and the hierarchical collectives over a two-axis ``LocalMesh``
       reduce-scatters are volume-optimal), and for xla no exchange and
       one native call.
 
-The reference's elastic re-plan sweep waits for the elastic runtime
-(ROADMAP.md queue 1 item 11).  Run::
+Last, ``run_elastic_replan`` re-plans every world-free spec of the
+sweep at resized worlds (shrink, grow, odd p') through the static
+verifier, and checks that evicting the old world's plans leaves the
+fresh ones cached.  Run::
 
     python -m repro_torch.core.conformance <p> [--device cpu]
 
@@ -585,6 +587,48 @@ def run_alltoall(p: int, device="cuda", verbose: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Elastic re-plan conformance (device-free)
+# ---------------------------------------------------------------------------
+
+def run_elastic_replan(p: int, verbose: bool = False) -> dict:
+    """Every uniform sweep spec must re-plan cleanly at resized worlds —
+    shrink, grow, and odd p' (the any-p property the elastic controller
+    leans on) — passing the same static verifier ``build_zero1`` runs as
+    pre-flight, and evicting the old world's cache entries must not
+    disturb the fresh plans.  Pure schedule work: no device."""
+    from ..analysis.verify import assert_verified
+
+    specs = []
+    for case in sweep_cases(p):
+        sp = case_spec(case, p)
+        # counts/group are sized for THIS p; an elastic re-plan carries
+        # the SAME spec to a new world, so only world-free specs apply.
+        if sp.counts is None and sp.group is None and sp not in specs:
+            specs.append(sp)
+    worlds = sorted({w for w in (max(2, p - 1), p + 1, 3, 2 * p)
+                     if w != p})
+    n_replans = 0
+    for sp in specs:
+        plan(sp, p=p)  # the "old world" entry
+        for p2 in worlds:
+            assert_verified(plan(sp, p=p2))
+            n_replans += 1
+        evicted = plan.invalidate(p=p)
+        assert evicted >= 1, f"{sp}: old-world plan not evicted"
+        for p2 in worlds:  # fresh plans survive the selective eviction
+            assert plan(sp, p=p2) is plan(sp, p=p2), \
+                f"{sp}: p'={p2} plan lost cache identity after invalidate"
+        # rebuilding the evicted world must verify again (p -> p' -> p)
+        assert_verified(plan(sp, p=p))
+    if verbose:
+        print(f"ok: elastic re-plan p={p} -> p'={worlds}: "
+              f"{len(specs)} specs x {len(worlds)} worlds verified, "
+              f"selective eviction clean")
+    return {"n_specs": len(specs), "worlds": worlds,
+            "n_replans": n_replans}
+
+
+# ---------------------------------------------------------------------------
 # Broadcast plan kind (Träff, arXiv:2407.18004) — all-broadcast
 # ---------------------------------------------------------------------------
 
@@ -597,15 +641,16 @@ def run_broadcast(p: int, device="cuda", verbose: bool = False) -> dict:
     result holds rank j's block at row-block j, bitwise (payloads move
     uncompressed), with exactly one exchange per schedule round:
     ``ceil(log2 p)`` for halving / power2, the broadcast paper's lower
-    bound at any p.  The reference first proves each plan with its
-    static verifier (``assert_verified``), which waits for ROADMAP.md
-    queue 1 item 10."""
+    bound at any p.  Each plan is first proved by the static verifier
+    (``assert_verified``), as the reference's is."""
+    from ..analysis.verify import assert_verified
     device = resolve_device(device)
     rng = np.random.default_rng(777 + p)
     n_cases = 0
     rounds: dict[str, int] = {}
     for sched in BROADCAST_SCHEDULES:
         spec = CollectiveSpec(kind="broadcast", schedule=sched)
+        assert_verified(plan(spec, p=p))
         want_rounds = schedule_rounds(p, sched)
         if sched in OPTIMAL_SCHEDULES:
             assert want_rounds == ceil_log2(p)
@@ -744,9 +789,10 @@ def run_sweep(p: int, device="cuda", verbose: bool = False) -> dict:
     a2a = run_alltoall(p, dev, verbose=verbose)
     bcast = run_broadcast(p, dev, verbose=verbose)
     hier = run_hierarchical(p, dev, verbose=verbose)
+    elastic = run_elastic_replan(p, verbose=verbose)
     return {"p": p, "n_cases": len(cases), "rounds": rounds,
             "nonuniform": nonuni, "alltoall": a2a, "broadcast": bcast,
-            "hierarchical": hier}
+            "hierarchical": hier, "elastic": elastic}
 
 
 def main(argv=None) -> int:
@@ -772,7 +818,8 @@ def main(argv=None) -> int:
           f"{report['nonuniform']['n_cases']} non-uniform cases, "
           f"{report['alltoall']['n_cases']} alltoall cases, "
           f"{report['broadcast']['n_cases']} broadcast cases"
-          f"{hier_note}, device {args.device})")
+          f"{hier_note}, device {args.device}, "
+          f"{report['elastic']['n_replans']} elastic re-plans)")
     return 0
 
 

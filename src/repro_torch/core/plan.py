@@ -738,8 +738,11 @@ def _resolve_backend(spec: CollectiveSpec, device=None) -> str:
 
 class _PlanCache:
     """LRU memo for compiled plans with selective invalidation (the
-    elastic runtime of a later slice evicts plans of a world that no
-    longer exists).  Entries are identical objects across hits."""
+    elastic re-plan, ``ft.elastic``, evicts the plans of a world that no
+    longer exists).  Entries are identical objects across hits.  Keys
+    are ``(spec, p)``: the port's plans name no mesh axis, so the
+    reference's ``axis_name=`` selector of ``invalidate`` has nothing
+    to select on and is left out."""
 
     def __init__(self, maxsize: int = 4096):
         self.maxsize = maxsize

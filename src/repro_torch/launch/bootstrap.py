@@ -12,8 +12,10 @@ axis.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); asking for ``cuda`` where there is none raises.
-Checkpoint restore, the elastic runtime and serving sessions belong to
-later slices (ROADMAP.md queue 1 items 11-12).
+:func:`opt_flat` and :func:`restore_session` carry a session's state
+through a checkpoint (``repro_torch.checkpoint``) in the reference's
+global layout, across a change of world size.  Serving sessions belong
+to a later slice (ROADMAP.md queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -24,12 +26,15 @@ import numpy as np
 import torch
 
 from .. import tree as T
+from ..checkpoint.manager import to_host
 from ..comm import LocalComm, LocalMesh, resolve_device
 from ..configs import get_config
 from ..data import for_model
 from ..models import build, is_ep
-from ..optim.adamw import AdamWConfig
-from ..optim.zero1 import GradSyncConfig
+from ..models.transformer import leaf_dtype, param_shapes
+from ..optim.adamw import AdamWConfig, TreeAdamState
+from ..optim.zero1 import (GradSyncConfig, Zero1State, is_zero_leaf,
+                           resize_zero1_state)
 from ..train import build_single, build_zero1
 
 
@@ -72,9 +77,6 @@ def resolve_cfg(arch: str, *, scale_down: bool = False,
         if not cfg.is_moe:
             raise ValueError(
                 f"moe_dispatch given but {arch} is not a MoE arch")
-        if moe_dispatch == "rowwise":
-            raise NotImplementedError("moe_dispatch='rowwise' is not ported "
-                                      "yet (ROADMAP.md queue 1 item 8)")
         cfg = replace(cfg, moe_dispatch=moe_dispatch)
     return cfg
 
@@ -186,3 +188,148 @@ def run_step(sess: Session, step: int) -> dict:
     sess.params, sess.opt, metrics = sess.built.step_fn(
         sess.params, sess.opt, batch)
     return metrics
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint form of a session's state
+# ---------------------------------------------------------------------------
+
+def _zero_flags(sess: Session, params: dict) -> list[bool]:
+    """Per leaf (sorted-key order): sharded at ``sess.world``?"""
+    return [sess.sync.use_zero and is_zero_leaf(tuple(p.shape), sess.world,
+                                                sess.sync.min_shard_numel)
+            for p in T.leaves(params)]
+
+
+def _check_gatherable(sess: Session) -> None:
+    if sess.ep_comm is not None:
+        raise NotImplementedError(
+            "checkpoints of an expert-parallel session are not supported: "
+            "each model column keeps its own replica of the ZeRO-1 state")
+
+
+def _gather_rows(parts: list) -> np.ndarray:
+    """The ranks' shards stacked along dim 0, in one host array."""
+    host = torch.empty((sum(x.shape[0] for x in parts), *parts[0].shape[1:]),
+                       dtype=parts[0].dtype)
+    off = 0
+    for x in parts:
+        host[off:off + x.shape[0]].copy_(x)
+        off += x.shape[0]
+    return to_host(host)
+
+
+def opt_flat(sess: Session) -> dict:
+    """Checkpoint form of the optimizer state: the reference's GLOBAL host
+    arrays keyed ``leaf_<i>`` in its flatten order: every ``m`` leaf,
+    every ``v`` leaf, ``step`` (int32), then in zero1 every EF residual
+    leaf.  In zero1 each zero leaf's ranks' ``m`` / ``v`` shards are
+    gathered into the ``(ld_pad, *rest)`` array the reference stores,
+    its EF residuals into ``(world, *leaf)`` (tiny leaves: rank 0's
+    replica and a ``(1, *leaf)`` dummy), so :func:`restore_session` can
+    restore it at any world size."""
+    if sess.mode == "single":
+        o = sess.opt
+        leaves = ([to_host(x) for x in T.leaves(o.m)]
+                  + [to_host(x) for x in T.leaves(o.v)]
+                  + [np.asarray(o.step, np.int32)])
+        return {f"leaf_{i}": x for i, x in enumerate(leaves)}
+    _check_gatherable(sess)
+    opts = sess.opt
+    flags = _zero_flags(sess, sess.params[0])
+
+    def gather(trees):
+        per_rank = [T.leaves(t) for t in trees]
+        return [_gather_rows([r[i] for r in per_rank]) if flag
+                else to_host(per_rank[0][i]) for i, flag in enumerate(flags)]
+
+    leaves = (gather([o.m for o in opts]) + gather([o.v for o in opts])
+              + [np.asarray(opts[0].step, np.int32)])
+    if opts[0].ef is not None:
+        per_rank = [T.leaves(o.ef) for o in opts]
+        leaves += [_gather_rows([r[i][None] for r in per_rank]) if flag
+                   else to_host(per_rank[0][i][None])
+                   for i, flag in enumerate(flags)]
+    return {f"leaf_{i}": x for i, x in enumerate(leaves)}
+
+
+def _shard(arr: np.ndarray, rank: int, world: int, device) -> torch.Tensor:
+    """``rank``'s ``1/world`` rows of ``arr`` as a tensor on ``device``."""
+    rows = arr.shape[0] // world
+    part = np.ascontiguousarray(arr[rank * rows:(rank + 1) * rows])
+    return torch.from_numpy(part).to(device, copy=True)
+
+
+def restore_session(sess: Session, mgr, step: int | None = None
+                    ) -> tuple[int, dict]:
+    """Restore ``mgr``'s checkpoint into ``sess``, resizing across
+    world-size changes; returns ``(resumed_step, manifest)``.
+
+    The checkpoint's optimizer arrays are GLOBAL (gathered; see
+    :func:`opt_flat`), so a world mismatch is handled on the host:
+    rebuild the saved world's global :class:`Zero1State`, run
+    ``resize_zero1_state`` to ``sess.world``, then cut each rank's shard
+    and move it to the session's device.  ``sess.params`` may be
+    ``None`` (a session built with ``init_state=False``)."""
+    _check_gatherable(sess)
+    if sess.params is None:
+        template = T.unflatten(
+            (path, torch.empty(shape, dtype=leaf_dtype(sess.cfg, path),
+                               device="meta"))
+            for path, shape in T.flatten(param_shapes(sess.cfg)))
+    else:
+        template = sess.params[0] if sess.mode == "zero1" else sess.params
+    s, params, opt_arrs, man = mgr.restore(step, template,
+                                           device=sess.device)
+    del template
+    paths = [path for path, _ in T.flatten(params)]
+    n_leaves = len(paths)
+    ef = sess.mode == "zero1" and sess.sync.uses_error_feedback
+    n = sum(1 for k in opt_arrs if k.startswith("leaf_"))
+    want = 2 * n_leaves + 1 + (n_leaves if ef else 0)
+    if n != want:
+        raise ValueError(
+            f"checkpoint has {n} optimizer leaves, session expects {want} "
+            f"— sync/arch mismatch?")
+    leaves = [opt_arrs.pop(f"leaf_{i}") for i in range(n)]
+
+    def tree(lo):
+        return T.unflatten(zip(paths, leaves[lo:lo + n_leaves]))
+
+    m, v, st = tree(0), tree(n_leaves), int(leaves[2 * n_leaves])
+    efs = tree(2 * n_leaves + 1) if ef else None
+    del leaves
+    dev = sess.device
+
+    def put(x):  # a copy: ranks never share a tensor
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, copy=True)
+
+    if sess.mode == "single":
+        sess.params = params
+        sess.opt = TreeAdamState(m=T.map_leaves(put, m),
+                                 v=T.map_leaves(put, v), step=st)
+        return s, man
+    state = Zero1State(m=m, v=v, step=st, ef=efs)
+    del m, v, efs
+    if int(man.get("world", sess.world)) != sess.world:
+        state = resize_zero1_state(state, params, sess.world, sess.sync)
+    flags = _zero_flags(sess, params)
+    world = sess.world
+    opts = []
+    for r in sess.comm.ranks:
+        def mv(tree):
+            return T.unflatten(
+                (path, _shard(x, r, world, dev) if flag else put(x))
+                for (path, x), flag in zip(T.flatten(tree), flags))
+
+        ef_r = None
+        if state.ef is not None:
+            ef_r = T.unflatten(
+                (path, put(x[r] if flag else x[0]))
+                for (path, x), flag in zip(T.flatten(state.ef), flags))
+        opts.append(Zero1State(m=mv(state.m), v=mv(state.v), step=state.step,
+                               ef=ef_r))
+    sess.params = [params] + [T.map_leaves(torch.clone, params)
+                              for _ in sess.comm.ranks[1:]]
+    sess.opt = opts
+    return s, man

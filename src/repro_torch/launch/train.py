@@ -19,7 +19,12 @@ Runs on the card unless asked for the CPU::
         --scale-down --device cpu --mesh 3x1 --mode zero1 --steps 2 \\
         --seq-len 16 --global-batch 3 --bucket-bytes 100000
 
-The flags are the reference's plus ``--device``, less ``--ckpt-every``.
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --scale-down --device cpu --mesh 3x1 --mode zero1 --steps 6 \\
+        --seq-len 16 --global-batch 3 --ckpt-dir /tmp/ck --ckpt-every 2 \\
+        --fail-at-step 4      # dies at step 4; rerun without the flag
+
+The flags are the reference's plus ``--device``.
 ``--grad-sync`` picks the gradient sync: ``circulant`` (the paper's),
 the baselines ``ring`` and ``xla`` (the native collectives), or
 ``allreduce`` (no ZeRO: full optimizer state on every rank).
@@ -29,12 +34,16 @@ int8`` puts the gradient reduce-scatter on the int8 wire (with EF-SGD
 residuals unless ``--no-error-feedback``; ``--compress`` is its
 deprecated alias).  ``--moe-dispatch ep`` trains a MoE arch expert
 parallel over the mesh's model axis (``--mesh DxM``: D·M virtual ranks,
-zero1 over D, the dispatch's alltoall over M).  Checkpointing, the
-watchdog and failure injection belong to a later slice (ROADMAP.md queue
-1 item 11): ``--ckpt-dir`` and ``--fail-at-step`` raise if given, as do
-the flags of the other features not ported yet (``--mode fsdp_auto``,
-ROADMAP.md item 13; ``--mesh`` with a model axis but no
-``--moe-dispatch ep``, item 13; ``--moe-dispatch rowwise``, item 8).
+zero1 over D, the dispatch's alltoall over M); ``--moe-dispatch
+rowwise`` dispatches each sequence's tokens in a pool of its own.
+``--ckpt-dir`` resumes from the newest checkpoint there, if any, and
+saves one every ``--ckpt-every`` steps (in the background; restorable at
+any world size); ``--fail-at-step N`` injects a crash at step N (the
+restart drill: rerun with the same ``--ckpt-dir`` to resume on the same
+trajectory).  Each step's time feeds the straggler watchdog, whose
+verdict ends the step's log line.  The flags of features not ported yet
+exit with a message (``--mode fsdp_auto`` and ``--mesh`` with a model
+axis but no ``--moe-dispatch ep``: ROADMAP.md queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -44,19 +53,23 @@ from typing import NamedTuple
 
 import torch
 
+from ..checkpoint import CheckpointManager, config_fingerprint
 from ..configs import ALIASES
+from ..ft import FailureInjector, Watchdog
 from . import bootstrap
 
 
 class TrainRun(NamedTuple):
-    """What a run returns, per step: losses, wall seconds (each step timed
-    to the end of its work on the device), and the bytes and exchanges of
-    the gradient and parameter sync (``comm.bytes`` / ``comm.exchanges``
-    of the data axis; 0 in single mode)."""
+    """What a run returns, per step from ``first_step`` on (0, or the step a
+    checkpoint resumed at): losses, wall seconds (each step timed to the
+    end of its work on the device), and the bytes and exchanges of the
+    gradient and parameter sync (``comm.bytes`` / ``comm.exchanges`` of
+    the data axis; 0 in single mode)."""
     losses: list
     step_seconds: list
     sync_bytes: list
     sync_exchanges: list
+    first_step: int = 0
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -99,7 +112,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--fail-at-step", type=int, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--fail-at-step", type=int, default=None,
+                    help="failure injection (restart drill)")
     ap.add_argument("--log-every", type=int, default=10)
     return ap
 
@@ -108,11 +123,12 @@ def build(argv=None):
     """Parse ``argv`` and build the session it asks for: ``(args,
     session)``, as :func:`main` trains it."""
     args = _parser().parse_args(argv)
-    for flag, val in (("--ckpt-dir", args.ckpt_dir),
-                      ("--fail-at-step", args.fail_at_step)):
-        if val is not None:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP.md queue 1 "
-                             f"item 11)")
+    if args.ckpt_every < 1:
+        raise SystemExit(f"--ckpt-every must be positive, got "
+                         f"{args.ckpt_every}")
+    if args.fail_at_step is not None and args.fail_at_step < 0:
+        raise SystemExit(f"--fail-at-step must be >= 0, got "
+                         f"{args.fail_at_step}")
     d, m = (int(x) for x in args.mesh.split("x"))
     try:
         sess = bootstrap.build_session(
@@ -134,12 +150,23 @@ def build(argv=None):
 def main(argv=None, on_step=None) -> TrainRun:
     """Parse ``argv``, build the session, train; returns a :class:`TrainRun`.
     ``on_step(step, sess, metrics)``, when given, is called after each
-    step, once the step is timed."""
+    step, once the step is timed.  With ``--fail-at-step`` the injected
+    crash propagates (``ft.SimulatedFailure``), as a real one would."""
     args, sess = build(argv)
     cuda = sess.device.type == "cuda"
     comm = sess.comm
+    start, mgr = 0, None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        if mgr.latest_step() is not None:
+            start, man = bootstrap.restore_session(sess, mgr)
+            print(f"resumed from step {start} "
+                  f"(manifest cursor {man.get('data_cursor')})")
+    injector = FailureInjector(fail_at_step=args.fail_at_step)
+    wd = Watchdog()
     losses, times, nbytes, nexch = [], [], [], []
-    for step in range(args.steps):
+    for step in range(start, args.steps):
+        injector.check(step)
         b0 = comm.bytes if comm is not None else 0
         x0 = comm.exchanges if comm is not None else 0
         t0 = time.perf_counter()
@@ -152,16 +179,27 @@ def main(argv=None, on_step=None) -> TrainRun:
         times.append(dt)
         nbytes.append((comm.bytes if comm is not None else 0) - b0)
         nexch.append((comm.exchanges if comm is not None else 0) - x0)
+        status = wd.observe(step, dt)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
-                  f"lr {float(metrics['lr']):.2e}  {dt * 1e3:.0f}ms",
-                  flush=True)
+                  f"lr {float(metrics['lr']):.2e}  {dt * 1e3:.0f}ms "
+                  f"[{status}]", flush=True)
         if on_step is not None:
             on_step(step, sess, metrics)
-    print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            mgr.save_async(
+                step + 1, sess.params[0] if sess.mode == "zero1"
+                else sess.params, bootstrap.opt_flat(sess),
+                {"data_cursor": step + 1,
+                 "config": config_fingerprint(sess.cfg),
+                 "mesh": args.mesh, "arch": args.arch, "world": sess.world})
+    if mgr:
+        mgr.wait()
+    if losses:
+        print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
     return TrainRun(losses=losses, step_seconds=times, sync_bytes=nbytes,
-                    sync_exchanges=nexch)
+                    sync_exchanges=nexch, first_step=start)
 
 
 if __name__ == "__main__":

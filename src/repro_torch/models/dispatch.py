@@ -4,6 +4,13 @@ Ported from ``repro/models/dispatch.py``.  One set of composable stages
 behind the ``cfg.moe_dispatch`` modes the port runs:
 
   global    one flat token pool (the stages applied directly);
+  rowwise   per-sequence pools: capacity ``capacity(cfg, S)`` per
+            sequence and per-sequence dropping.  The stages carry the
+            batch dimension (the reference runs them under ``vmap``):
+            expert e of sequence b is pool expert ``b·E + e`` of one
+            flat dispatch, so one stable sort, one prefix sum and one
+            scatter serve every sequence, and the expert FFN runs on a
+            ``(B, E, C, d)`` buffer;
   ep        expert parallelism over the ranks of a communicator (the
             reference's manual mesh axis ``cfg.ep_axis``): each rank's
             ``(E, C, d)`` dispatch buffer goes to the expert owners with
@@ -11,9 +18,6 @@ behind the ``cfg.moe_dispatch`` modes the port runs:
             and the ragged per-expert routed-token counts with the
             alltoallv, experts run on their owner, and results return by
             the reverse exchange.
-
-The reference's ``rowwise`` mode (per-sequence pools) is not ported yet
-(ROADMAP.md queue 1 item 8).
 
 Tokens are stably argsorted by expert, positioned within their expert by
 a counts/starts prefix sum, dropped beyond capacity ``C = min(ceil(cf·N·K
@@ -75,17 +79,18 @@ def aux_loss(cfg, probs: torch.Tensor, expert_idx: torch.Tensor
 
 
 def dispatch_tables(cfg, expert_idx: torch.Tensor, gate: torch.Tensor,
-                    cap: int):
+                    cap: int, n_experts: int | None = None):
     """Sort-based capacity dispatch over ONE flat pool.
 
     ``expert_idx``/``gate``: (n, K).  Returns ``(slot_token, slot_gate,
     routed)``: ``slot_token[e*cap + c]`` is the token filling slot c of
     expert e (``n``, the padded trash token, when empty), ``slot_gate``
     its renormalized router weight, and ``routed[e]`` (int32) the slots
-    expert e filled (its count clipped to ``cap``).
+    expert e filled (its count clipped to ``cap``).  ``n_experts``
+    (default ``cfg.n_experts``) is the pool's expert count.
     """
     n, k = expert_idx.shape
-    e = cfg.n_experts
+    e = cfg.n_experts if n_experts is None else n_experts
     dev = expert_idx.device
     flat_e = expert_idx.reshape(-1).long()
     sort_idx = torch.argsort(flat_e, stable=True)
@@ -146,6 +151,40 @@ def moe_ffn_global(p: dict, cfg, x: torch.Tensor):
     h = gather_tokens(xf, slot_token, cfg.n_experts, cap)  # (E, C, d)
     y = expert_ffn(p, h)                                   # (E, C, d)
     return combine(y, slot_token, slot_gate, n).reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# moe_dispatch="rowwise" — per-sequence pools
+# ---------------------------------------------------------------------------
+
+def moe_ffn_rowwise(p: dict, cfg, x: torch.Tensor):
+    """Per-sequence dispatch (the reference's ``moe_ffn_rowwise``): x (B,
+    S, d) → (out (B, S, d), aux loss).  Capacity is per sequence, ``C =
+    capacity(cfg, S)``, and tokens drop per sequence (slightly stricter
+    than one global pool; the same expected load).
+
+    Every stage carries the batch dimension.  Sequence b's expert e is
+    pool expert ``b·E + e`` of one flat dispatch over the ``B·S`` tokens:
+    the stable sort orders by sequence, then expert, then token, exactly
+    as B separate sorts would, and the slot of sequence b's expert e is
+    ``(b·E + e)·C + c``, so the dispatch buffer reshapes to ``(B, E, C,
+    d)`` with each sequence's slots its own.  The aux loss is the
+    reference's: each sequence's Switch loss, averaged over the batch."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = capacity(cfg, s)
+    gate, expert_idx, probs = route(p["router"], cfg, x)   # (B, S, ·)
+    frac, mean_probs = load_stats(cfg, probs, expert_idx)  # (B, E)
+    aux = torch.mean(e * torch.sum(frac * mean_probs, dim=-1)) \
+        * cfg.router_aux_coef
+    offset = e * torch.arange(b, device=x.device).reshape(b, 1, 1)
+    slot_token, slot_gate, _ = dispatch_tables(
+        cfg, (expert_idx + offset).reshape(b * s, k),
+        gate.reshape(b * s, k), cap, n_experts=b * e)
+    h = gather_tokens(x.reshape(b * s, d), slot_token, b * e, cap)
+    y = expert_ffn(p, h.reshape(b, e, cap, d))             # (B, E, C, d)
+    out = combine(y.reshape(b * e, cap, d), slot_token, slot_gate, b * s)
+    return out.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +266,7 @@ def moe_ffn_ep(ps: list, cfg, xs: list, comm,
         raise NotImplementedError(
             "moe_dispatch='ep' runs over a LocalComm axis; over NCCL "
             "sub-groups (DistComm) it is not ported yet (ROADMAP.md queue "
-            "1 item 8)")
+            "1 item 11.1)")
     pe = comm.p
     e, k = cfg.n_experts, cfg.experts_per_token
     b, s, d = xs[0].shape

@@ -3,17 +3,18 @@
 Ported from ``repro/models/moe.py``.  The stages live in
 :mod:`repro_torch.models.dispatch`; this module initializes the MoE
 parameter subtree and selects the layout from ``cfg.moe_dispatch``:
-``global`` (one flat token pool) here, ``ep`` (expert parallelism over a
-communicator's ranks) through :func:`dispatch.moe_ffn_ep`, which works
+``global`` (one flat token pool) and ``rowwise`` (per-sequence pools,
+:func:`dispatch.moe_ffn_rowwise`) here, ``ep`` (expert parallelism over
+a communicator's ranks) through :func:`dispatch.moe_ffn_ep`, which works
 on all of a communicator's local ranks at once and so is called by the
-ep forward of :mod:`repro_torch.models.transformer`.  ``rowwise`` is not
-ported yet (ROADMAP.md queue 1 item 8).
+ep forward of :mod:`repro_torch.models.transformer`.
 """
 from __future__ import annotations
 
 import torch
 
-from .dispatch import capacity, moe_ffn_ep, moe_ffn_global  # noqa: F401
+from .dispatch import (capacity, moe_ffn_ep, moe_ffn_global,  # noqa: F401
+                       moe_ffn_rowwise)
 from .layers import dense_init
 
 
@@ -43,17 +44,17 @@ def init_moe(gen: torch.Generator, cfg, dtype, device=None,
 
 
 def moe_ffn(p: dict, cfg, x: torch.Tensor):
-    """x: (B, S, d) → (out (B, S, d), aux loss) on one flat pool.  The
-    ``ep`` layout exchanges across ranks and runs through
-    :func:`moe_ffn_ep` over all of them at once."""
+    """x: (B, S, d) → (out (B, S, d), aux loss): one flat pool
+    (``global``) or one pool per sequence (``rowwise``).  The ``ep``
+    layout exchanges across ranks and runs through :func:`moe_ffn_ep`
+    over all of them at once."""
     mode = getattr(cfg, "moe_dispatch", "global")
     if mode == "global":
         return moe_ffn_global(p, cfg, x)
+    if mode == "rowwise":
+        return moe_ffn_rowwise(p, cfg, x)
     if mode == "ep":
         raise ValueError("moe_dispatch='ep' exchanges across ranks: run it "
                          "through moe_ffn_ep over a communicator")
-    if mode == "rowwise":
-        raise NotImplementedError("moe_dispatch='rowwise' is not ported yet "
-                                  "(ROADMAP.md queue 1 item 8)")
     raise ValueError(f"unknown moe_dispatch {mode!r}; have "
                      f"['ep', 'global', 'rowwise']")

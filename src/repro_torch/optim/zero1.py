@@ -609,3 +609,76 @@ def init_zero1_state(params: dict, world: int, sync: GradSyncConfig
     ef = T.map_leaves(mk_ef, params) if sync.uses_error_feedback else None
     return Zero1State(m=T.map_leaves(mk, params), v=T.map_leaves(mk, params),
                       step=0, ef=ef)
+
+
+def resize_zero1_state(state: Zero1State, params: dict, new_world: int,
+                       sync: GradSyncConfig) -> Zero1State:
+    """Remap a GLOBAL (gathered) :class:`Zero1State` to a new data-parallel
+    world size: the elastic reshard step (``ft.elastic``), the reference's
+    ``resize_zero1_state``.
+
+    The state is the checkpoint's host-side global view, numpy arrays:
+    zero leaves' ``m`` / ``v`` are ``(ld_pad_old, *rest)`` (leading dim
+    padded to the OLD world), tiny leaves full replicas, and ``ef`` holds
+    ``(old_world, *leaf)`` residuals for zero leaves (one full-leaf
+    residual per rank) and ``(1, *leaf)`` dummies for tiny ones.  Only
+    each leaf's true shape (from ``params``: tensors or arrays) and the
+    NEW world matter:
+
+    * ``m`` / ``v``: drop the old padding rows (``[:ld]``: padded rows
+      are zero by construction, because padded gradient rows are zero,
+      so the moments never leave zero there) and re-pad to the new
+      world's multiple.  A leaf whose :func:`is_zero_leaf` flag flips
+      between worlds takes the same slice and pad (tiny leaves store
+      exactly ``ld`` rows).  The round trip p→p′→p is lossless.
+    * ``ef``: resized by MASS CONSERVATION: row 0 of the new ``(new_world,
+      *leaf)`` state is the sum over all old rank rows, the other rows
+      zero.  Each rank adds its residual into its local gradient before
+      quantization and the reduce-scatter SUMS ranks, so only the total
+      ``sum_r ef_r`` enters the reduced gradient; per-rank attribution
+      carries no information across a resize (the rank set changed).
+      Shrink and grow are the same operation, and the residual mass
+      survives p→p′→p exactly.  State with residuals under a sync without
+      error feedback raises rather than drop their mass.
+    * ``step``: unchanged.
+    """
+    if new_world < 1:
+        raise ValueError(f"new_world must be >= 1, got {new_world}")
+    shapes = {path: tuple(p.shape) for path, p in T.flatten(params)}
+
+    def zero(shape):
+        return sync.use_zero and is_zero_leaf(shape, new_world,
+                                              sync.min_shard_numel)
+
+    def rs_mv(path, mv):
+        shape = shapes[path]
+        if not shape:
+            return np.asarray(mv)  # scalar leaf: always replicated
+        ld = shape[0]
+        arr = np.asarray(mv)[:ld]
+        if zero(shape):
+            pad = (-ld) % new_world
+            if pad:
+                arr = np.concatenate(
+                    [arr, np.zeros((pad, *arr.shape[1:]), arr.dtype)])
+        return arr
+
+    def rs_ef(path, e):
+        shape = shapes[path]
+        out = np.zeros((new_world if zero(shape) else 1, *shape), np.float32)
+        out[0] = np.asarray(e, np.float32).sum(axis=0)
+        return out
+
+    def remap(fn, tree):
+        return T.unflatten((path, fn(path, leaf))
+                           for path, leaf in T.flatten(tree))
+
+    new_ef = None
+    if state.ef is not None:
+        if not sync.uses_error_feedback:
+            raise ValueError(
+                "state carries EF residuals but sync does not use error "
+                "feedback — resize would silently drop residual mass")
+        new_ef = remap(rs_ef, state.ef)
+    return Zero1State(m=remap(rs_mv, state.m), v=remap(rs_mv, state.v),
+                      step=state.step, ef=new_ef)

@@ -21,10 +21,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+from .. import tree as T
+from ..analysis.verify import assert_verified
 from ..core.plan import plan
 from ..models import ModelApi, is_ep, value_and_grad, value_and_grad_ranks
+from ..models.transformer import param_shapes
 from ..optim.adamw import AdamWConfig, init_tree_state, lr_at, update_tree
-from ..optim.zero1 import GradSyncConfig, init_zero1_state, zero1_step
+from ..optim.zero1 import (GradSyncConfig, init_zero1_state, is_zero_leaf,
+                           plan_grad_buckets, zero1_step)
 
 
 @dataclass
@@ -67,6 +71,32 @@ def collective_specs(sync: GradSyncConfig, model_cfg=None,
     return tuple(out)
 
 
+def check_bucket_partition(model_cfg, world: int, sync: GradSyncConfig
+                           ) -> None:
+    """Check the bucketed sync's partition of ``model_cfg``'s zero leaves
+    at ``world`` ranks (the reference's build-time checks): raises unless
+    every bucket is non-empty, every segment ``(leaf, lo, hi)`` has ``0
+    <= lo < hi``, and each leaf's segments add up to its shard rows."""
+    zshapes = [s for _, s in T.flatten(param_shapes(model_cfg))
+               if is_zero_leaf(s, world, sync.min_shard_numel)]
+    itemsize = 4 if sync.rs_dtype == "float32" else 2
+    buckets = plan_grad_buckets(zshapes, world, sync.bucket_bytes, itemsize)
+    covered: dict[int, int] = {}
+    for b in buckets:
+        if not b:
+            raise ValueError("bucket partitioner produced empty bucket")
+        for li, lo, hi in b:
+            if not 0 <= lo < hi:
+                raise ValueError(f"bad segment ({li}, {lo}, {hi})")
+            covered[li] = covered.get(li, 0) + (hi - lo)
+    for li, shape in enumerate(zshapes):
+        rows = (shape[0] + (-shape[0]) % world) // world
+        if covered.get(li, 0) != rows:
+            raise ValueError(
+                f"bucket partition covers {covered.get(li, 0)}/{rows} "
+                f"shard rows of leaf {li} {shape}")
+
+
 def build_zero1(model: ModelApi, comm, opt_cfg: AdamWConfig,
                 sync: GradSyncConfig, device=None,
                 ep_world: int | None = None) -> BuiltStep:
@@ -74,12 +104,19 @@ def build_zero1(model: ModelApi, comm, opt_cfg: AdamWConfig,
     AdamW on the shard → circulant AG.  Every plan of the step (the
     reduce-scatter's, which may be on the int8 wire, the allgather's and,
     for an expert-parallel model over ``ep_world`` ranks, the dispatch's
-    alltoall(v)) is compiled here and its backend resolved for tensors
-    on ``device``, so a bad config fails at build time rather than
-    mid-step."""
+    alltoall(v)) is compiled here, its backend resolved for tensors on
+    ``device`` and the plan put through the static verifier
+    (``assert_verified``), so a bad config or a corrupted plan fails at
+    build time rather than mid-step.  With ``sync.bucket_bytes`` the
+    bucket partition of the model's zero leaves is checked too: no empty
+    bucket, well-formed segments, and every leaf's shard rows covered
+    exactly."""
     for role, spec in collective_specs(sync, model.cfg, ep_world):
-        plan(spec, p=comm.p if role == "data" else ep_world
-             ).backend_for(device)
+        pl = plan(spec, p=comm.p if role == "data" else ep_world)
+        pl.backend_for(device)
+        assert_verified(pl)
+    if sync.bucket_bytes is not None:
+        check_bucket_partition(model.cfg, comm.p, sync)
     if model.loss_ranks is not None:
         loss_and_grad = value_and_grad_ranks(model.loss_ranks)
     else:

@@ -277,3 +277,39 @@ def test_grad_sync_on_card_equals_cpu(kw):
     (cpu, x_cpu), (card, x_card) = outs
     assert x_cpu == x_card
     assert all(_same_bits(a, b) for a, b in zip(cpu, card))
+
+
+@pytest.mark.gpu
+def test_preflight_verifies_every_plan_on_the_card():
+    """``build_zero1`` on the card verifies each plan it compiles (the
+    int8 wire's reduce-scatter and the allgather) and resolves them to
+    the kernel backends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.analysis.verify import assert_verified
+    from repro_torch.core.plan import plan
+    from repro_torch.launch import bootstrap
+    before = assert_verified.calls
+    sess = bootstrap.build_session(arch="qwen3-1.7b", scale_down=True,
+                                   dp=3, global_batch=3, seq_len=8,
+                                   mode="zero1", wire_dtype="int8",
+                                   device="cuda", init_state=False)
+    assert assert_verified.calls - before == 2
+    assert plan(sess.sync.rs_spec(), p=3).backend_for("cuda") == "fused+int8"
+
+
+@pytest.mark.gpu
+def test_small_elastic_drill_on_the_card():
+    """The scaled-down shrink drill on the card: 4 -> 3 at step 5,
+    resumed from the step-3 checkpoint, losses bitwise the uninterrupted
+    p' run's; every sync round launched ``fused_round``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch.elastic import run_drill
+    before = fused_round.launches
+    res = run_drill(arch="qwen3-1.7b", scale_down=True, steps=7, seq_len=16,
+                    global_batch=12, world=4, shrink_at_step=5, fail_rank=2,
+                    ckpt_every=3, device="cuda")
+    assert res["resumed_step"] == 3 and res["bitwise"], res
+    assert fused_round.launches > before
+    assert all(v > 0 for v in res["peaks"].values())

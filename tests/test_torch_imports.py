@@ -7,7 +7,8 @@
   ``src/repro_torch/`` or ``chip_smoke.py``;
 * the train CLI runs the zero1 main path on the CPU at a tiny size,
   exact, on the int8 wire, bucketed and with each baseline grad sync,
-  and the expert-parallel MoE path on a 2x2 mesh.
+  and the expert-parallel MoE path on a 2x2 mesh; the elastic drill's
+  CLI shrinks a world on the CPU.
 """
 import ast
 import math
@@ -18,6 +19,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -98,12 +100,13 @@ def test_train_cli_moe_ep_on_cpu():
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "2x2"],
-                                   ["--moe-dispatch", "rowwise"],
+                                   ["--mesh", "2x2", "--moe-dispatch",
+                                    "rowwise"],
                                    ["--mesh", "2x2", "--moe-dispatch",
                                     "global"]])
 def test_train_cli_refuses_unported_moe_flags(extra):
-    """A model axis without ep (tensor parallelism) and the rowwise
-    dispatch are not ported."""
+    """A model axis without ep (tensor parallelism) is not ported, with
+    either single-pool dispatch (global or per-sequence rowwise)."""
     from repro_torch.launch import train
     with pytest.raises(SystemExit):
         train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--scale-down",
@@ -139,15 +142,40 @@ def test_train_cli_on_step_sees_each_step():
     assert seen == [(s, 3, loss) for s, loss in enumerate(run.losses)]
 
 
-@pytest.mark.parametrize("extra", [["--ckpt-dir", "x"], ["--fail-at-step", "1"],
+@pytest.mark.parametrize("extra", [["--ckpt-every", "0"],
+                                   ["--fail-at-step", "-1"],
                                    ["--mesh", "2x2"], ["--mode", "fsdp_auto"],
                                    ["--grad-sync", "ring", "--bucket-bytes",
                                     "1000"], ["--bucket-bytes", "0"]])
 def test_train_cli_refuses_unported_flags(extra):
-    """Unported features, and the sync's own refusals (bucketing is
-    circulant only and takes a positive size), exit with a message."""
+    """Unported features, the checkpoint flags' bounds (a positive
+    interval, a step >= 0) and the sync's own refusals (bucketing is
+    circulant only and takes a positive size) exit with a message."""
     from repro_torch.launch import train
     with pytest.raises(SystemExit):
         train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
                     "--mesh", "3x1", "--steps", "1", "--seq-len", "8",
                     "--global-batch", "3", *extra])
+
+
+def test_elastic_cli_shrinks_on_cpu(capsys):
+    """``python -m repro_torch.launch.elastic`` (in process: its ``main``)
+    shrinks 4 -> 3 on the CPU and resumes bitwise on its p' reference."""
+    from repro_torch.launch import elastic
+    res = elastic.main(["--arch", "qwen3-1.7b", "--scale-down", "--device",
+                        "cpu", "--steps", "5", "--world", "4",
+                        "--shrink-at-step", "4", "--fail-rank", "1",
+                        "--seq-len", "8", "--global-batch", "12",
+                        "--ckpt-every", "2"])
+    assert res["new_world"] == 3 and res["bitwise"]
+    assert "vs uninterrupted p' reference: bitwise" in capsys.readouterr().out
+
+
+def test_elastic_cli_refuses_model_axis_and_cuda_without_card():
+    from repro_torch.launch import elastic
+    with pytest.raises(SystemExit):
+        elastic.main(["--scale-down", "--device", "cpu", "--mp", "2",
+                      "--shrink-at-step", "2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            elastic.main(["--scale-down", "--shrink-at-step", "2"])
