@@ -122,6 +122,33 @@ Phases (any failure exits non-zero; none is caught):
    checkpoint's gathered state.  The checkpoints go to a temporary
    directory under ``build/``, removed at the end.
 
+10. serving: (a) ``python -m repro_torch.launch.serve --arch qwen3-1.7b
+   --batch 8 --prompt-len 2048 --max-new 128`` through its argv (full
+   width, 28 layers, bf16, random weights from seed 0; the prefill runs
+   flash attention): tokens in range, time to first token, decode step
+   p50 / p99 beside its byte bound, steady-state tokens/s of the second
+   call, KV-cache bytes, peak memory; (b) the same config in float32,
+   batch 2, prompt 2048, 16 new tokens: every decode step's logits within
+   1e-3 of ``forward_logits`` over the teacher-forced sequence, greedy
+   tokens equal to its argmax, ``generate`` equal to the loop; largest
+   gap and smallest top-2 margin printed; (c) 16 requests from seed 0
+   (prompts 256-2048 in steps of 64, max_new 16-128) through
+   ``Scheduler`` with ``max_batch=8, kv_block_size=16``: in float32 each
+   request's tokens against a one-shot B=1 ``generate`` of it alone (a
+   split passes only where the one-shot's top-2 margin at the first
+   differing token is below the logits gap there; both printed), in
+   bf16 timed (decode-boundary p50 / p99, tokens/s, decode steps and
+   prefills, peak memory); (d) ``build_serve_session(replicas=3)`` at
+   (a)'s shapes: the broadcast fan-out's 14 leaves x 2 exchanges,
+   bytes and seconds, every replica's weights bitwise the source's,
+   each replica's rows bitwise a single engine's on the same rows; (e)
+   phi-3.5-MoE every width, depth 32 -> 8, ``moe_dispatch="ep"`` over 2
+   ranks sharing one parameter tree, batch 2, prompt 2048, 32 new tokens:
+   ``permute_rows`` launched exactly 2 x 2 x 8 x (1 + 32) times (counts
+   set to 0 just before), tokens bitwise with the kernel on and off,
+   agreement with the global dispatch of the same weights, peak memory
+   and decode ms.
+
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
 rows, a misaligned base, every alltoall shape of phases 3 and 6) and
@@ -211,10 +238,8 @@ def bits(t):
 
 
 def same_bits(a, b) -> bool:
-    import torch
-    a, b = a.contiguous(), b.contiguous()
-    return a.shape == b.shape and a.dtype == b.dtype and \
-        torch.equal(bits(a), bits(b))
+    from repro_torch.tree import same_bits as equal
+    return equal(a, b)
 
 
 def counters():
@@ -971,7 +996,8 @@ def ep_main_launches() -> int:
 
 
 def phase_permute_rows():
-    """``permute_rows`` against its plain version, bitwise, then timed at
+    """``permute_rows`` against its plain version, bitwise, at every
+    shape the alltoalls of phases 3, 6 and 10 (e) give it, then timed at
     phase 6 (a)'s shape beside ``torch.index_select`` (the library call
     for the same function; the port never calls it)."""
     import torch
@@ -1005,7 +1031,16 @@ def phase_permute_rows():
     shapes = [("phase 6 (a)", ep_shape(cfg, 2, 2048), torch.bfloat16),
               ("phase 6 (b)", ep_shape(small, 2, 64), torch.float32),
               ("phase 6 (c) pe=4", ep_shape(cfg, 4, 2048), torch.float32),
-              ("phase 6 (c) pe=3", ep_shape(cfg, 3, 2048), torch.float32)]
+              ("phase 6 (c) pe=3", ep_shape(cfg, 3, 2048), torch.float32),
+              # 10 (e): every rank routes the whole batch, b x s tokens in
+              # the prefill and b tokens a decode step.
+              ("phase 10 (e) prefill",
+               ep_shape(cfg, EP_SERVE["ep_devices"],
+                        EP_SERVE["batch"] * EP_SERVE["prompt"]),
+               torch.bfloat16),
+              ("phase 10 (e) decode",
+               ep_shape(cfg, EP_SERVE["ep_devices"], EP_SERVE["batch"]),
+               torch.bfloat16)]
     n = 64 << 20
     shapes += [(f"phase 3 p={p}", (p, (n - n % p) // p), torch.float32)
                for p in (4, 5, 8)]
@@ -1016,7 +1051,7 @@ def phase_permute_rows():
     torch.cuda.empty_cache()
     print(f"permute_rows vs plain: {n_cases} cases bitwise equal (p = 2..8 x "
           f"f32/bf16/i32 x ragged and one-column rows, misaligned base, "
-          f"every alltoall shape of phases 3 and 6)")
+          f"every alltoall shape of phases 3, 6 and 10 (e))")
     rows, cols = ep_shape(cfg, 2, 2048)
     x = _rand((rows, cols), torch.bfloat16, gen, False)
     perm = final_slot_order(rows)
@@ -2740,6 +2775,419 @@ def phase_elastic_drill(smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: serving (KV-cache prefill and decode, paged continuous batching,
+# the broadcast weight fan-out to replicas, expert-parallel decode)
+# ---------------------------------------------------------------------------
+
+#: phase 10 (a): the one-shot serving path through the launcher's argv.
+SERVE_ARGV = ["--arch", "qwen3-1.7b", "--batch", "8", "--prompt-len", "2048",
+              "--max-new", "128", "--device", "cuda"]
+#: phase 10 (b): the float32 parity run (the same config's widths).
+SERVE_PARITY = dict(batch=2, prompt=2048, new=16)
+#: the largest |decode - teacher-forced forward| logit gap (b) accepts, in
+#: float32 with TF32 off (logits are O(1)).
+SERVE_LOGIT_TOL = 1e-3
+#: phase 10 (c): requests for the scheduler.  Prompt lengths are multiples
+#: of 64 from 256 to 2048: flash attention's tile is the largest divisor
+#: of S not above 512, so a prime length would run S tiles of one row.
+SCHED = dict(n=16, max_batch=8, block=16, prompt_len=2048, max_new=128)
+#: phase 10 (d): replicas of the broadcast fan-out.
+SERVE_REPLICAS = 3
+#: phase 10 (e): expert-parallel decode, phi-3.5-MoE every width.
+EP_SERVE = dict(arch=EP_ARCH, moe_dispatch="ep", ep_devices=2, n_layers=8,
+                batch=2, prompt=2048, new=32)
+
+
+def tree_bytes(params) -> int:
+    from repro_torch import tree as T
+    return sum(x.numel() * x.element_size() for x in T.leaves(params))
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def free_cuda() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_none_launched(counts: dict, label: str) -> None:
+    """The dense serving path runs none of the port's kernels."""
+    check(not any(counts.values()), f"{label}: the dense path launched "
+          f"kernels: {counts}")
+
+
+def sched_requests(vocab: int):
+    """Phase 10 (c)'s 16 requests from seed 0: prompt lengths 256-2048 (in
+    steps of 64) and max_new 16-128."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(4, 33, SCHED["n"]) * 64
+    new = rng.integers(16, SCHED["max_new"] + 1, SCHED["n"])
+    return [(rng.integers(0, vocab, (n,)).astype(np.int32), int(m))
+            for n, m in zip(lens, new)]
+
+
+def serve_oneshot(smi: str):
+    """Phase 10 (a): ``python -m repro_torch.launch.serve`` at full width
+    through its argv; two generate calls (the second is steady state)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import kv_bytes_per_token
+    print(f"serving (a): serve.main({SERVE_ARGV})")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = serve.main(SERVE_ARGV)
+    counts = read_counts()
+    check_none_launched(counts, "serving (a)")
+    peak = torch.cuda.max_memory_allocated()
+    sess, out = run.session, run.tokens
+    cfg = sess.cfg
+    b, s, new = 8, 2048, 128
+    check(out.shape == (b, new) and out.min() >= 0
+          and out.max() < cfg.vocab_size, f"serving (a): tokens {out.shape} "
+          f"in [{out.min()}, {out.max()}]")
+    t = sess.engine.timings
+    kv = b * (s + new) * kv_bytes_per_token(cfg)
+    w = tree_bytes(sess.params)
+    bound = (w + kv) / HBM_BYTES_PER_S * 1e3
+    print(f"serving (a): {cfg.name} {cfg.n_layers} layers, {cfg.dtype}; "
+          f"weights {w} bytes, KV cache {kv} bytes")
+    print(f"serving (a): time to first token (prefill of {b} x {s}) "
+          f"{t['ttft_s'] * 1e3:.1f} ms; decode step p50 "
+          f"{pct(t['step_s'], 50):.3f} ms, p99 {pct(t['step_s'], 99):.3f} ms "
+          f"over {len(t['step_s'])} (byte bound {bound:.3f} ms: weights + "
+          f"the whole cache at 3.35 TB/s); first call {run.seconds:.2f} s, "
+          f"steady state {b * new / run.steady_seconds:.1f} tok/s "
+          f"({run.steady_seconds:.2f} s); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; launches {counts} ({smi})")
+    return counts, sess
+
+
+def serve_scheduler_timing(sess, smi: str) -> dict:
+    """Phase 10 (c), bfloat16: the 16 requests through ``Scheduler``
+    (``--max-batch 8 --kv-block-size 16``), timed per decode boundary."""
+    import torch
+    from repro_torch.serve import ServeEngine, Scheduler
+    reqs = sched_requests(sess.cfg.vocab_size)
+    eng = ServeEngine(sess.model, sess.params,
+                      SCHED["prompt_len"] + SCHED["max_new"])
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sched = Scheduler(eng, max_batch=SCHED["max_batch"],
+                      kv_block_size=SCHED["block"])
+    t0 = time.perf_counter()
+    rids = [sched.submit(p, m) for p, m in reqs]
+    done = sched.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check_none_launched(counts, "serving (c) bf16")
+    total = sum(len(done[r]) for r in rids)
+    check(all(len(done[r]) == m for r, (_, m) in zip(rids, reqs)),
+          "serving (c): a request returned the wrong number of tokens")
+    pool = sched.kv.k.numel() * sched.kv.k.element_size() * 2
+    print(f"serving (c) bf16: {len(reqs)} requests (prompts "
+          f"{[len(p) for p, _ in reqs]}, max_new {[m for _, m in reqs]}), "
+          f"{total} tokens in {dt:.2f} s = {total / dt:.1f} tok/s; "
+          f"{sched.n_decode_steps} decode steps, {sched.n_prefills} prefills; "
+          f"decode boundary p50 {pct(sched.boundary_s, 50):.3f} ms, p99 "
+          f"{pct(sched.boundary_s, 99):.3f} ms (admissions' prefills "
+          f"included); paged pool {pool} bytes; peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    return counts
+
+
+def serve_parity(smi: str):
+    """Phase 10 (b): float32, full width: every decode step's logits
+    against ``forward_logits`` over the teacher-forced sequence, greedy
+    tokens equal, and ``generate`` the same tokens as the loop."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="float32")
+    model = build(cfg, remat=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    b, s, new = (SERVE_PARITY[k] for k in ("batch", "prompt", "new"))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.no_grad():
+        cache, logits = model.prefill(params, toks, s + new)
+        steps, out = [logits], []
+        for i in range(new):
+            nxt = torch.argmax(steps[-1], dim=-1).to(torch.int32)
+            out.append(nxt)
+            if i < new - 1:
+                cache, logits = model.decode_step(params, cache, nxt, s + i)
+                steps.append(logits)
+        del cache
+        seq = torch.cat([toks, torch.stack(out, 1)], 1)   # (b, s + new)
+        full = model.forward_logits(params, seq)
+        gap, margin, flips = 0.0, float("inf"), 0
+        for i, lg in enumerate(steps):
+            ref = full[:, s - 1 + i]
+            gap = max(gap, float((lg - ref).abs().max()))
+            top2 = torch.topk(ref, 2, dim=-1).values
+            margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+            flips += int((torch.argmax(ref, -1).to(torch.int32)
+                          != out[i]).sum())
+        scale = float(full.abs().max())
+        del full
+    eng = ServeEngine(model, params, s + new)
+    gen = eng.generate(prompts, new)
+    loop = torch.stack(out, 1).cpu().numpy()
+    print(f"serving (b) f32: {b} x {s} prompt, {new} tokens: max |decode - "
+          f"teacher-forced forward| logits {gap:.3e} (limit "
+          f"{SERVE_LOGIT_TOL:g}; max |logit| {scale:.3f}); smallest top-2 "
+          f"margin {margin:.3e}; greedy tokens differing {flips}; generate "
+          f"== the loop: {np.array_equal(gen, loop)} ({smi})")
+    check(gap <= SERVE_LOGIT_TOL, f"serving (b): logits gap {gap}")
+    check(flips == 0, f"serving (b): {flips} greedy tokens differ from the "
+          f"teacher-forced forward's argmax")
+    check(np.array_equal(gen, loop), "serving (b): generate differs from "
+          "the prefill + decode loop")
+    return model, params
+
+
+def serve_scheduler_parity(model, params, smi: str) -> None:
+    """Phase 10 (c), float32: every request's scheduler tokens against a
+    one-shot B=1 ``generate`` of that request alone.  A request may split
+    only where the one-shot run's top-2 margin at its first differing
+    token is below the logits gap measured there (GEMMs of other batch
+    shapes round differently on the card)."""
+    import torch
+    from repro_torch.serve import ServeEngine, Scheduler
+    max_len = SCHED["prompt_len"] + SCHED["max_new"]
+    reqs = sched_requests(model.cfg.vocab_size)
+    eng = ServeEngine(model, params, max_len)
+    sched = Scheduler(eng, max_batch=SCHED["max_batch"],
+                      kv_block_size=SCHED["block"])
+    rec: dict = {}
+    prefill_fn, decode_fn = eng.prefill_fn, eng.decode_fn
+
+    def rec_prefill(p, tokens, extras=None):
+        # Admission is FCFS, so the k-th prefill is request k's.
+        cache, logits = prefill_fn(p, tokens, extras)
+        rec[len(rec)] = [logits[0].clone()]
+        return cache, logits
+
+    def rec_decode(p, cache, token, pos):
+        cache, logits = decode_fn(p, cache, token, pos)
+        for i, req in enumerate(sched.slots):
+            if req is not None:
+                rec[req.rid].append(logits[i].clone())
+        return cache, logits
+
+    eng.prefill_fn, eng.decode_fn = rec_prefill, rec_decode
+    t0 = time.perf_counter()
+    rids = [sched.submit(p, m) for p, m in reqs]
+    got = sched.run()
+    t_sched = time.perf_counter() - t0
+    eng.prefill_fn, eng.decode_fn = prefill_fn, decode_fn
+    same, splits = 0, []
+    t0 = time.perf_counter()
+    for rid, (prompt, m) in zip(rids, reqs):
+        one = eng.generate(prompt[None], m)[0]
+        if np.array_equal(got[rid], one):
+            same += 1
+            continue
+        j = int(np.nonzero(got[rid] != one)[0][0])
+        with torch.no_grad():
+            cache, lg = model.prefill(
+                params, torch.as_tensor(prompt[None], device="cuda"), max_len)
+            for i in range(j):
+                cache, lg = model.decode_step(
+                    params, cache, torch.as_tensor(one[i:i + 1],
+                                                   device="cuda"),
+                    len(prompt) + i)
+            top2 = torch.topk(lg[0], 2).values
+            margin = float(top2[0] - top2[1])
+            gap = float((rec[rid][j] - lg[0]).abs().max())
+        del cache
+        splits.append((rid, j, margin, gap))
+    print(f"serving (c) f32: {same} of {len(reqs)} requests bitwise a "
+          f"one-shot B=1 generate ({sched.n_decode_steps} decode steps, "
+          f"{sched.n_prefills} prefills; scheduler {t_sched:.1f} s, one-shot "
+          f"runs {time.perf_counter() - t0:.1f} s); splits (rid, first "
+          f"differing step, one-shot top-2 margin there, logits gap there): "
+          f"{splits} ({smi})")
+    for rid, j, margin, gap in splits:
+        check(margin < gap, f"serving (c): request {rid} splits at step {j} "
+              f"with a top-2 margin {margin} above the logits gap {gap}")
+    del rec
+
+
+def serve_replicas(smi: str) -> dict:
+    """Phase 10 (d): ``--replicas 3`` at (a)'s shapes through
+    ``build_serve_session``: the fan-out bitwise with 14 x 2 exchanges;
+    each replica's rows bitwise a single engine's on the same rows."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import ceil_log2
+    from repro_torch.launch import bootstrap
+    from repro_torch.serve import ServeEngine
+    b, s, new = 8, 2048, 128
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sess = bootstrap.build_serve_session(
+        arch="qwen3-1.7b", max_len=s + new, replicas=SERVE_REPLICAS,
+        device="cuda")
+    st = sess.push_stats
+    want = st["n_leaves"] * ceil_log2(SERVE_REPLICAS)
+    check(st["n_leaves"] == 14 and st["exchanges"] == want,
+          f"serving (d): {st['exchanges']} exchanges for {st['n_leaves']} "
+          f"leaves, expected {want}")
+    src = T.leaves(sess.params)
+    for e in sess.replica_set.engines:
+        check(all(same_bits(a, c) for a, c in zip(src, T.leaves(e.params))),
+              "serving (d): a replica's weights differ from the source's")
+    prompts = np.random.default_rng(0).integers(
+        0, sess.cfg.vocab_size, (b, s)).astype(np.int32)
+    t0 = time.perf_counter()
+    out = sess.replica_set.generate(prompts, new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check_none_launched(counts, "serving (d)")
+    single = ServeEngine(sess.model, sess.params, s + new)
+    for r in range(SERVE_REPLICAS):
+        rows = list(range(r, b, SERVE_REPLICAS))
+        check(np.array_equal(out[rows], single.generate(prompts[rows], new)),
+              f"serving (d): replica {r}'s tokens differ from a single "
+              f"engine's on rows {rows}")
+    print(f"serving (d): broadcast fan-out to {SERVE_REPLICAS} replicas: "
+          f"{st['n_leaves']} leaves, {st['bytes']} bytes, {st['rounds']} "
+          f"rounds, {st['exchanges']} exchanges, {st['seconds']:.3f} s; "
+          f"every replica's weights bitwise the source's; {b} x {new} "
+          f"tokens round-robin in {dt:.2f} s, each replica's rows bitwise a "
+          f"single engine's; peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    del sess, single
+    free_cuda()
+    return counts
+
+
+def generate_logits(eng, prompts, new: int):
+    """``eng.generate(prompts, new)`` and a copy of the logits of each of
+    its prefill and decode calls."""
+    kept = []
+    prefill_fn, decode_fn = eng.prefill_fn, eng.decode_fn
+
+    def prefill(p, tokens, extras=None):
+        cache, logits = prefill_fn(p, tokens, extras)
+        kept.append(logits.clone())
+        return cache, logits
+
+    def decode(p, cache, token, pos):
+        cache, logits = decode_fn(p, cache, token, pos)
+        kept.append(logits.clone())
+        return cache, logits
+
+    eng.prefill_fn, eng.decode_fn = prefill, decode
+    out = eng.generate(prompts, new)
+    del eng.prefill_fn, eng.decode_fn
+    return out, kept
+
+
+def serve_ep(smi: str) -> dict:
+    """Phase 10 (e): phi-3.5-MoE expert-parallel decode, every width, depth
+    32 -> 8, 2 ranks sharing one parameter tree: ``permute_rows``
+    launches exact, every call's logits and the tokens bitwise with the
+    kernel on and off, agreement with the global dispatch of the same
+    weights."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import bootstrap
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    e = EP_SERVE
+    b, s, new, pe = e["batch"], e["prompt"], e["new"], e["ep_devices"]
+    print(f"serving (e): build_serve_session({e}); reduced: depth 32 -> "
+          f"{e['n_layers']} layers (the 32-layer model is 84 GB of bf16); "
+          f"every width kept")
+    torch.cuda.reset_peak_memory_stats()
+    sess = bootstrap.build_serve_session(
+        arch=e["arch"], max_len=s + new, moe_dispatch="ep", ep_devices=pe,
+        n_layers=e["n_layers"], device="cuda")
+    cfg = sess.cfg
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    zero_counts()
+    on, on_logits = generate_logits(sess.engine, prompts, new)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t = sess.engine.timings
+    peak = torch.cuda.max_memory_allocated()
+    # 2 permute_rows launches per rank per MoE layer per call (the
+    # dispatch's alltoall out and back), over 1 prefill + ``new`` decode
+    # calls (a decode follows every sampled token, the last one included).
+    want = {name: 0 for name in counters()}
+    want["permute_rows"] = 2 * pe * cfg.n_layers * (1 + new)
+    for name, n in want.items():
+        check(counts[name] == n, f"serving (e): {name} launched "
+              f"{counts[name]} times, expected {n}")
+    off = ServeEngine(build(cfg, remat=False, ep_comm=sess.ep_comm,
+                            use_fused_kernel=False), sess.params, s + new)
+    off_tokens, off_logits = generate_logits(off, prompts, new)
+    check(len(on_logits) == len(off_logits) == 1 + new
+          and all(same_bits(a, c) for a, c in zip(on_logits, off_logits)),
+          "serving (e): ep logits differ with permute_rows on and off")
+    check(np.array_equal(on, off_tokens), "serving (e): ep tokens differ "
+          "with permute_rows on and off")
+    del on_logits, off_logits
+    glob = ServeEngine(build(dataclasses.replace(cfg, moe_dispatch="global"),
+                             remat=False), sess.params, s + new)
+    g = glob.generate(prompts, new)
+    agree = [int(np.nonzero(on[r] != g[r])[0][0]) if (on[r] != g[r]).any()
+             else new for r in range(b)]
+    print(f"serving (e): {cfg.name} {cfg.n_layers} layers, weights "
+          f"{tree_bytes(sess.params)} bytes shared by {pe} ranks; "
+          f"permute_rows {counts['permute_rows']} = 2 x {pe} x "
+          f"{cfg.n_layers} x (1 + {new}); the {1 + new} calls' logits and "
+          f"the tokens bitwise with the kernel on and off; vs the global dispatch: {int((on == g).sum())} of "
+          f"{on.size} tokens equal, rows agree for their first {agree} "
+          f"tokens (capacity factor {cfg.capacity_factor}: drops differ); "
+          f"time to first token {t['ttft_s'] * 1e3:.1f} ms, decode step p50 "
+          f"{pct(t['step_s'], 50):.3f} ms, p99 {pct(t['step_s'], 99):.3f} "
+          f"ms; peak memory allocated {peak / 2**30:.2f} GiB ({smi})")
+    del sess, off, glob
+    free_cuda()
+    return counts
+
+
+def phase_serving(smi: str) -> dict:
+    """Phase 10: (a)-(e); returns the launch counts of the driven runs
+    ((a), (c)'s bf16 run, (d), (e)), each zeroed just before its run."""
+    t10 = time.perf_counter()
+    total = {name: 0 for name in counters()}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    counts, sess = serve_oneshot(smi)
+    add(counts)
+    add(serve_scheduler_timing(sess, smi))
+    del sess
+    free_cuda()
+    print(f"phase 10 (a), (c) bf16 in {time.perf_counter() - t10:.1f} s")
+    model, params = serve_parity(smi)
+    serve_scheduler_parity(model, params, smi)
+    del model, params
+    free_cuda()
+    print(f"phase 10 (b), (c) f32 in {time.perf_counter() - t10:.1f} s")
+    add(serve_replicas(smi))
+    add(serve_ep(smi))
+    print(f"phase 10 in {time.perf_counter() - t10:.1f} s ({smi})")
+    return total
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout")
@@ -2784,13 +3232,14 @@ def main() -> int:
     rowwise = phase_rowwise()
     drill = phase_elastic_drill(smi)
     print(f"phase 9 in {time.perf_counter() - t9:.1f} s ({smi})")
+    serving = phase_serving(smi)
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
                "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs,
-               "9b": rowwise, "9c": drill}
+               "9b": rowwise, "9c": drill, "10": serving}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}
-        # ``launches`` counts the workload paths (4 to 6, 8's and 9's) only:
+        # ``launches`` counts the workload paths (4 to 6, 8's, 9's, 10) only:
         # the sweep of 7 (a) is a correctness check on tiny blocks, not a
         # workload.
         work = sum(k for path, k in n.items() if path != "7a")

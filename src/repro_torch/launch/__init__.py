@@ -1,1 +1,2 @@
-"""Entry points of the port: the training launcher and its session bootstrap."""
+"""Entry points of the port: the training, elastic and serving launchers
+and their session bootstrap."""

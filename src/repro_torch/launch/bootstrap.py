@@ -14,8 +14,11 @@ Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); asking for ``cuda`` where there is none raises.
 :func:`opt_flat` and :func:`restore_session` carry a session's state
 through a checkpoint (``repro_torch.checkpoint``) in the reference's
-global layout, across a change of world size.  Serving sessions belong
-to a later slice (ROADMAP.md queue 1 item 12).
+global layout, across a change of world size.  :func:`build_serve_session`
+assembles the serving stack on the same config resolution instead: a
+:class:`repro_torch.serve.ReplicaSet` of engines (expert parallel over
+a ``LocalComm`` for a MoE arch with ``moe_dispatch="ep"``) with the
+initial weights fanned out over the ``kind="broadcast"`` plan.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from ..models.transformer import leaf_dtype, param_shapes
 from ..optim.adamw import AdamWConfig, TreeAdamState
 from ..optim.zero1 import (GradSyncConfig, Zero1State, is_zero_leaf,
                            resize_zero1_state)
+from ..serve import ReplicaSet
 from ..train import build_single, build_zero1
 
 
@@ -159,6 +163,57 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
         sess.params = params
         sess.opt = built.init_opt(params)
     return sess
+
+
+@dataclass
+class ServeSession:
+    """The serving counterpart of :class:`Session`: config and engines.
+    ``replica_set`` holds ``replicas`` engines whose weights came through
+    the broadcast plan (``push_stats``: leaf count, payload bytes,
+    rounds, exchanges, seconds); ``params`` is the tree they were pushed
+    from.  ``ep_comm`` is the expert-parallel communicator MoE decode
+    exchanges over (``None`` otherwise)."""
+
+    cfg: Any
+    device: torch.device
+    model: Any
+    params: Any
+    replica_set: Any
+    ep_comm: Any
+    push_stats: dict
+
+    @property
+    def engine(self):
+        """Engine 0: the one-replica view."""
+        return self.replica_set.engines[0]
+
+
+def build_serve_session(*, arch: str, max_len: int, scale_down: bool = False,
+                        temperature: float = 0.0,
+                        moe_dispatch: str | None = None, ep_devices: int = 2,
+                        replicas: int = 1, broadcast_schedule: str = "power2",
+                        seed: int = 0, device: str | torch.device = "cuda",
+                        n_layers: int | None = None) -> ServeSession:
+    """Build the serving stack with :func:`build_session`'s config
+    resolution (arch aliases, scale-down, MoE dispatch, ``n_layers``
+    cut).  Weights are initialized once from ``seed`` on ``device`` and
+    pushed to every replica through the ``kind="broadcast"`` plan
+    (bitwise-checked fan-out).  With ``moe_dispatch="ep"`` each engine
+    runs ``ep_devices`` virtual ranks of a ``LocalComm`` on the one
+    parameter tree, exchanging dispatch buffers through the circulant
+    alltoall (its ``permute_rows`` kernel when the buffer lies on a
+    card)."""
+    dev = resolve_device(device)
+    cfg = resolve_cfg(arch, scale_down=scale_down, moe_dispatch=moe_dispatch,
+                      n_layers=n_layers)
+    ep_comm = LocalComm(ep_devices) if is_ep(cfg) else None
+    model = build(cfg, remat=False, ep_comm=ep_comm)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    rs = ReplicaSet(model, max_len, replicas, temperature=temperature,
+                    schedule=broadcast_schedule)
+    stats = rs.push_weights(params)
+    return ServeSession(cfg=cfg, device=dev, model=model, params=params,
+                        replica_set=rs, ep_comm=ep_comm, push_stats=stats)
 
 
 def place_batch(sess: Session, batch: dict):

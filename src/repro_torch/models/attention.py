@@ -1,13 +1,17 @@
-"""GQA self-attention for training, ported from ``repro/models/attention.py``.
+"""GQA self-attention for training, prefill and decode, ported from
+``repro/models/attention.py``.
 
-qk-norm (qwen3), RoPE, and the ``FLASH_THRESHOLD`` switch between the
-plain score-matrix path and chunked flash attention.
-Weights keep the reference's layout: ``wq`` (d, H, dh), ``wk``/``wv``
-(d, Hkv, dh), ``wo`` (H, dh, d).  QKV bias (qwen1.5), the KV cache,
-cross-attention and decode belong to later slices (ROADMAP.md queue 1
-items 12-13).
+qk-norm (qwen3), RoPE, the ``FLASH_THRESHOLD`` switch between the plain
+score-matrix path and chunked flash attention, and the KV cache's
+one-token decode (:func:`decode_self_attention`, one offset for the
+whole batch or one per row).  Weights keep the reference's layout:
+``wq`` (d, H, dh), ``wk``/``wv`` (d, Hkv, dh), ``wo`` (H, dh, d).  QKV
+bias (qwen1.5) and cross-attention belong to a later slice (ROADMAP.md
+queue 1 item 13).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +21,11 @@ from .layers import apply_rope, head_rmsnorm
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 1024  # use chunked online-softmax above this seq length
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (B, S_max, Hkv, dh)
+    v: torch.Tensor
 
 
 def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
@@ -29,6 +38,26 @@ def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
         ok &= k > q - window
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def decode_mask(s_max: int, pos: torch.Tensor, window: int = 0
+                ) -> torch.Tensor:
+    """Additive float32 mask over a cache of length ``s_max`` for the one
+    query at ``pos``: a 0-dim ``pos`` gives ``(1, s_max)``; a ``(B,)``
+    ``pos`` (every row at its own offset) gives ``(B, 1, 1, 1, s_max)``,
+    which broadcasts against :func:`sdpa`'s ``(b, k, g, s, t)`` scores."""
+    k = torch.arange(s_max, device=pos.device)
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    neg = torch.full_like(zero, NEG_INF)
+    if pos.ndim == 0:
+        ok = k <= pos
+        if window > 0:
+            ok &= k > pos - window
+        return torch.where(ok, zero, neg)[None, :]
+    ok = k[None, :] <= pos[:, None]
+    if window > 0:
+        ok &= k[None, :] > (pos - window)[:, None]
+    return torch.where(ok, zero, neg)[:, None, None, None, :]
 
 
 def _project_q(p: dict, cfg: ModelConfig, x, positions):
@@ -47,8 +76,9 @@ def _project_kv(p: dict, cfg: ModelConfig, x, positions):
 
 
 def sdpa(q, k, v, mask):
-    """q: (B,S,H,dh), k/v: (B,T,Hkv,dh), mask broadcastable to (S,T).
-    GQA: H = G*Hkv.  Scores and softmax in float32."""
+    """q: (B,S,H,dh), k/v: (B,T,Hkv,dh), mask broadcastable to (S,T) or,
+    per row, (B,1,1,S,T).  GQA: H = G*Hkv.  Scores and softmax in
+    float32."""
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -64,9 +94,9 @@ def sdpa(q, k, v, mask):
 
 def self_attention(p: dict, cfg: ModelConfig, x, positions, *,
                    window: int = 0):
-    """Full-sequence causal self attention (the reference's also returns
-    k/v to seed a cache; no cache here).  Chunked flash attention above
-    ``FLASH_THRESHOLD`` tokens."""
+    """Full-sequence causal self attention: ``(out, (k, v))``, the
+    projected (roped) compact GQA ``k``/``v`` seeding a prefill's cache.
+    Chunked flash attention above ``FLASH_THRESHOLD`` tokens."""
     s = x.shape[1]
     q = _project_q(p, cfg, x, positions)
     k, v = _project_kv(p, cfg, x, positions)
@@ -74,4 +104,31 @@ def self_attention(p: dict, cfg: ModelConfig, x, positions, *,
         out = flash_attention(q, k, v, causal=True, window=window)
     else:
         out = sdpa(q, k, v, causal_mask(s, window, x.device))
-    return torch.einsum("bthk,hkd->btd", out, p["wo"])
+    return torch.einsum("bthk,hkd->btd", out, p["wo"]), (k, v)
+
+
+def decode_self_attention(p: dict, cfg: ModelConfig, x, cache: KVCache,
+                          pos: torch.Tensor, window: int = 0):
+    """One-token decode: ``x`` (B, 1, d) against ``cache`` (B, S_max, Hkv,
+    dh).  ``pos`` is 0-dim (the whole batch at one offset: one-shot
+    generation) or ``(B,)`` (each row at its own offset: continuous
+    batching).  The token's projected k/v are written at ``pos`` IN
+    PLACE (the reference returns a new cache; the values are the same)
+    and attention runs over the whole cache under :func:`decode_mask`, so
+    rows past ``pos`` get exactly zero probability.  Returns ``(out,
+    cache)``."""
+    b = x.shape[0]
+    positions = pos.reshape(1, 1) if pos.ndim == 0 else pos[:, None]
+    q = _project_q(p, cfg, x, positions)
+    k_new, v_new = _project_kv(p, cfg, x, positions)
+    if pos.ndim == 0:
+        idx = pos.reshape(1)
+        cache.k.index_copy_(1, idx, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, idx, v_new.to(cache.v.dtype))
+    else:
+        rows = torch.arange(b, device=pos.device)
+        cache.k.index_put_((rows, pos), k_new[:, 0].to(cache.k.dtype))
+        cache.v.index_put_((rows, pos), v_new[:, 0].to(cache.v.dtype))
+    mask = decode_mask(cache.k.shape[1], pos, window)
+    out = sdpa(q, cache.k, cache.v, mask)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"]), cache

@@ -1,5 +1,6 @@
 """Model registry, ported from ``repro/models/registry.py``: one API over
-the architecture families (dense and MoE so far)."""
+the architecture families (dense and MoE so far), for training and
+serving."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -14,13 +15,20 @@ _FAMILY_MODULES = {"dense": transformer, "moe": transformer}
 
 
 class ModelApi(NamedTuple):
-    """What a training step needs from a model.  ``loss_ranks`` is set
+    """What training and serving need from a model.  ``loss_ranks`` is set
     for a model whose ranks are coupled (expert-parallel MoE): it maps
     per-rank parameter trees and batches to per-rank losses in one
-    forward over all of them; ``loss`` then raises."""
+    forward over all of them; ``loss`` and ``forward_logits`` then raise.
+    ``prefill`` and ``decode_step`` of such a model run every rank of its
+    communicator on the same tokens with the one parameter tree (the
+    reference's ``shard_map`` with every spec ``P()``): the cache is then
+    a list, one per rank, and the logits are rank 0's."""
     cfg: ModelConfig
     init: Callable            # (generator, device) -> params
     loss: Callable            # (params, batch) -> scalar
+    forward_logits: Callable  # (params, tokens) -> logits | (logits, aux)
+    prefill: Callable         # (params, tokens, max_len) -> (cache, logits)
+    decode_step: Callable     # (params, cache, token, pos) -> (cache, logits)
     loss_ranks: Callable | None = None  # ([params], [batch]) -> [scalar]
 
 
@@ -45,19 +53,41 @@ def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
         return mod.init_params(cfg, gen, device)
 
     if not is_ep(cfg):
-        return ModelApi(cfg=cfg, init=init, loss=lambda params, batch:
-                        mod.loss_fn(params, cfg, batch, remat))
+        return ModelApi(
+            cfg=cfg, init=init,
+            loss=lambda params, batch: mod.loss_fn(params, cfg, batch,
+                                                   remat),
+            forward_logits=lambda params, tokens: mod.forward_logits(
+                params, cfg, tokens, remat),
+            prefill=lambda params, tokens, max_len: mod.prefill(
+                params, cfg, tokens, max_len),
+            decode_step=lambda params, cache, token, pos: mod.decode_step(
+                params, cfg, cache, token, pos))
     if ep_comm is None:
         raise ValueError(f"{cfg.name}: moe_dispatch='ep' needs ep_comm, the "
                          f"communicator of the expert-parallel axis")
 
-    def loss(params, batch):
+    def coupled(*args):
         raise ValueError("an expert-parallel model's ranks are coupled: "
                          "use loss_ranks over all local ranks")
 
-    return ModelApi(cfg=cfg, init=init, loss=loss, loss_ranks=lambda ps, bs:
-                    mod.loss_fn_ep(ps, cfg, bs, ep_comm, remat,
-                                   use_fused_kernel))
+    n = ep_comm.size
+
+    def prefill(params, tokens, max_len):
+        caches, logits = mod.prefill_ep([params] * n, cfg, [tokens] * n,
+                                        max_len, ep_comm, use_fused_kernel)
+        return caches, logits[0]
+
+    def decode_step(params, caches, token, pos):
+        caches, logits = mod.decode_step_ep([params] * n, cfg, caches,
+                                            [token] * n, pos, ep_comm,
+                                            use_fused_kernel)
+        return caches, logits[0]
+
+    return ModelApi(cfg=cfg, init=init, loss=coupled, forward_logits=coupled,
+                    prefill=prefill, decode_step=decode_step,
+                    loss_ranks=lambda ps, bs: mod.loss_fn_ep(
+                        ps, cfg, bs, ep_comm, remat, use_fused_kernel))
 
 
 def value_and_grad(loss: Callable) -> Callable:

@@ -14,8 +14,14 @@ and adds the layers' load-balancing aux losses to the loss.  Its
 expert-parallel form (``moe_dispatch="ep"``) runs every layer for all of
 a communicator's local ranks together (:func:`loss_fn_ep`): attention per
 rank, then one MoE exchange across them, each layer one checkpoint around
-all ranks.  Hybrid and the cache paths (prefill / decode) are not ported
-yet (ROADMAP.md queue 1 items 12, 13).
+all ranks.  The cache paths serve: :func:`prefill` runs a prompt and
+fills an ``(L, B, max_len, Hkv, dh)`` KV cache (:func:`init_cache`),
+returning the last token's logits only, and :func:`decode_step` runs one
+token per row at one offset or at a per-row offset, writing its k/v
+into the cache in place.  Their expert-parallel forms
+(:func:`prefill_ep`, :func:`decode_step_ep`) run every local rank of a
+communicator on the same tokens, each layer's MoE exchange across them.
+The hybrid family is not ported yet (ROADMAP.md queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -93,15 +99,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def _attention_block(cfg: ModelConfig, lp: dict, x, positions):
+    """``(x + attention, (k, v))``."""
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    return x + attn.self_attention(lp["attn"], cfg, h, positions,
-                                   window=cfg.sliding_window)
+    a, kv = attn.self_attention(lp["attn"], cfg, h, positions,
+                                window=cfg.sliding_window)
+    return x + a, kv
 
 
 def _layer_forward(cfg: ModelConfig, paths, x, positions, *leaves):
     """One layer: ``x`` for the dense family, ``(x, aux)`` for MoE."""
     lp = T.unflatten(zip(paths, leaves))
-    x = _attention_block(cfg, lp, x, positions)
+    x, _ = _attention_block(cfg, lp, x, positions)
     h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
     if cfg.is_moe:
         y, aux = moe_ffn(lp["moe"], cfg, h)
@@ -172,6 +180,24 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 # Expert parallelism: every layer over all local ranks at once
 # ---------------------------------------------------------------------------
 
+def _ffn_ranks(cfg: ModelConfig, lps: list, xs: list, comm, fused):
+    """The FFN half of one layer for every rank: with ``comm`` the
+    expert-parallel MoE exchanges across its ranks, else each rank runs
+    its FFN (dense, or MoE with a single-pool dispatch) alone.  Returns
+    the ranks' outputs and their aux losses (``None`` for dense)."""
+    hs = [rmsnorm(x, lp["norm2"], cfg.norm_eps) for lp, x in zip(lps, xs)]
+    auxs = None
+    if comm is not None:
+        ys, auxs = moe_ffn_ep([lp["moe"] for lp in lps], cfg, hs, comm,
+                              use_fused_kernel=fused)
+    elif cfg.is_moe:
+        ys, auxs = zip(*(moe_ffn(lp["moe"], cfg, h)
+                         for lp, h in zip(lps, hs)))
+    else:
+        ys = [ffn(lp["ffn"], h) for lp, h in zip(lps, hs)]
+    return [x + y for x, y in zip(xs, ys)], auxs
+
+
 def _ep_layer_forward(cfg: ModelConfig, paths, positions, comm, fused,
                       *args):
     """One MoE layer for all local ranks: ``args`` is the ranks' inputs,
@@ -182,13 +208,10 @@ def _ep_layer_forward(cfg: ModelConfig, paths, positions, comm, fused,
     n = len(paths)
     lps = [T.unflatten(zip(paths, leaves[i * n:(i + 1) * n]))
            for i in range(nr)]
-    normed = []
     for i in range(nr):
-        xs[i] = _attention_block(cfg, lps[i], xs[i], positions[i])
-        normed.append(rmsnorm(xs[i], lps[i]["norm2"], cfg.norm_eps))
-    ys, auxs = moe_ffn_ep([lp["moe"] for lp in lps], cfg, normed, comm,
-                          use_fused_kernel=fused)
-    return (*(x + y for x, y in zip(xs, ys)), *auxs)
+        xs[i], _ = _attention_block(cfg, lps[i], xs[i], positions[i])
+    xs, auxs = _ffn_ranks(cfg, lps, xs, comm, fused)
+    return (*xs, *auxs)
 
 
 def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
@@ -218,3 +241,127 @@ def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
         auxs = [a + b for a, b in zip(auxs, out[nr:])]
     return [cross_entropy_loss(_head(p, cfg, x), b["targets"], b.get("mask"))
             + a for p, x, b, a in zip(params, xs, batches, auxs)]
+
+
+# ---------------------------------------------------------------------------
+# Cache paths: prefill and one-token decode, over one rank or all the
+# local ranks of an expert-parallel communicator
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """A zeroed KV cache: ``{"k", "v"}``, each ``(L, batch, max_len, Hkv,
+    dh)`` in the parameter dtype."""
+    _check_family(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+            for name in ("k", "v")}
+
+
+def kv_bytes_per_token(cfg: ModelConfig) -> int:
+    """Bytes of KV cache one token takes, k and v over every layer."""
+    return (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+            * torch.empty((), dtype=dtype_of(cfg)).element_size())
+
+
+def _rank_layers(params: list) -> list:
+    """Per rank, its per-layer parameter trees (views of the stacked
+    leaves)."""
+    out = []
+    for p in params:
+        paths, per_layer = _layer_slices(p)
+        out.append([T.unflatten(zip(paths, leaves)) for leaves in per_layer])
+    return out
+
+
+@torch.no_grad()
+def _prefill_ranks(params: list, cfg: ModelConfig, tokens: list,
+                   max_len: int, comm=None, fused=None):
+    b, s = tokens[0].shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds cache {max_len}")
+    embedded = [_embed(p, cfg, t) for p, t in zip(params, tokens)]
+    xs = [x for x, _ in embedded]
+    caches = [init_cache(cfg, b, max_len, x.device) for x in xs]
+    layers = _rank_layers(params)
+    for i in range(cfg.n_layers):
+        lps = [per_rank[i] for per_rank in layers]
+        for r, (_, positions) in enumerate(embedded):
+            xs[r], (k, v) = _attention_block(cfg, lps[r], xs[r], positions)
+            caches[r]["k"][i, :, :s] = k
+            caches[r]["v"][i, :, :s] = v
+        xs, _ = _ffn_ranks(cfg, lps, xs, comm, fused)
+    # The last token's logits only: (B, S, V) would be 5 GB of bf16 at
+    # batch 8 x 2048 x 151936.
+    return caches, [_head(p, cfg, x[:, -1]) for p, x in zip(params, xs)]
+
+
+@torch.no_grad()
+def _decode_ranks(params: list, cfg: ModelConfig, caches: list,
+                  tokens: list, pos, comm=None, fused=None):
+    dev = params[0]["embed"].device
+    xs = [F.embedding(torch.as_tensor(t, device=dev).long(),
+                      p["embed"])[:, None].to(dtype_of(cfg))
+          for p, t in zip(params, tokens)]
+    pos = torch.as_tensor(pos, device=dev).long()
+    layers = _rank_layers(params)
+    for i in range(cfg.n_layers):
+        lps = [per_rank[i] for per_rank in layers]
+        for r, c in enumerate(caches):
+            h = rmsnorm(xs[r], lps[r]["norm1"], cfg.norm_eps)
+            a, _ = attn.decode_self_attention(
+                lps[r]["attn"], cfg, h, attn.KVCache(c["k"][i], c["v"][i]),
+                pos, cfg.sliding_window)
+            xs[r] = xs[r] + a
+        xs, _ = _ffn_ranks(cfg, lps, xs, comm, fused)
+    return caches, [_head(p, cfg, x[:, 0]) for p, x in zip(params, xs)]
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int):
+    """Run the ``(B, S)`` prompt: ``(cache, logits)``, the cache
+    :func:`init_cache`'s with the prompt's k/v in rows ``[0, S)`` and the
+    logits ``(B, V)`` of the last token."""
+    _check_family(cfg)
+    caches, logits = _prefill_ranks([params], cfg, [tokens], max_len)
+    return caches[0], logits[0]
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, token, pos):
+    """One token per row: ``token`` (B,), ``pos`` a scalar (the whole batch
+    at one offset) or ``(B,)`` (per-row offsets, continuous batching).
+    Writes the token's k/v into ``cache`` in place; returns ``(cache,
+    logits (B, V))``."""
+    _check_family(cfg)
+    caches, logits = _decode_ranks([params], cfg, [cache], [token], pos)
+    return caches[0], logits[0]
+
+
+def _check_ep(cfg: ModelConfig) -> None:
+    _check_family(cfg)
+    if not cfg.is_moe or cfg.moe_dispatch != "ep":
+        raise ValueError(f"{cfg.name}: the ep cache paths need "
+                         f"moe_dispatch='ep'")
+
+
+def prefill_ep(params: list, cfg: ModelConfig, tokens: list, max_len: int,
+               comm, use_fused_kernel: bool | None = None):
+    """:func:`prefill` for every local rank of ``comm`` (``params`` /
+    ``tokens``: one per rank; serving never writes parameters, so the
+    ranks may share one tree): attention per rank, each layer's MoE
+    exchange across them (:func:`moe_ffn_ep`).  Returns per-rank
+    ``(caches, logits)``."""
+    _check_ep(cfg)
+    return _prefill_ranks(params, cfg, tokens, max_len, comm,
+                          use_fused_kernel)
+
+
+def decode_step_ep(params: list, cfg: ModelConfig, caches: list,
+                   tokens: list, pos, comm,
+                   use_fused_kernel: bool | None = None):
+    """:func:`decode_step` for every local rank of ``comm``, as
+    :func:`prefill_ep`; ``pos`` is shared.  Returns per-rank ``(caches,
+    logits)``."""
+    _check_ep(cfg)
+    return _decode_ranks(params, cfg, caches, tokens, pos, comm,
+                         use_fused_kernel)

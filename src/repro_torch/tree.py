@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 Path = tuple[str, ...]
 
 
@@ -63,3 +65,12 @@ def assign(tree: dict, path: Path, value) -> None:
 def map_leaves(fn: Callable, tree: dict) -> dict:
     """A tree of the same structure with ``fn`` applied to every leaf."""
     return unflatten((path, fn(leaf)) for path, leaf in flatten(tree))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two tensors: shape, dtype and raw bytes
+    (bfloat16, signed zeros and NaN payloads compared as bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))

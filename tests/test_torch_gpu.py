@@ -313,3 +313,73 @@ def test_small_elastic_drill_on_the_card():
     assert res["resumed_step"] == 3 and res["bitwise"], res
     assert fused_round.launches > before
     assert all(v > 0 for v in res["peaks"].values())
+
+
+@pytest.mark.gpu
+def test_decode_on_the_card_matches_cpu():
+    """The scaled-down qwen3-1.7b (float32) on the card: prefill and three
+    decode steps (scalar, then per-row positions) within 1e-4 of the same
+    weights on the CPU (GEMMs of other orders), greedy tokens equal, and
+    the paged scheduler's tokens equal one-shot ``generate``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import Scheduler, ServeEngine
+    cfg = get_config("qwen3-1.7b").scaled_down()
+    model = build(cfg, remat=False)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = T.map_leaves(lambda x: x.cuda(), cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    out, fed = {}, []
+    for name, params in (("cpu", cpu), ("cuda", card)):
+        cache, logits = model.prefill(params, tokens.to(name), 24)
+        seen = [logits.cpu()]
+        for i in range(3):
+            if name == "cpu":    # the card is fed the CPU's greedy tokens
+                fed.append(torch.argmax(logits, -1).to(torch.int32))
+            pos = 12 + i if i < 2 else torch.full((2,), 12 + i, device=name)
+            cache, logits = model.decode_step(params, cache, fed[i].to(name),
+                                              pos)
+            seen.append(logits.cpu())
+        out[name] = seen
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert float((a - b).abs().max()) <= 1e-4
+    prompts = tokens.numpy().astype(np.int32)
+    eng = ServeEngine(model, card, 24)
+    one = eng.generate(prompts, 6)
+    np.testing.assert_array_equal(
+        one, ServeEngine(model, cpu, 24).generate(prompts, 6))
+    sched = Scheduler(eng, max_batch=2, kv_block_size=4)
+    rids = [sched.submit(p, 6) for p in prompts]
+    got = sched.run()
+    for r, row in zip(rids, one):
+        np.testing.assert_array_equal(got[r], row)
+
+
+@pytest.mark.gpu
+def test_ep_decode_kernel_on_and_off_on_the_card():
+    """Scaled-down phi-3.5-MoE served expert parallel over 2 ranks on the
+    card: ``permute_rows`` launches 2 per rank per MoE layer per call, and
+    the tokens are bitwise those of the plain alltoall."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+    from repro_torch.launch import bootstrap
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    sess = bootstrap.build_serve_session(
+        arch="phi3.5-moe-42b-a6.6b", max_len=16, scale_down=True,
+        moe_dispatch="ep", ep_devices=2, device="cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, sess.cfg.vocab_size, (2, 8)).astype(np.int32)
+    before = permute_rows.launches
+    on = sess.engine.generate(prompts, 6)
+    assert permute_rows.launches - before == \
+        2 * 2 * sess.cfg.n_layers * (1 + 6)
+    off = ServeEngine(build(sess.cfg, remat=False, ep_comm=sess.ep_comm,
+                            use_fused_kernel=False), sess.params, 16)
+    np.testing.assert_array_equal(off.generate(prompts, 6), on)

@@ -8,7 +8,9 @@
 * the train CLI runs the zero1 main path on the CPU at a tiny size,
   exact, on the int8 wire, bucketed and with each baseline grad sync,
   and the expert-parallel MoE path on a 2x2 mesh; the elastic drill's
-  CLI shrinks a world on the CPU.
+  CLI shrinks a world on the CPU;
+* the serve CLI (``python -m repro_torch.launch.serve``) generates on
+  the CPU when asked, and refuses to start without a card otherwise.
 """
 import ast
 import math
@@ -179,3 +181,17 @@ def test_elastic_cli_refuses_model_axis_and_cuda_without_card():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             elastic.main(["--scale-down", "--shrink-at-step", "2"])
+
+
+def test_serve_cli_on_cpu_and_refused_without_card():
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen3-1.7b", "--scale-down", "--batch", "2", "--prompt-len",
+            "8", "--max-new", "4"]
+    proc = subprocess.run(base + ["--device", "cpu"], capture_output=True,
+                          text=True, env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "generated (2, 4)" in proc.stdout
+    if not torch.cuda.is_available():
+        proc = subprocess.run(base, capture_output=True, text=True,
+                              env=_env(), timeout=300)
+        assert proc.returncode != 0 and "--device cpu" in proc.stderr
