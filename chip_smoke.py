@@ -112,7 +112,7 @@ Phases (any failure exits non-zero; none is caught):
    for 2 steps, ``fused_round`` launches and exchanges exact, peak memory
    and warm step, and one full-width float32 MoE layer of two sequences
    against the global dispatch of each sequence alone within 2e-5; (c)
-   the elastic shrink drill at full width (qwen3-1.7b, 28 layers, seq
+   the elastic shrink drill at full width (qwen3-1.7b, 3 of 28 layers, seq
    2048): world 3, a checkpoint at step 3, rank 1 lost at step 4,
    resumed at p' = 2 from step 3, the resumed losses bitwise an
    uninterrupted p' = 2 run's from the same checkpoint; ``fused_round``
@@ -133,14 +133,16 @@ Phases (any failure exits non-zero; none is caught):
    tokens equal to its argmax, ``generate`` equal to the loop; largest
    gap and smallest top-2 margin printed; (c) 16 requests from seed 0
    (prompts 256-2048 in steps of 64, max_new 16-128) through
-   ``Scheduler`` with ``max_batch=8, kv_block_size=16``: in float32 each
+   ``Scheduler`` with ``max_batch=8, kv_block_size=16``: in float32 (every
+   width, 7 of 28 layers) each
    request's tokens against a one-shot B=1 ``generate`` of it alone (a
    split passes only where the one-shot's top-2 margin at the first
    differing token is below the logits gap there; both printed), in
    bf16 timed (decode-boundary p50 / p99, tokens/s, decode steps and
    prefills, peak memory); (d) ``build_serve_session(replicas=3)`` at
-   (a)'s shapes: the broadcast fan-out's 14 leaves x 2 exchanges,
-   bytes and seconds, every replica's weights bitwise the source's,
+   (a)'s shapes, 7 of 28 layers: the broadcast fan-out's 14 leaves x 2
+   exchanges, bytes and seconds, every replica's weights bitwise the
+   source's,
    each replica's rows bitwise a single engine's on the same rows; (e)
    phi-3.5-MoE every width, depth 32 -> 8, ``moe_dispatch="ep"`` over 2
    ranks sharing one parameter tree, batch 2, prompt 2048, 32 new tokens:
@@ -148,6 +150,28 @@ Phases (any failure exits non-zero; none is caught):
    set to 0 just before), tokens bitwise with the kernel on and off,
    agreement with the global dispatch of the same weights, peak memory
    and decode ms.
+
+11. the other architecture families: (a) ``python -m
+   repro_torch.launch.train`` with phase 4's argv for ``hymba-1.5b``
+   (seq 2048: past its 1024-token window), ``xlstm-125m`` (seq 1024) and
+   ``whisper-small`` (1500 encoder frames, 448 decoder tokens), full
+   width and depth, 3 steps over 3 virtual ranks: ``fused_round``
+   launches, sync bytes and exchanges exact, step seconds and peak
+   memory, then step 0 again with ``--fused-kernel off``: loss, grad norm
+   and the params after it bitwise; and hymba with ``--wire-dtype int8
+   --no-error-feedback`` for 2 steps, ``quantize`` and ``fused_round_dq``
+   launches exact; (b) in phase 2, ``fused_round``, ``quantize`` and
+   ``fused_round_dq`` bitwise their plain versions at every zero-leaf
+   round shape of the three (p = 3), the shapes printed; (c) greedy bf16
+   serving of hymba (4 x 2048, 64 new), xlstm (8 x 2048, 128 new) and
+   whisper (8 x 320 frames and prompt, 128 new) through ``python -m
+   repro_torch.launch.serve``'s argv, and of llama-3.2-vision-90b (depth
+   100 -> 5: one group; 4096 image tokens) and qwen1.5-110b (depth 80 ->
+   2; QKV bias), every width, 2 x 2048, 32 new, through the session
+   builder with the launcher's inputs: time to first token, decode p50 /
+   p99, tokens/s, cache or state bytes, peak memory, no kernel launched;
+   and for each a float32 run at batch 2, 16 new tokens: prefill and
+   every decode step within 1e-3 of ``forward_logits``.
 
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
@@ -390,34 +414,36 @@ def _rand(shape, dtype, gen, nan: bool):
     return x
 
 
-def wire_leaves(p: int):
+def wire_leaves(p: int, arch: str = "qwen3-1.7b"):
     """``(leaf, shape, cols, padded cols, g)`` of every zero leaf's
-    reduce-scatter at ``p`` ranks: the columns of one block and, on the
-    int8 wire, the same padded to whole groups of ``g =
-    min(DEFAULT_GROUP, cols)``."""
+    reduce-scatter at ``p`` ranks (``arch`` full width): the columns of
+    one block and, on the int8 wire, the same padded to whole groups of
+    ``g = min(DEFAULT_GROUP, cols)``."""
     from repro_torch.configs import get_config
     from repro_torch import tree as T
     from repro_torch.kernels import DEFAULT_GROUP
-    from repro_torch.models.transformer import param_shapes
+    from repro_torch.models import param_shapes
     from repro_torch.optim.zero1 import is_zero_leaf
     out = []
-    for path, shape in T.flatten(param_shapes(get_config("qwen3-1.7b"))):
+    for path, shape in T.flatten(param_shapes(get_config(arch))):
         if not is_zero_leaf(shape, p, 1024):
             continue
         ld_pad = shape[0] + (-shape[0]) % p
         cols = ld_pad // p * math.prod(shape[1:])
         g = min(DEFAULT_GROUP, cols)
-        out.append((".".join(path), shape, cols, -(-cols // g) * g, g))
+        out.append((".".join(map(str, path)), shape, cols,
+                    -(-cols // g) * g, g))
     return out
 
 
-def main_path_rounds():
+def main_path_rounds(arch: str = "qwen3-1.7b"):
     """Every ``(leaf, lo, nb, next_lo, cols)`` fused_round launch shape of
-    one main-path step on one rank (f32 payload, halving at p = 3)."""
+    one main-path step on one rank (f32 payload, halving at p = 3) of
+    ``arch`` at full width."""
     from repro_torch.core import reduce_scatter_plan
     rounds = reduce_scatter_plan(P_MAIN)
     out = []
-    for leaf, _, cols, _, _ in wire_leaves(P_MAIN):
+    for leaf, _, cols, _, _ in wire_leaves(P_MAIN, arch):
         for k, rnd in enumerate(rounds):
             nxt = rounds[k + 1].lo if k + 1 < len(rounds) else rnd.lo
             out.append((leaf, rnd.lo, rnd.nblocks, nxt, cols))
@@ -519,6 +545,19 @@ def phase_kernel_vs_plain():
         rows.append((leaf, lo, nb, nxt, cols, nbytes, k_ms, p_ms))
         del live, recv
     torch.cuda.empty_cache()
+    # Phase 11 (b): every round shape of the other families' zero leaves.
+    for arch in FAMILY_TRAIN:
+        shapes = main_path_rounds(arch)
+        for leaf, lo, nb, nxt, cols in shapes:
+            live = torch.randn((lo, cols), device="cuda", generator=gen)
+            recv = torch.randn((nb, cols), device="cuda", generator=gen)
+            compare(live, recv, nb, nxt, "add", f"{arch} {leaf} lo={lo}")
+            del live, recv
+        torch.cuda.empty_cache()
+        print(f"phase 11 (b): fused_round bitwise its plain version at "
+              f"{arch}'s {len(shapes)} zero-leaf round launches (p = "
+              f"{P_MAIN}, f32 add); (lo, nb, next_lo, cols): "
+              f"{sorted({r[1:] for r in shapes})}")
     print("main-path fused_round launches (one rank, one step; f32 add):")
     print(f"  {'leaf':28s} {'lo':>2s} {'nb':>2s} {'nxt':>3s} {'cols':>11s} "
           f"{'MB':>8s} {'kernel_ms':>9s} {'bound_ms':>8s} {'plain_ms':>8s} "
@@ -542,14 +581,14 @@ def phase_kernel_vs_plain():
     return max_err, step
 
 
-def wire_launches(p: int):
-    """Every kernel launch of one rank's wire step at ``p``: ``("quantize",
-    leaf, rows, cols, g)`` for round 0's send and ``("fused_round_dq",
-    leaf, lo, nb, next_lo, cols, g)`` per round."""
+def wire_launches(p: int, arch: str = "qwen3-1.7b"):
+    """Every kernel launch of one rank's wire step at ``p`` (``arch`` full
+    width): ``("quantize", leaf, rows, cols, g)`` for round 0's send and
+    ``("fused_round_dq", leaf, lo, nb, next_lo, cols, g)`` per round."""
     from repro_torch.core import reduce_scatter_plan
     rounds = reduce_scatter_plan(p)
     out = []
-    for leaf, _, _, cols, g in wire_leaves(p):
+    for leaf, _, _, cols, g in wire_leaves(p, arch):
         out.append(("quantize", leaf, rounds[0].hi - rounds[0].lo, cols, g))
         for k, rnd in enumerate(rounds):
             nxt = rounds[k + 1].lo if k + 1 < len(rounds) else rnd.lo
@@ -706,6 +745,26 @@ def phase_wire_kernels():
                 steps[name] = {"ms": p * t_k, "plain_ms": p * t_p,
                                "bytes": p * b,
                                "bound_ms": p * b / HBM_BYTES_PER_S * 1e3}
+    # Phase 11 (b): every wire launch shape of the other families'
+    # zero leaves.
+    for arch in FAMILY_TRAIN:
+        launches = wire_launches(P_MAIN, arch)
+        for launch in launches:
+            if launch[0] == "quantize":
+                _, leaf, rows, cols, g = launch
+                check_quantize(randn((rows, cols)), g,
+                               f"{arch} {leaf} round-0 send")
+            else:
+                _, leaf, lo, nb, nxt, cols, g = launch
+                codes, scales = ref.quantize_ref(randn((nb, cols), 3.0),
+                                                 group=g)
+                check_dq(randn((lo, cols)), codes.contiguous(), scales, nb,
+                         nxt, "add", g, f"{arch} {leaf} lo={lo}")
+            torch.cuda.empty_cache()
+        print(f"phase 11 (b): quantize and fused_round_dq bitwise their "
+              f"plain versions at {arch}'s {len(launches)} wire launches "
+              f"(p = {P_MAIN}); (kernel, shape, g): "
+              f"{sorted({(x[0], x[2:-1], x[-1]) for x in launches})}")
     for leaf, shape, _, _, _ in wire_leaves(P_EF):
         rows = shape[0] if len(shape) > 1 else 1
         x = randn((rows, math.prod(shape) // rows))
@@ -1342,7 +1401,8 @@ def profiled_step(step, label: str, unprofiled_ms: float,
         print(f"  {ms:9.2f} ms {n:6d}x  {name[:90]}")
 
 
-def sync_bytes(p: int, wire: bool) -> tuple[int, int]:
+def sync_bytes(p: int, wire: bool, arch: str = "qwen3-1.7b"
+               ) -> tuple[int, int]:
     """Exact bytes one step's exchanges send at ``p`` ranks, summed over
     the ranks: the gradient reduce-scatter's (float32 rows, or int8 wire
     rows padded to whole groups) and the parameter allgather's (shards in
@@ -1351,9 +1411,9 @@ def sync_bytes(p: int, wire: bool) -> tuple[int, int]:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import wire_width
-    itemsize = getattr(torch, get_config("qwen3-1.7b").dtype).itemsize
+    itemsize = getattr(torch, get_config(arch).dtype).itemsize
     rs = ag = 0
-    for _, _, cols, padded, g in wire_leaves(p):
+    for _, _, cols, padded, g in wire_leaves(p, arch):
         rs += p * (p - 1) * (wire_width(padded, g) if wire else 4 * cols)
         ag += p * (p - 1) * itemsize * cols
     return rs, ag
@@ -2470,10 +2530,21 @@ def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
 ROW_MAIN = dict(arch=EP_ARCH, steps=2, seq_len=2048, global_batch=4, dp=2,
                 mp=1, mode="zero1", moe_dispatch="rowwise", n_layers=1,
                 device="cuda")
-#: phase 9 (c): the elastic shrink drill, qwen3-1.7b full width and depth.
+#: phase 9 (c): the elastic shrink drill, qwen3-1.7b full width, depth
+#: cut 28 -> 3 layers so that the script, phase 11 included, stays inside
+#: its 1200-s limit (PERF.md §4).
 DRILL = dict(arch="qwen3-1.7b", scale_down=False, steps=5, seq_len=2048,
              global_batch=6, world=3, shrink_at_step=4, fail_rank=1,
-             ckpt_every=3, keep_last=1, device="cuda")
+             ckpt_every=3, keep_last=1, device="cuda", n_layers=3)
+
+
+def drill_cfg():
+    """The drill's config: every width of ``DRILL["arch"]`` at its
+    depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(DRILL["arch"]),
+                               n_layers=DRILL["n_layers"])
 
 
 class Preflight:
@@ -2667,11 +2738,10 @@ def resize_round_trip(mgr, step: int, world: int, new_world: int) -> None:
     every ``m`` / ``v`` array back bitwise."""
     import torch
     from repro_torch import tree as T
-    from repro_torch.configs import get_config
     from repro_torch.models.transformer import leaf_dtype, param_shapes
     from repro_torch.optim.zero1 import (GradSyncConfig, Zero1State,
                                          resize_zero1_state)
-    cfg = get_config(DRILL["arch"])
+    cfg = drill_cfg()
     template = T.unflatten(
         (path, torch.empty(shape, dtype=leaf_dtype(cfg, path),
                            device="meta"))
@@ -2709,17 +2779,17 @@ def phase_elastic_drill(smi: str) -> dict:
     import torch
     from repro_torch import tree as T
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.launch.elastic import run_drill
     from repro_torch.models.transformer import param_shapes
     from repro_torch.optim.zero1 import is_zero_leaf
-    cfg = get_config(DRILL["arch"])
+    cfg = drill_cfg()
     shapes = [s for _, s in T.flatten(param_shapes(cfg))]
     w, w2 = DRILL["world"], DRILL["world"] - 1
     n_zero = {p: sum(is_zero_leaf(s, p, 1024) for s in shapes)
               for p in (w, w2)}
     print(f"elastic drill: run_drill({DRILL}); {cfg.name} full width, "
-          f"{cfg.n_layers} layers; reduced: none")
+          f"{cfg.n_layers} layers; reduced: depth 28 -> {cfg.n_layers} "
+          f"(every width kept)")
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
     free = shutil.disk_usage(ckpt_dir).free
@@ -2792,8 +2862,13 @@ SERVE_LOGIT_TOL = 1e-3
 #: of 64 from 256 to 2048: flash attention's tile is the largest divisor
 #: of S not above 512, so a prime length would run S tiles of one row.
 SCHED = dict(n=16, max_batch=8, block=16, prompt_len=2048, max_new=128)
-#: phase 10 (d): replicas of the broadcast fan-out.
-SERVE_REPLICAS = 3
+#: phase 10 (c) float32: the depth of the model the scheduler's tokens are
+#: held on against one-shot runs (every width; cut from 28 for the
+#: script's time limit, PERF.md §4).
+SCHED_F32_LAYERS = 7
+#: phase 10 (d): replicas of the broadcast fan-out, and their depth
+#: (every width; cut from 28 for the script's time limit, PERF.md §4).
+SERVE_REPLICAS, REPLICA_LAYERS = 3, 7
 #: phase 10 (e): expert-parallel decode, phi-3.5-MoE every width.
 EP_SERVE = dict(arch=EP_ARCH, moe_dispatch="ep", ep_devices=2, n_layers=8,
                 batch=2, prompt=2048, new=32)
@@ -2900,19 +2975,30 @@ def serve_scheduler_timing(sess, smi: str) -> dict:
     return counts
 
 
-def serve_parity(smi: str):
-    """Phase 10 (b): float32, full width: every decode step's logits
-    against ``forward_logits`` over the teacher-forced sequence, greedy
-    tokens equal, and ``generate`` the same tokens as the loop."""
+def f32_qwen3(n_layers: int | None = None):
+    """qwen3-1.7b in float32, every width (``n_layers``: depth cut), its
+    model and random parameters from seed 0 on the card."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build
-    from repro_torch.serve import ServeEngine
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build(cfg, remat=False)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         torch.device("cuda"))
+    return model, params
+
+
+def serve_parity(smi: str):
+    """Phase 10 (b): float32, full width: every decode step's logits
+    against ``forward_logits`` over the teacher-forced sequence, greedy
+    tokens equal, and ``generate`` the same tokens as the loop."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    model, params = f32_qwen3()
+    cfg = model.cfg
     b, s, new = (SERVE_PARITY[k] for k in ("batch", "prompt", "new"))
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -3011,7 +3097,9 @@ def serve_scheduler_parity(model, params, smi: str) -> None:
             gap = float((rec[rid][j] - lg[0]).abs().max())
         del cache
         splits.append((rid, j, margin, gap))
-    print(f"serving (c) f32: {same} of {len(reqs)} requests bitwise a "
+    print(f"serving (c) f32, {model.cfg.n_layers} layers (reduced: depth "
+          f"28 -> {model.cfg.n_layers}, every width kept): {same} of "
+          f"{len(reqs)} requests bitwise a "
           f"one-shot B=1 generate ({sched.n_decode_steps} decode steps, "
           f"{sched.n_prefills} prefills; scheduler {t_sched:.1f} s, one-shot "
           f"runs {time.perf_counter() - t0:.1f} s); splits (rid, first "
@@ -3037,7 +3125,7 @@ def serve_replicas(smi: str) -> dict:
     zero_counts()
     sess = bootstrap.build_serve_session(
         arch="qwen3-1.7b", max_len=s + new, replicas=SERVE_REPLICAS,
-        device="cuda")
+        device="cuda", n_layers=REPLICA_LAYERS)
     st = sess.push_stats
     want = st["n_leaves"] * ceil_log2(SERVE_REPLICAS)
     check(st["n_leaves"] == 14 and st["exchanges"] == want,
@@ -3061,7 +3149,9 @@ def serve_replicas(smi: str) -> dict:
         check(np.array_equal(out[rows], single.generate(prompts[rows], new)),
               f"serving (d): replica {r}'s tokens differ from a single "
               f"engine's on rows {rows}")
-    print(f"serving (d): broadcast fan-out to {SERVE_REPLICAS} replicas: "
+    print(f"serving (d): {sess.cfg.n_layers} layers (reduced: depth 28 -> "
+          f"{REPLICA_LAYERS}, every width kept); broadcast fan-out to "
+          f"{SERVE_REPLICAS} replicas: "
           f"{st['n_leaves']} leaves, {st['bytes']} bytes, {st['rounds']} "
           f"rounds, {st['exchanges']} exchanges, {st['seconds']:.3f} s; "
           f"every replica's weights bitwise the source's; {b} x {new} "
@@ -3178,6 +3268,9 @@ def phase_serving(smi: str) -> dict:
     free_cuda()
     print(f"phase 10 (a), (c) bf16 in {time.perf_counter() - t10:.1f} s")
     model, params = serve_parity(smi)
+    del model, params
+    free_cuda()
+    model, params = f32_qwen3(SCHED_F32_LAYERS)
     serve_scheduler_parity(model, params, smi)
     del model, params
     free_cuda()
@@ -3185,6 +3278,282 @@ def phase_serving(smi: str) -> dict:
     add(serve_replicas(smi))
     add(serve_ep(smi))
     print(f"phase 10 in {time.perf_counter() - t10:.1f} s ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the other architecture families
+# ---------------------------------------------------------------------------
+
+#: phase 11 (a): arch -> sequence length of its full-width, full-depth
+#: ZeRO-1 run over 3 virtual ranks (hymba past its 1024-token window;
+#: Whisper: its 30-s encoder window of 1500 frames, the decoder at its
+#: ``dec_len`` of 448 tokens).  xLSTM at 1024, not 2048: its sLSTM
+#: recurrence runs one Python step a token, and at 2048 the script passes
+#: its 1200-s limit on a slow host (PERF.md §4).
+FAMILY_TRAIN = {"hymba-1.5b": 2048, "xlstm-125m": 1024,
+                "whisper-small": 1500}
+FAMILY_STEPS = 3
+#: phase 11 (a): the int8-wire run (EF off): its arch and steps.
+FAMILY_WIRE = ("hymba-1.5b", 2)
+#: phase 11 (c): arch -> (batch, prompt, new tokens, depth cut or None).
+#: The VLM and Qwen1.5 keep every width; their depth is cut to fit
+#: (89.2 B and 111.2 B parameters in full against 80 GB).
+FAMILY_SERVE = {"hymba-1.5b": (4, 2048, 64, None),
+                "xlstm-125m": (8, 2048, 128, None),
+                "whisper-small": (8, 320, 128, None),
+                "llama-3.2-vision-90b": (2, 2048, 32, 5),
+                "qwen1.5-110b": (2, 2048, 32, 2)}
+#: phase 11 (c): the float32 parity runs' batch and new tokens (the
+#: prompt is the bf16 run's).
+FAMILY_PARITY = dict(batch=2, new=16)
+
+
+def family_argv(arch: str, seq: int, **flags) -> list:
+    """Phase 4's argv for ``arch`` at sequence ``seq``."""
+    return argv_with(MAIN_ARGV, **{"arch": arch, "seq_len": seq,
+                                    "steps": FAMILY_STEPS, **flags})
+
+
+def family_train(arch: str, seq: int) -> tuple:
+    """Phase 11 (a): ``arch``'s full-width ZeRO-1 run through the
+    launcher's argv, launch counts and sync bytes and exchanges exact,
+    then step 0 again with ``--fused-kernel off``: its loss, grad norm
+    and the params after it bitwise the run's."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch import bootstrap
+    cfg = get_config(arch)
+    n_zero = len(wire_leaves(P_MAIN, arch))
+    label = f"phase 11 (a) {arch}"
+    argv = family_argv(arch, seq)
+    print(f"{label}: {cfg.family}, full width, {cfg.n_layers} layers, "
+          f"{tree_numel(arch) / 1e9:.4f} B params, {n_zero} zero leaves "
+          f"at p = {P_MAIN}; train.main({argv})")
+    want = {name: 0 for name in counters()}
+    want["fused_round"] = FAMILY_STEPS * P_MAIN * n_zero * 2
+
+    def keep(sess, metrics):
+        ranks_agree(sess.params, label)
+        return {"loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "params": [t.cpu() for t in T.leaves(sess.params[0])]}
+
+    run, counts, peak, _, ref = run_path(
+        argv, label, want, P_MAIN, wire=False,
+        sync=sync_bytes(P_MAIN, False, arch), exchanges=4 * n_zero,
+        at_step0=keep)
+    sess = bootstrap.build_session(
+        arch=arch, steps=FAMILY_STEPS, seq_len=seq, global_batch=P_MAIN,
+        dp=P_MAIN, mode="zero1", use_fused_kernel=False, device="cuda")
+    metrics = bootstrap.run_step(sess, 0)
+    check(float(metrics["loss"]) == ref["loss"] == run.losses[0],
+          f"{label}: step-0 loss with the kernel off {float(metrics['loss'])}"
+          f" != on {ref['loss']}")
+    check(float(metrics["grad_norm"]) == ref["grad_norm"],
+          f"{label}: step-0 grad norm off {float(metrics['grad_norm'])} != "
+          f"on {ref['grad_norm']}")
+    for (path, got), want_t in zip(T.flatten(sess.params[0]), ref["params"]):
+        check(same_bits(want_t, got.cpu()),
+              f"{label}: params after step 1 differ with the kernel off: "
+              f"{path}")
+    print(f"{label}: fused_round launches {counts['fused_round']} (= "
+          f"{FAMILY_STEPS} steps x {P_MAIN} ranks x {n_zero} leaves x 2 "
+          f"rounds); --fused-kernel off: step-0 loss, grad norm and the "
+          f"params after step 1 bitwise")
+    del sess, ref
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    return run, counts, peak
+
+
+def family_wire() -> tuple:
+    """Phase 11 (a): the int8 wire (EF off) on ``FAMILY_WIRE``'s arch:
+    ``quantize`` and ``fused_round_dq`` launches, wire bytes and
+    exchanges exact, no ``fused_round``."""
+    arch, steps = FAMILY_WIRE
+    n_zero = len(wire_leaves(P_MAIN, arch))
+    argv = family_argv(arch, FAMILY_TRAIN[arch], wire_dtype="int8",
+                       no_error_feedback=True, steps=steps)
+    label = f"phase 11 (a) {arch} int8 wire"
+    print(f"{label}: train.main({argv})")
+    want = {name: 0 for name in counters()}
+    want["quantize"] = want["quantize_rows"] = steps * P_MAIN * n_zero
+    want["fused_round_dq"] = steps * P_MAIN * n_zero * 2
+    run, counts, peak, _, _ = run_path(
+        argv, label, want, P_MAIN, wire=True,
+        sync=sync_bytes(P_MAIN, True, arch), exchanges=4 * n_zero)
+    return run, counts, peak
+
+
+def tree_numel(arch: str, n_layers: int | None = None) -> int:
+    """Parameters of ``arch`` at full width (``n_layers``: depth cut)."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import param_shapes
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return sum(math.prod(s) for _, s in T.flatten(param_shapes(cfg)))
+
+
+def family_serve(arch: str, smi: str) -> None:
+    """Phase 11 (c), bf16: one-shot greedy serving of ``arch``, through
+    ``python -m repro_torch.launch.serve``'s argv where the whole depth
+    fits, else through the session builder with the depth cut and the
+    launcher's inputs; two calls (the second is steady state)."""
+    import torch
+    from repro_torch.launch import bootstrap, serve
+    b, s, new, n_layers = FAMILY_SERVE[arch]
+    label = f"phase 11 (c) {arch}"
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    if n_layers is None:
+        argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
+                "--max-new", str(new), "--device", "cuda"]
+        print(f"{label}: serve.main({argv})")
+        run = serve.main(argv)
+        sess, out, first, steady = (run.session, run.tokens, run.seconds,
+                                    run.steady_seconds)
+    else:
+        print(f"{label}: build_serve_session(n_layers={n_layers}) and the "
+              f"launcher's inputs, batch {b}, prompt {s}, {new} new")
+        sess = bootstrap.build_serve_session(arch=arch, max_len=s + new,
+                                             n_layers=n_layers, device="cuda")
+        prompts, extras = serve.prompts_and_extras(sess.cfg, b, s)
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = sess.engine.generate(prompts, new, extras=extras)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        first, steady = secs
+    counts = read_counts()
+    check(not any(counts.values()), f"{label}: launched kernels: {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    cfg = sess.cfg
+    check(out.shape == (b, new) and out.min() >= 0
+          and out.max() < cfg.vocab_size,
+          f"{label}: tokens {out.shape} in [{out.min()}, {out.max()}]")
+    t = sess.engine.timings
+    print(f"{label}: {cfg.n_layers} layers, {cfg.dtype}, weights "
+          f"{tree_bytes(sess.params)} bytes, cache or state "
+          f"{t['cache_bytes']} bytes; time to first token (prefill of {b} x "
+          f"{s}) {t['ttft_s'] * 1e3:.1f} ms; decode step p50 "
+          f"{pct(t['step_s'], 50):.3f} ms, p99 {pct(t['step_s'], 99):.3f} ms "
+          f"over {len(t['step_s'])}; first call {first:.2f} s, steady state "
+          f"{b * new / steady:.1f} tok/s ({steady:.2f} s); peak memory "
+          f"allocated {peak / 2**30:.2f} GiB; no kernel launched ({smi})")
+    del sess
+    free_cuda()
+
+
+def family_parity(arch: str, smi: str) -> None:
+    """Phase 11 (c), float32: prefill and every decode step's logits
+    against ``forward_logits`` over the teacher-forced sequence (within
+    ``SERVE_LOGIT_TOL``), greedy tokens equal to its argmax except where
+    its top-2 margin is below the logits gap there, and ``generate`` the
+    loop's tokens.  The VLM's cross-layer gates are set to 0.5 (zero at
+    init, where the image path would not reach the logits)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompts_and_extras
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    _, s, _, n_layers = FAMILY_SERVE[arch]
+    b, new = FAMILY_PARITY["batch"], FAMILY_PARITY["new"]
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build(cfg, remat=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    if cfg.family == "vlm":  # zero-initialized gates hide the image path
+        for gate in ("gate_attn", "gate_ffn"):
+            params["cross_layers"][gate].fill_(0.5)
+    prompts, extras = prompts_and_extras(cfg, b, s)
+    ex = {k: torch.as_tensor(v, device="cuda") for k, v in extras.items()}
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.no_grad():
+        cache, logits = model.prefill(params, toks, s + new, **ex)
+        steps, out = [logits], []
+        for i in range(new):
+            nxt = torch.argmax(steps[-1], dim=-1).to(torch.int32)
+            out.append(nxt)
+            if i < new - 1:
+                cache, logits = model.decode_step(params, cache, nxt, s + i)
+                steps.append(logits)
+        del cache
+        seq = torch.cat([toks, torch.stack(out, 1)], 1)
+        full = model.forward_logits(params, seq, **ex)
+        gap, margin, flips = 0.0, float("inf"), 0
+        for i, lg in enumerate(steps):
+            ref = full[:, s - 1 + i]
+            diff = (lg - ref).abs().amax(-1)
+            gap = max(gap, float(diff.max()))
+            top2 = torch.topk(ref, 2, dim=-1).values
+            m = top2[:, 0] - top2[:, 1]
+            margin = min(margin, float(m.min()))
+            flip = torch.argmax(ref, -1).to(torch.int32) != out[i]
+            flips += int(flip.sum())
+            check(not bool((flip & (m >= diff)).any()),
+                  f"phase 11 (c) {arch} f32: step {i}: a greedy token "
+                  f"differs where the top-2 margin exceeds the logits gap")
+        scale = float(full.abs().max())
+        del full
+    eng = ServeEngine(model, params, s + new)
+    gen = eng.generate(prompts, new, extras=extras)
+    loop = torch.stack(out, 1).cpu().numpy()
+    print(f"phase 11 (c) {arch} f32: {cfg.n_layers} layers, {b} x {s} "
+          f"prompt, {new} tokens: max |decode - teacher-forced forward| "
+          f"logits {gap:.3e} (limit {SERVE_LOGIT_TOL:g}; max |logit| "
+          f"{scale:.3f}); smallest top-2 margin {margin:.3e}; greedy tokens "
+          f"differing {flips}; generate == the loop: "
+          f"{np.array_equal(gen, loop)} ({smi})")
+    check(gap <= SERVE_LOGIT_TOL, f"phase 11 (c) {arch} f32: logits gap "
+          f"{gap}")
+    check(np.array_equal(gen, loop), f"phase 11 (c) {arch} f32: generate "
+          f"differs from the prefill + decode loop")
+    del model, params, eng
+    free_cuda()
+
+
+def phase_families(smi: str) -> dict:
+    """Phase 11: (a) ZeRO-1 training of the hybrid, xLSTM and
+    encoder-decoder families at full width and depth, and the hybrid on
+    the int8 wire; (c) serving of every new family path, bf16 timed and
+    float32 held against ``forward_logits``.  Returns the launch counts of
+    (a)'s runs, each zeroed just before its run."""
+    import torch
+    t11 = time.perf_counter()
+    total = {name: 0 for name in counters()}
+    for arch, seq in FAMILY_TRAIN.items():
+        t0 = time.perf_counter()
+        run, counts, peak = family_train(arch, seq)
+        for k in total:
+            total[k] += counts[k]
+        print(f"phase 11 (a) {arch}: seq {seq}, step seconds "
+              f"{[round(x, 3) for x in run.step_seconds]}, peak "
+              f"{peak / 2**30:.2f} GiB, {time.perf_counter() - t0:.1f} s "
+              f"({smi})")
+    t0 = time.perf_counter()
+    run, counts, peak = family_wire()
+    for k in total:
+        total[k] += counts[k]
+    print(f"phase 11 (a) {FAMILY_WIRE[0]} int8 wire: step seconds "
+          f"{[round(x, 3) for x in run.step_seconds]}, peak "
+          f"{peak / 2**30:.2f} GiB, {time.perf_counter() - t0:.1f} s ({smi})")
+    print(f"phase 11 (a) in {time.perf_counter() - t11:.1f} s")
+    for arch in FAMILY_SERVE:
+        t0 = time.perf_counter()
+        family_serve(arch, smi)
+        family_parity(arch, smi)
+        torch.cuda.reset_peak_memory_stats()
+        print(f"phase 11 (c) {arch} in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 11 in {time.perf_counter() - t11:.1f} s ({smi})")
     return total
 
 
@@ -3233,13 +3602,14 @@ def main() -> int:
     drill = phase_elastic_drill(smi)
     print(f"phase 9 in {time.perf_counter() - t9:.1f} s ({smi})")
     serving = phase_serving(smi)
+    families = phase_families(smi)
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
                "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs,
-               "9b": rowwise, "9c": drill, "10": serving}
+               "9b": rowwise, "9c": drill, "10": serving, "11": families}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}
-        # ``launches`` counts the workload paths (4 to 6, 8's, 9's, 10) only:
+        # ``launches`` counts the workload paths (4 to 6, 8 to 11) only:
         # the sweep of 7 (a) is a correctness check on tiny blocks, not a
         # workload.
         work = sum(k for path, k in n.items() if path != "7a")

@@ -27,10 +27,11 @@ Layout:  <dir>/step_<N>/arrays.npz + manifest.json
   bounded retry/backoff must absorb.
 
 The arrays are host (numpy) copies of the tensors, keyed as the
-reference keys them: ``p_<i>`` for the i-th parameter leaf in sorted-key
-order, ``opt_<key>`` for each optimizer array.  numpy has no bfloat16:
-a bfloat16 leaf is stored as the reference stores one, two raw bytes per
-element (dtype ``V2``), and restored by reinterpreting those bytes.
+reference keys them: ``p_<i>`` for the i-th parameter leaf in JAX's
+flatten order (dicts by sorted key, lists by index), ``opt_<key>`` for
+each optimizer array.  numpy has no bfloat16: a bfloat16 leaf is stored
+as the reference stores one, two raw bytes per element (dtype ``V2``),
+and restored by reinterpreting those bytes.
 
 On multi-host deployments each host would write its own process-local
 shard files; the manifest/atomic-rename/cursor discipline is identical.
@@ -92,11 +93,14 @@ def from_host(arr: np.ndarray, like):
 
 def treedef_str(tree) -> str:
     """The tree's structure as the reference's manifest records it (JAX's
-    ``str(treedef)`` of a nested dict: sorted keys, ``*`` per leaf)."""
+    ``str(treedef)`` of nested dicts and lists: sorted keys, list entries
+    in order, ``*`` per leaf)."""
     def walk(node):
         if isinstance(node, dict):
             return "{" + ", ".join(f"{k!r}: {walk(node[k])}"
                                    for k in sorted(node)) + "}"
+        if isinstance(node, list):
+            return "[" + ", ".join(walk(x) for x in node) + "]"
         return "*"
     return f"PyTreeDef({walk(tree)})"
 

@@ -3,10 +3,10 @@
 The reference's parameters, as a nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``), become the port's parameters and
 back.  Both sides use the same tree (the reference's leaves, stacked
-layer weights and the MoE subtree included), so this only moves data: it
-checks every leaf's path and shape against the config and sets each
-leaf's dtype as the reference has it (the config's, but float32 for the
-MoE router).  numpy
+layer weights, the MoE subtree and xLSTM's list of layers included), so
+this only moves data: it checks every leaf's path and shape against the
+family's ``param_shapes`` and sets each leaf's dtype as the reference
+has it (the config's, but float32 for the MoE router).  numpy
 has no bfloat16 of its own; such arrays (``ml_dtypes.bfloat16``) pass
 through float32, which is exact both ways.
 """
@@ -17,7 +17,7 @@ import torch
 
 from . import tree as T
 from .models.config import ModelConfig
-from .models.transformer import leaf_dtype, param_shapes
+from .models.registry import leaf_dtype, param_shapes
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
@@ -34,8 +34,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     for path, arr in got:
         arr = np.asarray(arr)
         if tuple(arr.shape) != tuple(want[path]):
-            raise ValueError(f"{'.'.join(path)}: shape {arr.shape}, config "
-                             f"wants {want[path]}")
+            raise ValueError(f"{'.'.join(map(str, path))}: shape "
+                             f"{arr.shape}, config wants {want[path]}")
         if arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
         t = torch.from_numpy(np.array(arr)).to(leaf_dtype(cfg, path))

@@ -33,8 +33,7 @@ from ..checkpoint.manager import to_host
 from ..comm import LocalComm, LocalMesh, resolve_device
 from ..configs import get_config
 from ..data import for_model
-from ..models import build, is_ep
-from ..models.transformer import leaf_dtype, param_shapes
+from ..models import build, is_ep, leaf_dtype, param_shapes
 from ..optim.adamw import AdamWConfig, TreeAdamState
 from ..optim.zero1 import (GradSyncConfig, Zero1State, is_zero_leaf,
                            resize_zero1_state)
@@ -118,7 +117,7 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
     if mp != 1 and not ep:
         raise NotImplementedError(
             f"mesh {dp}x{mp}: the model (tensor-parallel) axis is not ported "
-            f"yet (ROADMAP.md queue 1 item 13); use {dp}x1, or a MoE arch "
+            f"yet (ROADMAP.md queue 1 item 11.1); use {dp}x1, or a MoE arch "
             f"with --moe-dispatch ep")
     mode = mode or ("single" if dp * mp == 1 else "zero1")
     if ep and mode != "zero1":
@@ -150,7 +149,7 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
         world = dp
     else:
         raise NotImplementedError(f"mode {mode!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1 item 13)")
+                                  f"(ROADMAP.md queue 1 item 11.1)")
     sess = Session(cfg=cfg, mode=mode, device=dev, comm=comm, model=model,
                    opt_cfg=opt_cfg, sync=sync, built=built, pipe=pipe,
                    world=world, ep_comm=ep_comm)
@@ -250,7 +249,7 @@ def run_step(sess: Session, step: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _zero_flags(sess: Session, params: dict) -> list[bool]:
-    """Per leaf (sorted-key order): sharded at ``sess.world``?"""
+    """Per leaf (flatten order): sharded at ``sess.world``?"""
     return [sess.sync.use_zero and is_zero_leaf(tuple(p.shape), sess.world,
                                                 sess.sync.min_shard_numel)
             for p in T.leaves(params)]

@@ -108,7 +108,7 @@ def run_drill(*, arch: str = "qwen3-1.7b", scale_down: bool = True,
               io_backoff_s: float = 0.01, recovery_deadline_s: float = 600.0,
               slow_link: tuple[int, float, int] | None = None,
               compare_ref: bool = True, device="cuda",
-              verbose: bool = False) -> dict:
+              verbose: bool = False, n_layers: int | None = None) -> dict:
     """One full drill: train at ``world``, resize at the event step,
     resume to ``steps``.  Exactly one of ``shrink_at_step`` /
     ``grow_at_step`` must be given (shrink kills ``fail_rank`` → p−1;
@@ -117,7 +117,9 @@ def run_drill(*, arch: str = "qwen3-1.7b", scale_down: bool = True,
     to absorb; ``keep_last`` is the checkpoints kept.  Returns the
     trajectories, the recovery report, the reference comparison and, per
     world, the peak device memory (``peaks``, ``None`` on the CPU) and
-    the checkpoint's write and restore timings (``ckpt``)."""
+    the checkpoint's write and restore timings (``ckpt``).  ``n_layers``
+    cuts the config's depth (no CLI flag: for runs of a full-width config
+    on one card)."""
     if mp != 1:
         raise NotImplementedError(
             f"mp={mp}: the drill reshards the data axis of a dp x 1 mesh "
@@ -151,7 +153,8 @@ def run_drill(*, arch: str = "qwen3-1.7b", scale_down: bool = True,
             lr=lr, warmup=warmup, io_faults=io_faults, io_retries=io_retries,
             io_backoff_s=io_backoff_s,
             recovery_deadline_s=recovery_deadline_s, slow_link=slow_link,
-            compare_ref=compare_ref, device=device, verbose=verbose)
+            compare_ref=compare_ref, device=device, verbose=verbose,
+            n_layers=n_layers)
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -161,7 +164,7 @@ def _run_drill(*, arch, scale_down, steps, seq_len, global_batch, world,
                event_step, shrink, fail_rank, new_world, ckpt_every,
                ckpt_dir, keep_last, schedule, wire_dtype, lr, warmup,
                io_faults, io_retries, io_backoff_s, recovery_deadline_s,
-               slow_link, compare_ref, device, verbose) -> dict:
+               slow_link, compare_ref, device, verbose, n_layers) -> dict:
     events = []
     if shrink:
         events.append(FaultEvent(step=event_step, kind="rank_loss",
@@ -181,7 +184,7 @@ def _run_drill(*, arch, scale_down, steps, seq_len, global_batch, world,
             arch=arch, scale_down=scale_down, steps=steps, seq_len=seq_len,
             global_batch=global_batch, dp=w, mode="zero1",
             schedule=schedule, wire_dtype=wire_dtype, lr=lr, warmup=warmup,
-            device=device, init_state=init_state)
+            device=device, init_state=init_state, n_layers=n_layers)
 
     mgr = CheckpointManager(ckpt_dir, keep_last=keep_last)
     sess = session_at(world)

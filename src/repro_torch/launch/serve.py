@@ -16,7 +16,11 @@ replicas whose weights were fanned out through the ``kind="broadcast"``
 plan (N virtual ranks of a ``LocalComm``); ``--moe-dispatch ep`` serves
 a MoE arch expert parallel over ``--ep-devices`` virtual ranks.  Prompts
 are drawn from ``np.random.default_rng(0)``, as the reference draws
-them.
+them, and after them the encoder-decoder family's ``frames`` ``(batch,
+prompt_len, d_model)`` or the VLM's ``image_embeds`` ``(batch,
+n_image_tokens, d_model)``; those families serve one-shot on one
+replica, as in the reference (``--max-batch`` and ``--replicas`` are
+refused with them).
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import numpy as np
 import torch
 
 from ..configs import ALIASES
-from ..models.transformer import kv_bytes_per_token
 from ..serve import Scheduler
+from ..serve.engine import cache_bytes
 from . import bootstrap
 
 
@@ -77,6 +81,24 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def prompts_and_extras(cfg, batch: int, prompt_len: int):
+    """The launcher's inputs, drawn from ``default_rng(0)`` in the
+    reference's order: ``(batch, prompt_len)`` prompts, then the
+    encoder-decoder's ``frames`` ``(batch, prompt_len, d_model)`` or the
+    VLM's ``image_embeds`` ``(batch, n_image_tokens, d_model)``."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (batch, prompt_len)).astype(np.int32)
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        extras["image_embeds"] = rng.standard_normal(
+            (batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return prompts, extras
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -111,10 +133,13 @@ def main(argv=None) -> ServeRun:
               f"{args.replicas} replicas, {st['exchanges']} exchanges, "
               f"{st['seconds']:.3f} s")
 
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           (args.batch, args.prompt_len)).astype(np.int32)
-    kv_row = kv_bytes_per_token(cfg)
+    prompts, extras = prompts_and_extras(cfg, args.batch, args.prompt_len)
+    if extras and args.max_batch > 0:
+        raise SystemExit("--max-batch covers decoder-only archs (no "
+                         "prefill extras)")
+    if extras and args.replicas > 1:
+        raise SystemExit("--replicas covers decoder-only archs (batched "
+                         "prefill extras don't split)")
 
     if args.max_batch > 0:
         try:
@@ -124,7 +149,7 @@ def main(argv=None) -> ServeRun:
             raise SystemExit(str(e)) from e
         print(f"paged KV cache: {sched.kv.num_blocks} blocks of "
               f"{args.kv_block_size} rows, "
-              f"{sched.kv.num_blocks * args.kv_block_size * kv_row} bytes")
+              f"{cache_bytes([sched.kv.k, sched.kv.v])} bytes")
         t0 = time.perf_counter()
         rids = [sched.submit(prompts[b], args.max_new)
                 for b in range(args.batch)]
@@ -140,16 +165,19 @@ def main(argv=None) -> ServeRun:
             print(f"  req{r}: {done[r][:12].tolist()}")
         return ServeRun(sess, prompts, done, dt, None, sched)
 
-    gen = sess.replica_set.generate if args.replicas > 1 \
-        else sess.engine.generate
-    print(f"KV cache: {args.batch} x {max_len} rows, "
-          f"{args.batch * max_len * kv_row} bytes")
+    if args.replicas > 1:
+        gen = sess.replica_set.generate
+    else:
+        def gen(tokens, max_new):
+            return sess.engine.generate(tokens, max_new, extras=extras)
     t0 = time.perf_counter()
     out = gen(prompts, args.max_new)
     _sync(dev)
     dt = time.perf_counter() - t0
     print(f"generated {out.shape} in {dt:.2f}s "
-          f"({args.batch * args.max_new / dt:.1f} tok/s incl. warm-up)")
+          f"({args.batch * args.max_new / dt:.1f} tok/s incl. warm-up); "
+          f"cache {sess.engine.timings['cache_bytes']} bytes "
+          f"({args.batch} x {max_len} positions)")
     for b in range(min(2, args.batch)):
         print(f"  seq{b}: {out[b][:12].tolist()}")
     t0 = time.perf_counter()

@@ -43,7 +43,7 @@ restart drill: rerun with the same ``--ckpt-dir`` to resume on the same
 trajectory).  Each step's time feeds the straggler watchdog, whose
 verdict ends the step's log line.  The flags of features not ported yet
 exit with a message (``--mode fsdp_auto`` and ``--mesh`` with a model
-axis but no ``--moe-dispatch ep``: ROADMAP.md queue 1 item 13).
+axis but no ``--moe-dispatch ep``: ROADMAP.md queue 1 item 11.1).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Models of the port (the dense and MoE decoder families so far)."""
+"""Models of the port: every architecture family of the reference."""
 from .config import ModelConfig  # noqa: F401
-from .registry import (ModelApi, build, is_ep, value_and_grad,  # noqa: F401
-                       value_and_grad_ranks)
+from .registry import (ModelApi, build, is_ep, leaf_dtype,  # noqa: F401
+                       param_shapes, value_and_grad, value_and_grad_ranks)

@@ -1,13 +1,15 @@
-"""GQA self-attention for training, prefill and decode, ported from
-``repro/models/attention.py``.
+"""GQA attention for training, prefill and decode, ported from
+``repro/models/attention.py``: full, sliding-window, non-causal
+(encoder) and cross attention.
 
-qk-norm (qwen3), RoPE, the ``FLASH_THRESHOLD`` switch between the plain
-score-matrix path and chunked flash attention, and the KV cache's
-one-token decode (:func:`decode_self_attention`, one offset for the
-whole batch or one per row).  Weights keep the reference's layout:
-``wq`` (d, H, dh), ``wk``/``wv`` (d, Hkv, dh), ``wo`` (H, dh, d).  QKV
-bias (qwen1.5) and cross-attention belong to a later slice (ROADMAP.md
-queue 1 item 13).
+qk-norm (qwen3), QKV bias (qwen1.5), RoPE, the ``FLASH_THRESHOLD``
+switch between the plain score-matrix path and chunked flash attention,
+the KV cache's one-token decode (:func:`decode_self_attention`, one
+offset for the whole batch or one per row), and cross attention over a
+memory projected once (:func:`project_memory`: the encoder's output or
+image embeddings, no RoPE, no mask, no bias).  Weights keep the
+reference's layout: ``wq`` (d, H, dh), ``wk``/``wv`` (d, Hkv, dh),
+``wo`` (H, dh, d), biases ``bq`` (H, dh), ``bk``/``bv`` (Hkv, dh).
 """
 from __future__ import annotations
 
@@ -60,18 +62,42 @@ def decode_mask(s_max: int, pos: torch.Tensor, window: int = 0
     return torch.where(ok, zero, neg)[:, None, None, None, :]
 
 
+def attention_shapes(cfg: ModelConfig, *, cross: bool = False) -> dict:
+    """Shapes of one attention block's leaves (the reference's
+    ``init_attention``): a cross-attention block has no QKV bias."""
+    d, dh, h, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": (d, h, dh), "wk": (d, hkv, dh), "wv": (d, hkv, dh),
+         "wo": (h, dh, d)}
+    if cfg.qkv_bias and not cross:
+        p.update(bq=(h, dh), bk=(hkv, dh), bv=(hkv, dh))
+    if cfg.qk_norm:
+        p.update(q_norm=(dh,), k_norm=(dh,))
+    return p
+
+
 def _project_q(p: dict, cfg: ModelConfig, x, positions):
+    """Queries; RoPE unless ``positions`` is ``None`` (cross attention)."""
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
     if cfg.qk_norm:
         q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    if positions is None:
+        return q
     return apply_rope(q, positions, cfg.rope_theta)
 
 
 def _project_kv(p: dict, cfg: ModelConfig, x, positions):
+    """Keys and values; RoPE on the keys unless ``positions`` is
+    ``None`` (a cross-attention memory)."""
     k = torch.einsum("btd,dhk->bthk", x, p["wk"])
     v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
         k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if positions is None:
+        return k, v
     return apply_rope(k, positions, cfg.rope_theta), v
 
 
@@ -93,18 +119,36 @@ def sdpa(q, k, v, mask):
 
 
 def self_attention(p: dict, cfg: ModelConfig, x, positions, *,
-                   window: int = 0):
-    """Full-sequence causal self attention: ``(out, (k, v))``, the
-    projected (roped) compact GQA ``k``/``v`` seeding a prefill's cache.
-    Chunked flash attention above ``FLASH_THRESHOLD`` tokens."""
+                   causal: bool = True, window: int = 0):
+    """Full-sequence self attention, causal unless ``causal=False`` (the
+    encoder): ``(out, (k, v))``, the projected (roped) compact GQA
+    ``k``/``v`` seeding a prefill's cache.  Chunked flash attention above
+    ``FLASH_THRESHOLD`` tokens."""
     s = x.shape[1]
     q = _project_q(p, cfg, x, positions)
     k, v = _project_kv(p, cfg, x, positions)
     if s > FLASH_THRESHOLD:
-        out = flash_attention(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = sdpa(q, k, v, causal_mask(s, window, x.device))
+        mask = (causal_mask(s, window, x.device) if causal else
+                torch.zeros((), dtype=torch.float32, device=x.device))
+        out = sdpa(q, k, v, mask)
     return torch.einsum("bthk,hkd->btd", out, p["wo"]), (k, v)
+
+
+def cross_attention(p: dict, cfg: ModelConfig, x, memory_kv):
+    """``x`` (B, S, d) queries over ``memory_kv``, the ``(k, v)`` of
+    :func:`project_memory` (no RoPE, no mask)."""
+    q = _project_q(p, cfg, x, None)
+    k, v = memory_kv
+    mask = torch.zeros((), dtype=torch.float32, device=x.device)
+    return torch.einsum("bthk,hkd->btd", sdpa(q, k, v, mask), p["wo"])
+
+
+def project_memory(p: dict, cfg: ModelConfig, memory):
+    """Cross-attention ``(k, v)`` of an encoder output or image
+    embeddings, projected once (no RoPE)."""
+    return _project_kv(p, cfg, memory, None)
 
 
 def decode_self_attention(p: dict, cfg: ModelConfig, x, cache: KVCache,

@@ -1,9 +1,9 @@
 """Model configuration, ported from ``repro/models/config.py``.
 
 One ``ModelConfig`` schema for every architecture family of the
-reference (family selects the model builder in ``registry.py``); the
-port builds the ``dense`` family so far.  The dataclass is a copy of the
-reference's, so a config means the same model in both packages.
+reference (family selects the model builder in ``registry.py``).  The
+dataclass is a copy of the reference's, so a config means the same
+model in both packages.
 """
 from __future__ import annotations
 

@@ -11,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .. import tree as T
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,6 +46,40 @@ def embed_init(gen: torch.Generator, shape, dtype, device=None
     """``0.02 * N(0, 1)``."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (w * 0.02).to(dtype)
+
+
+#: leaves the reference initializes to a constant, by name.
+_CONSTANT_INIT = {"bq": 0.0, "bk": 0.0, "bv": 0.0, "dt_bias": 0.0,
+                  "i_bias": 0.0, "bias": 0.0, "gate_attn": 0.0,
+                  "gate_ffn": 0.0, "D": 1.0, "f_bias": 3.0,
+                  "f_bias_extra": 3.0}
+#: leaves whose truncated normal has a fixed std, not the fan-in's.
+_FIXED_STD = {"conv_w": 0.5, "r_h": 0.05}
+
+
+def init_leaf(gen: torch.Generator, name: str, shape, n_lead: int, dtype,
+              device=None) -> torch.Tensor:
+    """One parameter leaf by the reference's initializer for its ``name``
+    (the last key of its path); ``n_lead`` leading dims stack layers (or
+    groups), so the fan-in is that of ``shape[n_lead:]``.  Norm gains are
+    ones, biases and VLM gates zeros, Mamba's ``A_log`` is ``log(1..n)``
+    per channel, the embedding ``normal(0.02)``; every other weight is a
+    truncated normal (:func:`dense_init`)."""
+    if name == "embed":
+        return embed_init(gen, shape, dtype, device)
+    if name.startswith("norm") or name.endswith("norm"):
+        return torch.ones(shape, dtype=dtype, device=device)
+    if name in _CONSTANT_INIT:
+        return torch.full(shape, _CONSTANT_INIT[name], dtype=dtype,
+                          device=device)
+    if name == "A_log":
+        n = shape[-1]
+        row = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                     device=device))
+        return row.expand(shape).to(dtype).contiguous()
+    per_layer = shape[n_lead:]
+    return dense_init(gen, shape, dtype, fan_in=per_layer[0],
+                      std=_FIXED_STD.get(name), device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -111,3 +148,26 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
         return nll.mean()
     mask = mask.to(torch.float32)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Layer stacks
+# ---------------------------------------------------------------------------
+
+def run_layer(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward pass with ``remat`` (the
+    reference's ``jax.checkpoint`` around a layer)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def layer_slices(params: dict, key: str = "layers"):
+    """The paths of ``params[key]``'s stacked leaves and, per layer, its
+    leaves.  ``unbind``, not ``leaf[i]``: its backward stacks the L slice
+    gradients once, where indexing would zero-fill and accumulate a full
+    (L, ...) tensor per layer."""
+    layer_items = T.flatten(params[key])
+    paths = [p for p, _ in layer_items]
+    return paths, list(zip(*(leaf.unbind(0) for _, leaf in layer_items)))

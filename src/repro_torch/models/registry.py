@@ -1,6 +1,6 @@
 """Model registry, ported from ``repro/models/registry.py``: one API over
-the architecture families (dense and MoE so far), for training and
-serving."""
+every architecture family, for training and serving, and the family's
+parameter shapes and leaf dtypes."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -8,10 +8,37 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import tree as T
-from . import transformer
+from . import encdec, transformer, vlm, xlstm
 from .config import ModelConfig
 
-_FAMILY_MODULES = {"dense": transformer, "moe": transformer}
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "hybrid": transformer,
+    "ssm_xlstm": xlstm,
+    "encdec": encdec,
+    "vlm": vlm,
+}
+
+
+def family_module(cfg: ModelConfig):
+    """The module that builds ``cfg``'s family."""
+    try:
+        return _FAMILY_MODULES[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown family {cfg.family!r}; have "
+                         f"{sorted(_FAMILY_MODULES)}") from None
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes (the reference's leaves) of ``cfg``'s
+    family."""
+    return family_module(cfg).param_shapes(cfg)
+
+
+def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
+    """The dtype of the leaf at ``path`` as the reference keeps it."""
+    return family_module(cfg).leaf_dtype(cfg, path)
 
 
 class ModelApi(NamedTuple):
@@ -19,6 +46,9 @@ class ModelApi(NamedTuple):
     for a model whose ranks are coupled (expert-parallel MoE): it maps
     per-rank parameter trees and batches to per-rank losses in one
     forward over all of them; ``loss`` and ``forward_logits`` then raise.
+    ``forward_logits`` and ``prefill`` take the family's extras as
+    keywords, as the reference's do: ``frames=`` (encoder-decoder) and
+    ``image_embeds=`` (VLM).
     ``prefill`` and ``decode_step`` of such a model run every rank of its
     communicator on the same tokens with the one parameter tree (the
     reference's ``shard_map`` with every spec ``P()``): the cache is then
@@ -26,8 +56,8 @@ class ModelApi(NamedTuple):
     cfg: ModelConfig
     init: Callable            # (generator, device) -> params
     loss: Callable            # (params, batch) -> scalar
-    forward_logits: Callable  # (params, tokens) -> logits | (logits, aux)
-    prefill: Callable         # (params, tokens, max_len) -> (cache, logits)
+    forward_logits: Callable  # (params, tokens, **ex) -> logits | (lg, aux)
+    prefill: Callable         # (params, tokens, max_len, **ex) -> (cache, lg)
     decode_step: Callable     # (params, cache, token, pos) -> (cache, logits)
     loss_ranks: Callable | None = None  # ([params], [batch]) -> [scalar]
 
@@ -43,12 +73,8 @@ def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
     config exchanges over ``ep_comm`` (the model axis's communicator;
     ``use_fused_kernel`` picks its alltoall backend, ``None`` = the
     ``permute_rows`` kernel when the buffer lies on a card)."""
-    try:
-        mod = _FAMILY_MODULES[cfg.family]
-    except KeyError:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1 "
-            f"item 13)") from None
+    mod = family_module(cfg)
+
     def init(gen, device=None):
         return mod.init_params(cfg, gen, device)
 
@@ -57,10 +83,10 @@ def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
             cfg=cfg, init=init,
             loss=lambda params, batch: mod.loss_fn(params, cfg, batch,
                                                    remat),
-            forward_logits=lambda params, tokens: mod.forward_logits(
-                params, cfg, tokens, remat),
-            prefill=lambda params, tokens, max_len: mod.prefill(
-                params, cfg, tokens, max_len),
+            forward_logits=lambda params, tokens, **ex: mod.forward_logits(
+                params, cfg, tokens, remat, **ex),
+            prefill=lambda params, tokens, max_len, **ex: mod.prefill(
+                params, cfg, tokens, max_len, **ex),
             decode_step=lambda params, cache, token, pos: mod.decode_step(
                 params, cfg, cache, token, pos))
     if ep_comm is None:

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and MoE families, ported from
+"""Decoder-only LM, dense, MoE and hybrid (hymba) families, ported from
 ``repro/models/transformer.py``.
 
 Parameters keep the reference's layout: a nested dict whose layer
@@ -10,56 +10,69 @@ the layer index (the reference's ``lax.scan``) and, with ``remat``,
 recomputes each layer in the backward pass (``torch.utils.checkpoint``
 in place of ``jax.checkpoint``).  The MoE family replaces each layer's
 FFN by the ``moe`` subtree (a float32 router and stacked expert weights)
-and adds the layers' load-balancing aux losses to the loss.  Its
+and adds the layers' load-balancing aux losses to the loss.  The hybrid
+family (hymba) runs attention heads and Mamba heads in parallel on the
+same normed input and mixes them through per-branch RMS norms
+(``norm_attn_out``, ``norm_ssm_out``); its attention is a sliding window
+except on ``global_attn_layers``.  The reference unrolls those layers
+and scans the runs between them (``_hybrid_runs``) to keep each window
+static; here every layer runs in a loop anyway, so each takes its
+window from its index.  QKV bias (qwen1.5) is the attention's
+``bq``/``bk``/``bv``.  The MoE family's
 expert-parallel form (``moe_dispatch="ep"``) runs every layer for all of
 a communicator's local ranks together (:func:`loss_fn_ep`): attention per
 rank, then one MoE exchange across them, each layer one checkpoint around
 all ranks.  The cache paths serve: :func:`prefill` runs a prompt and
-fills an ``(L, B, max_len, Hkv, dh)`` KV cache (:func:`init_cache`),
-returning the last token's logits only, and :func:`decode_step` runs one
-token per row at one offset or at a per-row offset, writing its k/v
+fills an ``(L, B, max_len, Hkv, dh)`` KV cache (:func:`init_cache`; the
+hybrid family's also holds each layer's ``MambaState``), returning the
+last token's logits only, and :func:`decode_step` runs one token per row
+at one offset or at a per-row offset, writing its k/v (and Mamba state)
 into the cache in place.  Their expert-parallel forms
 (:func:`prefill_ep`, :func:`decode_step_ep`) run every local rank of a
 communicator on the same tokens, each layer's MoE exchange across them.
-The hybrid family is not ported yet (ROADMAP.md queue 1 item 13).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from .. import tree as T
 from . import attention as attn
+from . import ssm
 from .config import ModelConfig
-from .layers import (cross_entropy_loss, dense_init, dtype_of, embed_init, ffn,
-                     rmsnorm)
+from .layers import (cross_entropy_loss, dtype_of, ffn, init_leaf,
+                     layer_slices, rmsnorm, run_layer)
 from .moe import init_moe, moe_ffn, moe_ffn_ep, moe_shapes
+
+FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe") or cfg.is_moe != (
-            cfg.family == "moe") or cfg.qkv_bias):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families without QKV bias "
-            f"are ported yet (ROADMAP.md queue 1 item 13)")
+    if cfg.family not in FAMILIES or cfg.is_moe != (cfg.family == "moe"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} with "
+                         f"{cfg.n_experts} experts is not a decoder-only "
+                         f"family of this module {FAMILIES}")
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes (the reference's leaves)."""
     _check_family(cfg)
-    L, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
-    h, hkv = cfg.n_heads, cfg.n_kv_heads
-    attn_p = {"wq": (L, d, h, dh), "wk": (L, d, hkv, dh),
-              "wv": (L, d, hkv, dh), "wo": (L, h, dh, d)}
-    if cfg.qk_norm:
-        attn_p.update(q_norm=(L, dh), k_norm=(L, dh))
-    layers = {"norm1": (L, d), "norm2": (L, d), "attn": attn_p}
+    L, d = cfg.n_layers, cfg.d_model
+
+    def stack(shapes: dict) -> dict:
+        return {k: (L, *v) for k, v in shapes.items()}
+
+    layers = {"norm1": (L, d), "norm2": (L, d),
+              "attn": stack(attn.attention_shapes(cfg))}
+    if cfg.family == "hybrid":
+        layers.update(mamba=stack(ssm.mamba_shapes(cfg)),
+                      norm_attn_out=(L, d), norm_ssm_out=(L, d))
     if cfg.is_moe:
-        layers["moe"] = {k: (L, *v) for k, v in moe_shapes(cfg).items()}
-    else:
-        layers["ffn"] = {"w_gate": (L, d, cfg.d_ff), "w_up": (L, d, cfg.d_ff),
-                         "w_down": (L, cfg.d_ff, d)}
+        layers["moe"] = stack(moe_shapes(cfg))
+    elif cfg.d_ff > 0:
+        layers["ffn"] = stack({"w_gate": (d, cfg.d_ff),
+                               "w_up": (d, cfg.d_ff),
+                               "w_down": (cfg.d_ff, d)})
     shapes = {"embed": (cfg.vocab_size, d), "layers": layers,
               "final_norm": (d,)}
     if not cfg.tie_embeddings:
@@ -74,42 +87,57 @@ def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
-    """Random parameters from ``gen`` (on ``gen``'s device): truncated-normal
-    fan-in weights (fan-in of the per-layer shape), ``normal(0.02)``
-    embedding, ones for norm gains — the reference's initializers."""
+    """Random parameters from ``gen`` (on ``gen``'s device), each leaf by
+    the reference's initializer for its name (:func:`layers.init_leaf`;
+    fan-in of the per-layer shape)."""
     dtype = dtype_of(cfg)
     out: dict = {}
     for path, shape in T.flatten(param_shapes(cfg)):
-        name = path[-1]
         if path[:2] == ("layers", "moe"):
             continue  # init_moe below
-        if name == "embed":
-            val = embed_init(gen, shape, dtype, device)
-        elif name.startswith("norm") or name.endswith("norm"):
-            val = torch.ones(shape, dtype=dtype, device=device)
-        else:
-            per_layer = shape[1:] if path[0] == "layers" else shape
-            val = dense_init(gen, shape, dtype, fan_in=per_layer[0],
-                             device=device)
-        T.assign(out, path, val)
+        T.assign(out, path, init_leaf(gen, path[-1], shape,
+                                      int(path[0] == "layers"), dtype,
+                                      device))
     if cfg.is_moe:
         out["layers"]["moe"] = init_moe(gen, cfg, dtype, device,
                                         n_layers=cfg.n_layers)
     return out
 
 
-def _attention_block(cfg: ModelConfig, lp: dict, x, positions):
-    """``(x + attention, (k, v))``."""
+def _window(cfg: ModelConfig, i: int) -> int:
+    """Layer ``i``'s attention window (0: full): the hybrid family's
+    global layers attend over everything."""
+    if cfg.family == "hybrid" and i in cfg.global_attn_layers:
+        return 0
+    return cfg.sliding_window
+
+
+def _mixer_block(cfg: ModelConfig, lp: dict, x, positions, i: int):
+    """``(x + mixer, (k, v), MambaState | None)``: attention, and for the
+    hybrid family Mamba heads on the same normed input, mixed 50/50
+    after their own norms."""
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
     a, kv = attn.self_attention(lp["attn"], cfg, h, positions,
-                                window=cfg.sliding_window)
-    return x + a, kv
+                                window=_window(cfg, i))
+    if cfg.family != "hybrid":
+        return x + a, kv, None
+    m, mstate = ssm.mamba_forward(
+        lp["mamba"], cfg, h, chunk=min(cfg.mlstm_chunk, h.shape[1]))
+    return x + _hybrid_mix(cfg, lp, a, m), kv, mstate
 
 
-def _layer_forward(cfg: ModelConfig, paths, x, positions, *leaves):
-    """One layer: ``x`` for the dense family, ``(x, aux)`` for MoE."""
+def _hybrid_mix(cfg: ModelConfig, lp: dict, a, m):
+    return 0.5 * (rmsnorm(a, lp["norm_attn_out"], cfg.norm_eps)
+                  + rmsnorm(m, lp["norm_ssm_out"], cfg.norm_eps))
+
+
+def _layer_forward(cfg: ModelConfig, paths, i: int, x, positions, *leaves):
+    """Layer ``i``: ``x`` for the dense and hybrid families, ``(x, aux)``
+    for MoE."""
     lp = T.unflatten(zip(paths, leaves))
-    x, _ = _attention_block(cfg, lp, x, positions)
+    x, _, _ = _mixer_block(cfg, lp, x, positions, i)
+    if cfg.d_ff == 0 and not cfg.is_moe:
+        return x
     h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
     if cfg.is_moe:
         y, aux = moe_ffn(lp["moe"], cfg, h)
@@ -117,27 +145,10 @@ def _layer_forward(cfg: ModelConfig, paths, x, positions, *leaves):
     return x + ffn(lp["ffn"], h)
 
 
-def _run_layer(fn, remat: bool, *args):
-    if remat:
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    return fn(*args)
-
-
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     b, s = tokens.shape
     x = F.embedding(tokens.long(), params["embed"]).to(dtype_of(cfg))
     return x, torch.arange(s, device=x.device).expand(b, s)
-
-
-def _layer_slices(params: dict):
-    """Layer paths and, per layer, its leaves.  ``unbind``, not
-    ``leaf[i]``: its backward stacks the L slice gradients once, where
-    indexing would zero-fill and accumulate a full (L, ...) tensor per
-    layer."""
-    layer_items = T.flatten(params["layers"])
-    paths = [p for p, _ in layer_items]
-    return paths, list(zip(*(leaf.unbind(0) for _, leaf in layer_items)))
 
 
 def _head(params: dict, cfg: ModelConfig, x):
@@ -152,11 +163,11 @@ def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for the MoE family the summed aux loss: ``(logits, aux)``."""
     _check_family(cfg)
     x, positions = _embed(params, cfg, tokens)
-    paths, per_layer = _layer_slices(params)
+    paths, per_layer = layer_slices(params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        out = _run_layer(_layer_forward, remat, cfg, paths, x, positions,
-                         *per_layer[i])
+        out = run_layer(_layer_forward, remat, cfg, paths, i, x, positions,
+                        *per_layer[i])
         if cfg.is_moe:
             x, a = out
             aux = aux + a
@@ -185,6 +196,8 @@ def _ffn_ranks(cfg: ModelConfig, lps: list, xs: list, comm, fused):
     expert-parallel MoE exchanges across its ranks, else each rank runs
     its FFN (dense, or MoE with a single-pool dispatch) alone.  Returns
     the ranks' outputs and their aux losses (``None`` for dense)."""
+    if not cfg.is_moe and cfg.d_ff == 0:
+        return xs, None
     hs = [rmsnorm(x, lp["norm2"], cfg.norm_eps) for lp, x in zip(lps, xs)]
     auxs = None
     if comm is not None:
@@ -198,9 +211,9 @@ def _ffn_ranks(cfg: ModelConfig, lps: list, xs: list, comm, fused):
     return [x + y for x, y in zip(xs, ys)], auxs
 
 
-def _ep_layer_forward(cfg: ModelConfig, paths, positions, comm, fused,
-                      *args):
-    """One MoE layer for all local ranks: ``args`` is the ranks' inputs,
+def _ep_layer_forward(cfg: ModelConfig, paths, i: int, positions, comm,
+                      fused, *args):
+    """MoE layer ``i`` for all local ranks: ``args`` is the ranks' inputs,
     then each rank's layer leaves in ``paths`` order.  Returns the ranks'
     outputs, then their aux losses."""
     nr = len(positions)
@@ -208,8 +221,8 @@ def _ep_layer_forward(cfg: ModelConfig, paths, positions, comm, fused,
     n = len(paths)
     lps = [T.unflatten(zip(paths, leaves[i * n:(i + 1) * n]))
            for i in range(nr)]
-    for i in range(nr):
-        xs[i], _ = _attention_block(cfg, lps[i], xs[i], positions[i])
+    for r in range(nr):
+        xs[r], _, _ = _mixer_block(cfg, lps[r], xs[r], positions[r], i)
     xs, auxs = _ffn_ranks(cfg, lps, xs, comm, fused)
     return (*xs, *auxs)
 
@@ -229,14 +242,14 @@ def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
     embedded = [_embed(p, cfg, b["tokens"]) for p, b in zip(params, batches)]
     xs = [x for x, _ in embedded]
     positions = [pos for _, pos in embedded]
-    slices = [_layer_slices(p) for p in params]
+    slices = [layer_slices(p) for p in params]
     paths = slices[0][0]
     nr = len(params)
     auxs = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
     for i in range(cfg.n_layers):
         leaves = [leaf for _, per_layer in slices for leaf in per_layer[i]]
-        out = _run_layer(_ep_layer_forward, remat, cfg, paths, positions,
-                         comm, use_fused_kernel, *xs, *leaves)
+        out = run_layer(_ep_layer_forward, remat, cfg, paths, i, positions,
+                        comm, use_fused_kernel, *xs, *leaves)
         xs = list(out[:nr])
         auxs = [a + b for a, b in zip(auxs, out[nr:])]
     return [cross_entropy_loss(_head(p, cfg, x), b["targets"], b.get("mask"))
@@ -251,11 +264,19 @@ def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """A zeroed KV cache: ``{"k", "v"}``, each ``(L, batch, max_len, Hkv,
-    dh)`` in the parameter dtype."""
+    dh)`` in the parameter dtype (every layer at ``max_len``, the hybrid
+    family's windowed ones too, as the reference sizes them), and for
+    the hybrid family ``"mamba"``, a ``MambaState`` stacked over
+    layers."""
     _check_family(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
-            for name in ("k", "v")}
+    cache = {name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+             for name in ("k", "v")}
+    if cfg.family == "hybrid":
+        cache["mamba"] = ssm.MambaState(*(
+            torch.stack([t] * cfg.n_layers) for t in ssm.mamba_init_state(
+                cfg, batch, dtype_of(cfg), device)))
+    return cache
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
@@ -264,12 +285,18 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
             * torch.empty((), dtype=dtype_of(cfg)).element_size())
 
 
+def _write_mamba(cache: dict, i: int, state) -> None:
+    """Layer ``i``'s Mamba state into the stacked cache, in place."""
+    for dst, src in zip(cache["mamba"], state):
+        dst[i].copy_(src)
+
+
 def _rank_layers(params: list) -> list:
     """Per rank, its per-layer parameter trees (views of the stacked
     leaves)."""
     out = []
     for p in params:
-        paths, per_layer = _layer_slices(p)
+        paths, per_layer = layer_slices(p)
         out.append([T.unflatten(zip(paths, leaves)) for leaves in per_layer])
     return out
 
@@ -287,9 +314,12 @@ def _prefill_ranks(params: list, cfg: ModelConfig, tokens: list,
     for i in range(cfg.n_layers):
         lps = [per_rank[i] for per_rank in layers]
         for r, (_, positions) in enumerate(embedded):
-            xs[r], (k, v) = _attention_block(cfg, lps[r], xs[r], positions)
+            xs[r], (k, v), mstate = _mixer_block(cfg, lps[r], xs[r],
+                                                 positions, i)
             caches[r]["k"][i, :, :s] = k
             caches[r]["v"][i, :, :s] = v
+            if mstate is not None:
+                _write_mamba(caches[r], i, mstate)
         xs, _ = _ffn_ranks(cfg, lps, xs, comm, fused)
     # The last token's logits only: (B, S, V) would be 5 GB of bf16 at
     # batch 8 x 2048 x 151936.
@@ -311,7 +341,13 @@ def _decode_ranks(params: list, cfg: ModelConfig, caches: list,
             h = rmsnorm(xs[r], lps[r]["norm1"], cfg.norm_eps)
             a, _ = attn.decode_self_attention(
                 lps[r]["attn"], cfg, h, attn.KVCache(c["k"][i], c["v"][i]),
-                pos, cfg.sliding_window)
+                pos, _window(cfg, i))
+            if cfg.family == "hybrid":
+                m, mstate = ssm.mamba_decode_step(
+                    lps[r]["mamba"], cfg, h,
+                    ssm.MambaState(*(t[i] for t in c["mamba"])))
+                _write_mamba(c, i, mstate)
+                a = _hybrid_mix(cfg, lps[r], a, m)
             xs[r] = xs[r] + a
         xs, _ = _ffn_ranks(cfg, lps, xs, comm, fused)
     return caches, [_head(p, cfg, x[:, 0]) for p, x in zip(params, xs)]
@@ -330,8 +366,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params: dict, cfg: ModelConfig, cache: dict, token, pos):
     """One token per row: ``token`` (B,), ``pos`` a scalar (the whole batch
     at one offset) or ``(B,)`` (per-row offsets, continuous batching).
-    Writes the token's k/v into ``cache`` in place; returns ``(cache,
-    logits (B, V))``."""
+    Writes the token's k/v (and Mamba state) into ``cache`` in place;
+    returns ``(cache, logits (B, V))``."""
     _check_family(cfg)
     caches, logits = _decode_ranks([params], cfg, [cache], [token], pos)
     return caches[0], logits[0]

@@ -1,0 +1,106 @@
+"""xLSTM LM, ported from ``repro/models/xlstm.py``: alternating mLSTM
+(even layers, chunkwise parallel) and sLSTM (odd layers, a true
+recurrence) blocks with residuals and no FFN (``d_ff = 0``).
+
+The layers are heterogeneous, so ``params["layers"]`` is a LIST of
+per-layer dicts (``{"norm", "mixer"}``), not stacked leaves: the tree
+flattens it by index, as JAX does.  The cache is a list of per-layer
+states (``MLSTMState`` / ``SLSTMState``), O(1) in the sequence length;
+:func:`decode_step` returns new states (the reference's).  The reference
+applies no remat to this family; neither does the port.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import tree as T
+from . import ssm
+from .config import ModelConfig
+from .layers import cross_entropy_loss, dtype_of, init_leaf, rmsnorm
+
+
+def _is_mlstm(i: int) -> bool:
+    return i % 2 == 0
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes (the reference's leaves)."""
+    d = cfg.d_model
+    layers = [{"norm": (d,), "mixer": (ssm.mlstm_shapes(cfg) if _is_mlstm(i)
+                                       else ssm.slstm_shapes(cfg))}
+              for i in range(cfg.n_layers)]
+    return {"embed": (cfg.vocab_size, d), "layers": layers,
+            "final_norm": (d,), "lm_head": (d, cfg.vocab_size)}
+
+
+def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
+    return dtype_of(cfg)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+    """Random parameters from ``gen``, each leaf by the reference's
+    initializer for its name (:func:`layers.init_leaf`)."""
+    dtype = dtype_of(cfg)
+    return T.unflatten(
+        (path, init_leaf(gen, path[-1], shape, 0, dtype, device))
+        for path, shape in T.flatten(param_shapes(cfg)))
+
+
+def _forward(params, cfg, x, states=None):
+    new_states = []
+    for i, lp in enumerate(params["layers"]):
+        h = rmsnorm(x, lp["norm"], cfg.norm_eps)
+        st = states[i] if states is not None else None
+        mixer = ssm.mlstm_forward if _is_mlstm(i) else ssm.slstm_forward
+        y, ns = mixer(lp["mixer"], cfg, h, state=st)
+        x = x + y
+        new_states.append(ns)
+    return x, new_states
+
+
+def _embed(params, cfg, tokens):
+    return F.embedding(tokens.long(), params["embed"]).to(dtype_of(cfg))
+
+
+def _head(params, cfg, x):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def forward_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   remat: bool = True):
+    """(B, S) token ids to (B, S, V) logits."""
+    x, _ = _forward(params, cfg, _embed(params, cfg, tokens))
+    return _head(params, cfg, x)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            remat: bool = True) -> torch.Tensor:
+    return cross_entropy_loss(forward_logits(params, cfg, batch["tokens"]),
+                              batch["targets"], batch.get("mask"))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> list:
+    """Zero states, one per layer (``max_len`` is unused: O(1) state)."""
+    return [ssm.mlstm_init_state(cfg, batch, device) if _is_mlstm(i)
+            else ssm.slstm_init_state(cfg, batch, device)
+            for i in range(cfg.n_layers)]
+
+
+@torch.no_grad()
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int):
+    """``(states, logits (B, V))`` of the last prompt token."""
+    x, states = _forward(params, cfg, _embed(params, cfg, tokens))
+    return states, _head(params, cfg, x[:, -1])
+
+
+@torch.no_grad()
+def decode_step(params: dict, cfg: ModelConfig, cache: list, token, pos):
+    """One token per row (``pos`` is unused: the states carry it)."""
+    dev = params["embed"].device
+    x = _embed(params, cfg, torch.as_tensor(token, device=dev))[:, None]
+    x, states = _forward(params, cfg, x, states=cache)
+    return states, _head(params, cfg, x[:, 0])

@@ -47,6 +47,16 @@ def eos_done_mask(nxt: torch.Tensor, done: torch.Tensor, eos_id):
     return nxt, done
 
 
+def cache_bytes(cache) -> int:
+    """Bytes of the tensors in a cache: a dict or list of tensors or of
+    state tuples (xLSTM's per-layer states, the hybrid's Mamba state)."""
+    if isinstance(cache, torch.Tensor):
+        return cache.numel() * cache.element_size()
+    if isinstance(cache, dict):
+        cache = list(cache.values())
+    return sum(cache_bytes(x) for x in cache)
+
+
 def params_device(params) -> torch.device:
     """The device a parameter tree lies on."""
     return T.leaves(params)[0].device
@@ -60,7 +70,7 @@ class ServeEngine:
     ``ttft_s`` from the call to the first token on the host, ``step_s``
     between consecutive tokens on the host (each a decode step and a
     sample; every token is read back, so each interval ends in a device
-    sync)."""
+    sync); and ``cache_bytes``, the size of its cache or state."""
 
     model: ModelApi
     params: Any
@@ -69,12 +79,13 @@ class ServeEngine:
     timings: dict = field(default_factory=dict)
 
     def prefill_fn(self, params, tokens: torch.Tensor, extras=None):
-        """``(cache, last-token logits)`` of a ``(B, S)`` prompt."""
-        if extras:
-            raise NotImplementedError(
-                "prefill extras (encoder frames, image embeddings) belong "
-                "to families not ported yet (ROADMAP.md queue 1 item 13)")
-        return self.model.prefill(params, tokens, self.max_len)
+        """``(cache, last-token logits)`` of a ``(B, S)`` prompt; ``extras``
+        (``frames``, ``image_embeds``: arrays or tensors) go to the
+        model's prefill on the parameters' device."""
+        dev = params_device(params)
+        ex = {k: torch.as_tensor(v, device=dev)
+              for k, v in (extras or {}).items()}
+        return self.model.prefill(params, tokens, self.max_len, **ex)
 
     def decode_fn(self, params, cache, token: torch.Tensor, pos):
         """``(cache, logits)`` of one decode step (the cache is written in
@@ -123,5 +134,6 @@ class ServeEngine:
                 break
             cache, logits = self.decode_fn(self.params, cache, nxt, s + i)
         self.timings = {"ttft_s": stamps[0] - t0 if stamps else None,
-                        "step_s": list(np.diff(stamps))}
+                        "step_s": list(np.diff(stamps)),
+                        "cache_bytes": cache_bytes(cache)}
         return np.stack(out, axis=1)

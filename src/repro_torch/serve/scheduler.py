@@ -150,6 +150,9 @@ class Scheduler:
             cache, logits = self.engine.prefill_fn(
                 self.engine.params,
                 torch.as_tensor(req.tokens[None], device=self.device))
+            if not isinstance(cache, dict) or set(cache) != {"k", "v"}:
+                raise NotImplementedError(
+                    "paged scheduler covers attention-family caches only")
             self.kv.write_prefill(
                 blocks, {"k": cache["k"][:, 0], "v": cache["v"][:, 0]})
             del cache

@@ -24,8 +24,8 @@ from typing import Any, Callable
 from .. import tree as T
 from ..analysis.verify import assert_verified
 from ..core.plan import plan
-from ..models import ModelApi, is_ep, value_and_grad, value_and_grad_ranks
-from ..models.transformer import param_shapes
+from ..models import (ModelApi, is_ep, param_shapes, value_and_grad,
+                      value_and_grad_ranks)
 from ..optim.adamw import AdamWConfig, init_tree_state, lr_at, update_tree
 from ..optim.zero1 import (GradSyncConfig, init_zero1_state, is_zero_leaf,
                            plan_grad_buckets, zero1_step)

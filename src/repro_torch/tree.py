@@ -1,10 +1,12 @@
-"""Nested-dict parameter trees, flattened in the JAX package's leaf order.
+"""Nested parameter trees, flattened in the JAX package's leaf order.
 
 The port keeps the reference's parameter layout at every public boundary:
-a dict of dicts whose leaves are tensors (or numpy arrays).  JAX
-flattens a dict by sorted key, and so do these helpers, so a leaf index
-means the same leaf in both packages and sums over leaves run in the same
-order.
+dicts and lists whose leaves are tensors (or numpy arrays).  JAX
+flattens a dict by sorted key and a list by index (0, 1, 2, ..., 10,
+11: not the string order 0, 1, 10, 11, 2), and so do these helpers, so
+a leaf index means the same leaf in both packages and sums over leaves
+run in the same order.  A path is a tuple of keys: a ``str`` for a dict
+entry, an ``int`` for a list entry (xLSTM's ``params["layers"]``).
 """
 from __future__ import annotations
 
@@ -12,11 +14,12 @@ from typing import Any, Callable
 
 import torch
 
-Path = tuple[str, ...]
+Path = tuple[str | int, ...]
 
 
-def flatten(tree: dict) -> list[tuple[Path, Any]]:
-    """``[(path, leaf), ...]`` in sorted-key (JAX) order."""
+def flatten(tree) -> list[tuple[Path, Any]]:
+    """``[(path, leaf), ...]`` in JAX's order: dicts by sorted key, lists
+    by index."""
     out: list[tuple[Path, Any]] = []
     _walk(tree, (), out)
     return out
@@ -29,12 +32,15 @@ def _walk(node, prefix: Path, out: list) -> None:
     if isinstance(node, dict):
         for k in sorted(node):
             _walk(node[k], prefix + (k,), out)
+    elif isinstance(node, list):
+        for i, child in enumerate(node):
+            _walk(child, prefix + (i,), out)
     else:
         out.append((prefix, node))
 
 
-def leaves(tree: dict) -> list:
-    """The leaves of ``tree`` in sorted-key (JAX) order."""
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's order."""
     return [leaf for _, leaf in flatten(tree)]
 
 
@@ -46,7 +52,7 @@ def unflatten(items) -> dict:
     return root
 
 
-def get(tree: dict, path: Path):
+def get(tree, path: Path):
     """The leaf at ``path``."""
     node = tree
     for k in path:
@@ -54,15 +60,29 @@ def get(tree: dict, path: Path):
     return node
 
 
-def assign(tree: dict, path: Path, value) -> None:
-    """Set the leaf at ``path`` (creating inner dicts as needed)."""
+def assign(tree, path: Path, value) -> None:
+    """Set the leaf at ``path``, creating inner nodes as needed: a list
+    where the next key is an ``int``, else a dict."""
     node = tree
-    for k in path[:-1]:
-        node = node.setdefault(k, {})
+    for k, nxt in zip(path[:-1], path[1:]):
+        node = _child(node, k, [] if isinstance(nxt, int) else {})
+    if isinstance(node, list):
+        node.extend([None] * (path[-1] + 1 - len(node)))
     node[path[-1]] = value
 
 
-def map_leaves(fn: Callable, tree: dict) -> dict:
+def _child(node, k, empty):
+    """``node[k]``, set to ``empty`` first when missing (a list grows to
+    hold index ``k``)."""
+    if isinstance(node, list):
+        node.extend([None] * (k + 1 - len(node)))
+        if node[k] is None:
+            node[k] = empty
+        return node[k]
+    return node.setdefault(k, empty)
+
+
+def map_leaves(fn: Callable, tree):
     """A tree of the same structure with ``fn`` applied to every leaf."""
     return unflatten((path, fn(leaf)) for path, leaf in flatten(tree))
 

@@ -17,7 +17,8 @@ sync.  Writes ``<out.npz>``: the initial parameters (``init/<path>``),
 and for each run its per-step losses and the parameters after the last
 step: ``losses`` / ``final/<path>`` (exact), ``int8_``, ``bf16_``,
 ``bucket_``, ``bucket_int8_``, ``ring_``, ``xla_``, ``allreduce_``,
-``p2_`` and ``p4_`` prefixed likewise.
+``p2_`` and ``p4_`` prefixed likewise.  ``train`` is also the recipe of
+``_torch_zero1_archs_ref.py`` (the other architecture families).
 
 Run: python tests/_torch_zero1_ref.py <out.npz>
 """
@@ -61,8 +62,13 @@ RUNS = (("", 3, {}),
         ("p4_", 4, {}))
 
 
+def _key(k):
+    """A path key as text: a dict key, or a list index."""
+    return str(k.idx) if isinstance(k, jax.tree_util.SequenceKey) else k.key
+
+
 def _flat(prefix, tree):
-    return {prefix + "/".join(k.key for k in path): np.asarray(leaf)
+    return {prefix + "/".join(_key(k) for k in path): np.asarray(leaf)
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
@@ -80,8 +86,8 @@ def main(dst):
     np.savez(dst, **out)
 
 
-def train(model, cfg, params, sync, world):
-    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=STEPS)
+def train(model, cfg, params, sync, world, steps=STEPS):
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=steps)
     mesh = compat.make_mesh((world,), ("data",),
                             devices=jax.devices()[:world])
 
@@ -91,15 +97,15 @@ def train(model, cfg, params, sync, world):
 
     pspec = jax.tree.map(lambda _: P(), params)
     ospec = zero1_state_specs(params, world, sync, ("data",))
-    bspec = {"tokens": P("data"), "targets": P("data")}
+    pipe = for_model(cfg, seq_len=SEQ, global_batch=world)
+    bspec = {k: P("data") for k in pipe.batch_at(0)}
     step = jax.jit(compat.shard_map(
         inner, mesh=mesh, in_specs=(pspec, ospec, bspec),
         out_specs=(pspec, ospec, {"loss": P(), "grad_norm": P(), "lr": P()}),
         check_vma=False))
     opt = init_zero1_state(params, world, sync)
-    pipe = for_model(cfg, seq_len=SEQ, global_batch=world)
     losses = []
-    for s in range(STEPS):
+    for s in range(steps):
         batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(s).items()}
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))

@@ -6,7 +6,8 @@ training) on the port's manager and model, and its on-disk layout held
 against the reference manager's.
 
 The layout tests save the same converted qwen3-1.7b scaled-down
-parameters (float32, and cast to bfloat16) through both managers: the
+parameters, and those of the 12-layer xLSTM (whose ``layers`` is a
+list), float32 and cast to bfloat16, through both managers: the
 ``arrays.npz`` files must hold the same ``p_*`` / ``opt_*`` keys, shapes,
 dtypes and bytes (a bfloat16 leaf is two raw bytes per element, ``V2``,
 in both), the manifests the same fields and values, and each manager
@@ -223,7 +224,35 @@ def shared_params():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_layout_matches_reference_manager(tmp_path, shared_params, dtype):
-    cfg = get_config("qwen3-1.7b").scaled_down(dtype=dtype)
+    _check_layout(tmp_path, shared_params, "qwen3-1.7b", {}, dtype)
+
+
+@pytest.fixture(scope="module")
+def xlstm_params():
+    """xlstm-125m scaled down at 12 layers (``params["layers"]`` a list
+    of 12: JAX's index order 0, 1, 2, ..., 10, 11): the reference's
+    parameter tree (``jax.eval_shape`` of its init) filled from a seeded
+    numpy generator."""
+    model = ref_build(ref_config("xlstm-125m").scaled_down(n_layers=12),
+                      recipe=None)
+    rng = np.random.default_rng(0)
+    return jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(s.dtype),
+        jax.eval_shape(model.init, jax.random.PRNGKey(0)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_list_tree_layout_matches_reference_manager(tmp_path, xlstm_params,
+                                                    dtype):
+    """A tree with a list node (the xLSTM's layers): the same ``p_<i>``
+    order, bytes and manifest (``treedef`` included) as the reference
+    manager's, and each reads the other's back."""
+    _check_layout(tmp_path, xlstm_params, "xlstm-125m", dict(n_layers=12),
+                  dtype)
+
+
+def _check_layout(tmp_path, shared_params, arch, overrides, dtype):
+    cfg = get_config(arch).scaled_down(dtype=dtype, **overrides)
     port_params = params_from_numpy(shared_params, cfg)
     ref_params = jax.tree.map(
         lambda a, t: jnp.asarray(a, jnp.bfloat16 if t.dtype == torch.bfloat16
@@ -231,7 +260,7 @@ def test_layout_matches_reference_manager(tmp_path, shared_params, dtype):
         shared_params, port_params)
     opt = {"leaf_0": np.arange(12.0, dtype=np.float32).reshape(3, 4),
            "leaf_1": np.int32(5)}
-    extra = {"data_cursor": 5, "world": 3, "arch": "qwen3-1.7b"}
+    extra = {"data_cursor": 5, "world": 3, "arch": arch}
     CheckpointManager(str(tmp_path / "port")).save(5, port_params, opt,
                                                    extra)
     RefManager(str(tmp_path / "ref")).save(5, ref_params, opt, extra)

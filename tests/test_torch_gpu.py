@@ -383,3 +383,68 @@ def test_ep_decode_kernel_on_and_off_on_the_card():
     off = ServeEngine(build(sess.cfg, remat=False, ep_comm=sess.ep_comm,
                             use_fused_kernel=False), sess.params, 16)
     np.testing.assert_array_equal(off.generate(prompts, 6), on)
+
+
+def _zero_leaf_rounds(arch: str, p: int = 3):
+    """``(leaf, lo, nb, next_lo, cols, wire_cols, g)`` of every
+    reduce-scatter round of ``arch``'s full-width zero leaves at ``p``
+    ranks: the columns of one block and, on the int8 wire, the same padded
+    to whole groups of ``g = min(DEFAULT_GROUP, cols)``."""
+    import math
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import reduce_scatter_plan
+    from repro_torch.kernels import DEFAULT_GROUP
+    from repro_torch.models import param_shapes
+    from repro_torch.optim.zero1 import GradSyncConfig, is_zero_leaf
+    rounds = reduce_scatter_plan(p)
+    out = []
+    for path, shape in T.flatten(param_shapes(get_config(arch))):
+        if not is_zero_leaf(shape, p, GradSyncConfig().min_shard_numel):
+            continue
+        cols = (shape[0] + (-shape[0]) % p) // p * math.prod(shape[1:])
+        g = min(DEFAULT_GROUP, cols)
+        for k, rnd in enumerate(rounds):
+            nxt = rounds[k + 1].lo if k + 1 < len(rounds) else rnd.lo
+            out.append((".".join(map(str, path)), rnd.lo, rnd.nblocks, nxt,
+                        cols, -(-cols // g) * g, g))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-125m",
+                                  "whisper-small"])
+def test_zero1_kernels_at_other_families_leaf_shapes(arch):
+    """``fused_round``, ``quantize`` and ``fused_round_dq`` bitwise their
+    plain versions at every round shape of the full-width zero leaves of
+    the hybrid, xLSTM and encoder-decoder families at p = 3 (Mamba's
+    ``(32, 3200, 1)`` ``w_dt``, the xLSTM's per-layer leaves, Whisper's
+    encoder and decoder stacks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for leaf, lo, nb, nxt, cols, wcols, g in _zero_leaf_rounds(arch):
+        live = torch.randn((lo, cols), device="cuda", generator=gen)
+        recv = torch.randn((nb, cols), device="cuda", generator=gen)
+        got = fused_round(live, recv, nb=nb, next_lo=nxt)
+        want = ref.fused_round_ref(live, recv, nb=nb, next_lo=nxt)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None), leaf
+            assert a is None or _same_bits(a, b.contiguous()), leaf
+        live = torch.randn((lo, wcols), device="cuda", generator=gen)
+        x = torch.randn((nb, wcols), device="cuda", generator=gen) * 3
+        codes, scales = quantize(x, group=g)
+        want = ref.quantize_ref(x, group=g)
+        assert _same_bits(codes, want[0]) and _same_bits(scales, want[1]), \
+            leaf
+        codes = codes.contiguous()
+        keep, send = fused_round_dq(live, codes, scales, nb=nb, next_lo=nxt,
+                                    group=g)
+        wk, ws = ref.fused_round_dq_ref(live, codes, scales, nb=nb,
+                                        next_lo=nxt, group=g)
+        assert _same_bits(keep, wk), leaf
+        assert (send is None) == (ws is None), leaf
+        if send is not None:
+            assert _same_bits(send[0], ws[0]) and _same_bits(send[1], ws[1])
+        del live, recv, x, codes, scales, keep, send

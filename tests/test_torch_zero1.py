@@ -110,10 +110,10 @@ BUCKET = 30_000
 
 
 def _train(init, mode, fused=None, wire=None, rs_dtype="float32", dp=None,
-           **kw):
+           arch="qwen3-1.7b", steps=STEPS, **kw):
     dp = dp or (3 if mode == "zero1" else 1)
     sess = bootstrap.build_session(
-        arch="qwen3-1.7b", scale_down=True, steps=STEPS, seq_len=16,
+        arch=arch, scale_down=True, steps=steps, seq_len=16,
         global_batch=dp if mode == "zero1" else 3, dp=dp, mode=mode,
         use_fused_kernel=fused, wire_dtype=wire, device="cpu",
         init_state=False, **kw)
@@ -127,14 +127,15 @@ def _train(init, mode, fused=None, wire=None, rs_dtype="float32", dp=None,
                    if mode == "zero1" else params)
     sess.opt = sess.built.init_opt(sess.params)
     losses = [float(bootstrap.run_step(sess, s)["loss"])
-              for s in range(STEPS)]
+              for s in range(steps)]
     return sess, losses
 
 
 def _assert_params_close(got: dict, want: dict, atol: float = 1e-9):
+    assert [p for p, _ in T.flatten(got)] == [p for p, _ in T.flatten(want)]
     for (path, a), (_, b) in zip(T.flatten(got), T.flatten(want)):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol,
-                                   err_msg=".".join(path))
+                                   err_msg=".".join(map(str, path)))
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["eager", "fused"])
