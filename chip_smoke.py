@@ -3557,6 +3557,907 @@ def phase_families(smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: one rank per card, over NCCL, started by torchrun
+# ---------------------------------------------------------------------------
+
+#: argument that makes this script one rank of a phase-12 world, started
+#: by ``python -m torch.distributed.run`` (see :func:`torchrun`).
+RANK_CHILD = "--rank-child"
+#: the mode that runs phase 12 (b)-(g): ``python3 chip_smoke.py --cards 4``.
+CARDS = "--cards"
+P12_CARDS = 4
+#: seconds a phase-12 world may run before the parent kills it: a hang
+#: fails its phase in minutes, not at the call's limit.
+P12_TIMEOUT_S = 480
+P12_DIR = ROOT / "build" / "phase12"
+#: (a): the launcher on one card, one process, at 3 of 28 layers.
+P12A_ARGV = argv_with(MAIN_ARGV, mesh="1x1", steps=2, global_batch=1)
+P12A_LAYERS = 3
+#: (b): payload bytes per rank, calls timed per point.
+P12B_BYTES = [1 << k for k in range(10, 29, 2)]
+P12B_CALLS = 20
+#: (b): the payload whose results are held bitwise against a LocalComm.
+P12B_CHECK_BYTES = 1 << 22
+#: (c): the main path at p = 4, full width and depth.
+P12C_ARGV = argv_with(MAIN_ARGV, mesh="4x1", global_batch=4)
+#: (c): depth of the runs held against 4 virtual ranks on one card.
+P12C_CROSS_LAYERS = 3
+#: (d): the int8 wire with EF at p = 3, full width and depth.
+P12D_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", steps=2)
+#: (e): ep phi-3.5-MoE on a 2x2 DistMesh, every width, depth 32 -> 2.
+P12E = dict(EP_MAIN, dp=2, mp=2, global_batch=2, n_layers=2, steps=2)
+#: (f): ep decode at pe = 4, depth 32 -> 10 (a whole replica a card; the
+#: initializer's float32 temporaries of the stacked expert leaves put 16
+#: layers past 80 GB); the scheduler's requests.
+P12F_EP4 = dict(EP_SERVE, ep_devices=4, n_layers=10)
+P12F_SCHED = dict(n=4, max_batch=2, block=16)
+#: (f): the fan-out's replicas (qwen3-1.7b, every width and layer).
+P12F_REPLICAS = 4
+#: (g): (c)'s config at 3 layers, global batch 12 (p = 4 and p' = 3).
+P12G_ARGV = argv_with(MAIN_ARGV, mesh="4x1", global_batch=12, steps=4)
+P12G_LAYERS = 3
+
+
+class cut_depth:
+    """Within the block, every session the launchers build in this process
+    has ``n_layers`` layers (the session builder's ``n_layers=``; the
+    launchers have no depth flag)."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers = n_layers
+
+    def __enter__(self):
+        import functools
+        from repro_torch.launch import bootstrap
+        self.build = bootstrap.build_session
+        bootstrap.build_session = functools.partial(self.build,
+                                                    n_layers=self.n_layers)
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import bootstrap
+        bootstrap.build_session = self.build
+
+
+def digest(tree) -> list:
+    """Per leaf (flatten order), two integers of its raw bits: their sum
+    and their sum weighted by position (``i % 65521 + 1``), in int64 on
+    the card: equal trees give equal digests, and a changed bit changes
+    both."""
+    import torch
+    from repro_torch import tree as T
+    out = []
+    for leaf in T.leaves(tree):
+        b = bits(leaf.detach()).reshape(-1)
+        s1 = s2 = 0
+        for lo in range(0, b.numel(), 1 << 24):
+            chunk = b[lo:lo + (1 << 24)].to(torch.int64)
+            w = torch.arange(lo, lo + chunk.numel(), device=chunk.device,
+                             dtype=torch.int64) % 65521 + 1
+            s1 += int(chunk.sum())
+            s2 += int((chunk * w).sum())
+        out.append([s1, s2])
+    return out
+
+
+def gathered(obj) -> list:
+    """Every rank's ``obj``, in rank order (``all_gather_object``)."""
+    import torch.distributed as dist
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, obj)
+    return got
+
+
+def on_card(sess_params, dev, label: str) -> None:
+    """Every leaf of this rank's parameters lies on its own card."""
+    from repro_torch import tree as T
+    where = {str(x.device) for x in T.leaves(sess_params)}
+    check(where == {str(dev)}, f"{label}: parameters on {where}, this rank "
+          f"is pinned to {dev}")
+
+
+def torchrun(n: int, phase: str, label: str, **spec) -> list:
+    """Run ``phase`` as a world of ``n`` processes, one per card, each this
+    script as ``--rank-child`` under ``python -m torch.distributed.run
+    --standalone``: rank 0's lines reach this output, the others' go to
+    ``build/phase12/<label>.rank<r>.log``.  Kills the world's process
+    group after ``P12_TIMEOUT_S`` (a hang fails the phase); fails unless
+    every rank exits 0 on a card of its own.  Returns each rank's result
+    (its ``<label>.<r>.json``)."""
+    import os
+    import signal
+    P12_DIR.mkdir(parents=True, exist_ok=True)
+    for old in P12_DIR.glob(f"{label}.*"):
+        old.unlink()
+    spec = dict(spec, phase=phase, label=label)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
+           RANK_CHILD, json.dumps(spec)]
+    print(f"phase 12 {label}: {n} process(es): python -m "
+          f"torch.distributed.run --standalone --nproc-per-node {n} "
+          f"chip_smoke.py {RANK_CHILD} '{json.dumps(spec)}'", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=P12_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        fail(f"phase 12 {label}: the world of {n} did not end within "
+             f"{P12_TIMEOUT_S} s; killed")
+    check(rc == 0, f"phase 12 {label}: the world of {n} exited {rc}")
+    res = [json.loads((P12_DIR / f"{label}.{r}.json").read_text())
+           for r in range(n)]
+    cards = [r["card"] for r in res]
+    check([c["index"] for c in cards] == list(range(n))
+          and len({c["uuid"] for c in cards}) == n,
+          f"phase 12 {label}: ranks on cards {cards}")
+    print(f"phase 12 {label}: rank r on card r for every r < {n}, "
+          f"{time.perf_counter() - t0:.1f} s with the processes' start",
+          flush=True)
+    return res
+
+
+def rank_child(spec_json: str) -> int:
+    """One rank of a phase-12 world: join torchrun's world (the card
+    pinned first), run the phase, write the result."""
+    import os
+    import torch
+    import torch.distributed as dist
+    spec = json.loads(spec_json)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh
+    rank = int(os.environ["RANK"])
+    if rank:
+        sys.stdout = open(P12_DIR / f"{spec['label']}.rank{rank}.log", "w",
+                          buffering=1)
+    dev = mesh.init_world("cuda")
+    check(dev.index == int(os.environ["LOCAL_RANK"])
+          == torch.cuda.current_device(),
+          f"rank {rank}: pinned to {dev}, current device "
+          f"{torch.cuda.current_device()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = P12_PHASES[spec["phase"]](spec, dev)
+    res["card"] = {"index": dev.index,
+                   "uuid": str(torch.cuda.get_device_properties(dev).uuid)}
+    with open(P12_DIR / f"{spec['label']}.{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_recorded(argv, label: str, dev) -> dict:
+    """``launch.train.main(argv)`` in this rank, launch counts set to 0
+    just before and read just after: losses, grad norms, step seconds,
+    sync bytes and exchanges, this rank's parameter digests after every
+    step (checked equal on every rank of the data axis when the session
+    has no model axis), peak memory and the counts."""
+    import torch
+    from repro_torch.launch import train as trainer
+    rec = {"gnorm": [], "digests": []}
+
+    def on_step(step, sess, metrics):
+        on_card(sess.params[0], dev, label)
+        rec["gnorm"].append(float(metrics["grad_norm"]))
+        d = digest(sess.params[0])
+        if sess.ep_comm is None:
+            check(all(x == d for x in gathered(d)),
+                  f"{label}: ranks' params differ after step {step}")
+        rec["digests"].append(d)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    run = trainer.main(argv, on_step=on_step)
+    rec.update(counts=read_counts(), losses=run.losses,
+               step_seconds=run.step_seconds, sync_bytes=run.sync_bytes,
+               exchanges=run.sync_exchanges,
+               peak=torch.cuda.max_memory_allocated(dev))
+    free_cuda()
+    return rec
+
+
+def p12_launcher_one_card(spec, dev) -> dict:
+    """(a)'s rank: the launcher's argv at 3 layers."""
+    with cut_depth(P12A_LAYERS):
+        return run_recorded(spec["argv"], "phase 12 (a)", dev)
+
+
+def p12_collectives(spec, dev) -> dict:
+    """(b)'s rank: RS and AR of every algorithm over a ``DistComm`` of the
+    world: exchanges, natives and bytes of one call against
+    ``ceil(log2 p)`` (ring ``p - 1``) rounds and p - 1 blocks; the
+    results bitwise a ``LocalComm``'s on the same inputs (every rank's
+    made on this card from the same seeds); the device ms of each call
+    on each rank (CUDA events, the ranks aligned by a barrier before
+    every call), for every payload of ``P12B_BYTES``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.comm import DistComm, LocalComm
+    from repro_torch.core import plan
+    p, rank = dist.get_world_size(), dist.get_rank()
+    comm = DistComm()
+
+    def inputs(n):
+        return [torch.randn(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1200 + q)) for q in range(p)]
+
+    n = P12B_CHECK_BYTES // 4 // p * p
+    xs = inputs(n)
+    res = {"counts": {}, "ms": {}}
+    for coll in ("RS", "AR"):
+        for name, cs in rs_algorithms(p).items():
+            if coll == "AR" and name == "recursive halving":
+                continue
+            pl = plan(cs, p=p)
+            run = pl.reduce_scatter if coll == "RS" else pl.allreduce
+            x0, b0, n0 = comm.exchanges, comm.bytes, comm.natives
+            got = run([xs[rank]], comm)[0]
+            counts = (comm.exchanges - x0, comm.natives - n0,
+                      comm.bytes - b0)
+            ex, nat = algo_counts(name, coll, p)
+            nbytes = 0 if name == "native" else \
+                (p - 1) * (n // p) * 4 * (2 if coll == "AR" else 1)
+            check(counts == (ex, nat, nbytes), f"(b) {coll} {name} p={p}: "
+                  f"exchanges, natives, bytes {counts}, want "
+                  f"{(ex, nat, nbytes)}")
+            res["counts"][f"{coll} {name}"] = counts
+            if name != "native":
+                want = run(xs, LocalComm(p))[rank]
+                check(same_bits(got, want), f"(b) {coll} {name} p={p} rank "
+                      f"{rank}: differs from the LocalComm result")
+            for nb in P12B_BYTES:
+                m = max(p, nb // 4 // p * p)
+                x = [torch.randn(m, device=dev, generator=torch.Generator(
+                    device=dev).manual_seed(1300 + rank))]
+
+                def call(run=run, x=x):
+                    run(x, comm)
+
+                for _ in range(2):
+                    call()
+                torch.cuda.synchronize(dev)
+                evs = []
+                for _ in range(P12B_CALLS):
+                    dist.barrier()
+                    a, b = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                    a.record()
+                    call()
+                    b.record()
+                    evs.append((a, b))
+                torch.cuda.synchronize(dev)
+                mine = [a.elapsed_time(b) for a, b in evs]
+                slowest = [max(c) for c in zip(*gathered(mine))]
+                res["ms"][f"{coll} {name} {m}"] = statistics.median(slowest)
+                del x
+    return res
+
+
+def p12_main_path(spec, dev) -> dict:
+    """(c)'s rank: the launcher at p = 4, kernels on (4 steps, full width
+    and depth) and off (2 steps); one profiled warm step; 2 steps at 3
+    layers, held against 4 virtual ranks on one card by the parent."""
+    from repro_torch.core import ceil_log2
+    from repro_torch.launch import bootstrap
+    from repro_torch.launch import train as trainer
+    p = 4
+    n_zero = len(wire_leaves(p))
+    on = run_recorded(P12C_ARGV, "(c) kernels on", dev)
+    steps = len(on["losses"])
+    want = {name: 0 for name in counters()}
+    want["fused_round"] = steps * n_zero * ceil_log2(p)
+    check(on["counts"] == want, f"(c) launches {on['counts']}, want {want}")
+    rs, ag = sync_bytes(p, wire=False)
+    check(all(b == (rs + ag) // p for b in on["sync_bytes"]) and
+          all(x == 2 * n_zero * ceil_log2(p) for x in on["exchanges"]),
+          f"(c) sync bytes {on['sync_bytes']} (want {(rs + ag) // p}), "
+          f"exchanges {on['exchanges']}")
+    off = run_recorded(argv_with(P12C_ARGV, steps=2, fused_kernel="off"),
+                       "(c) kernels off", dev)
+    check(not any(off["counts"].values()), f"(c) off: {off['counts']}")
+    check(off["losses"][0] == on["losses"][0] and off["gnorm"][0] ==
+          on["gnorm"][0] and off["digests"][1] == on["digests"][1],
+          "(c) kernels on and off differ in step 0's loss or grad norm or "
+          "the params after step 1")
+    _, sess = trainer.build(argv_with(P12C_ARGV, steps=3))
+    bootstrap.run_step(sess, 0)
+    wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
+    profiled_step(lambda: bootstrap.run_step(sess, 2),
+                  f"phase 12 (c) rank {dev.index}, warm step 2", wall_1,
+                  ranks=1)
+    del sess
+    free_cuda()
+    with cut_depth(P12C_CROSS_LAYERS):
+        cross = run_recorded(argv_with(P12C_ARGV, steps=2), "(c) 3 layers",
+                             dev)
+    return {"on": on, "off": off, "warm_ms": wall_1, "cross": cross}
+
+
+def p12_wire(spec, dev) -> dict:
+    """(d)'s rank: the int8 wire with EF at p = 3, kernels on and off (2
+    steps each), and one exact step of the same config."""
+    p = 3
+    n_zero = len(wire_leaves(p))
+    on = run_recorded(P12D_ARGV, "(d) kernels on", dev)
+    steps = len(on["losses"])
+    want = {name: 0 for name in counters()}
+    want.update(quantize=steps * n_zero * 2, quantize_rows=steps * n_zero,
+                fused_round_dq=steps * n_zero * 2)
+    check(on["counts"] == want, f"(d) launches {on['counts']}, want {want}")
+    off = run_recorded(argv_with(P12D_ARGV, fused_kernel="off"),
+                       "(d) kernels off", dev)
+    want = {name: 0 for name in counters()}
+    want["quantize"] = steps * n_zero  # EF rounds on the int8 grid always
+    check(off["counts"] == want, f"(d) off: {off['counts']}, want {want}")
+    check(off["losses"] == on["losses"] and off["gnorm"] == on["gnorm"]
+          and off["digests"] == on["digests"],
+          "(d) kernels on and off differ")
+    exact = run_recorded(argv_with(MAIN_ARGV, steps=1), "(d) exact", dev)
+    gn_w, gn_x = on["gnorm"][0], exact["gnorm"][0]
+    check(abs(gn_w - gn_x) <= WIRE_RTOL * gn_x, f"(d) step-0 grad norm "
+          f"{gn_w} on the wire vs {gn_x} exact")
+    return {"on": on, "off": off, "exact": exact}
+
+
+def ep_run(kw: dict, fused, dev, label: str) -> dict:
+    """An ep session of ``kw`` (build_session's kwargs) in this world,
+    driven for its steps: losses, grad norms, this rank's digests, step
+    seconds, counts and peak."""
+    import torch
+    from repro_torch.launch import bootstrap
+    torch.cuda.reset_peak_memory_stats(dev)
+    sess = bootstrap.build_session(use_fused_kernel=fused, **kw)
+    on_card(sess.params[0], dev, label)
+    zero_counts()
+    rec = {"losses": [], "gnorm": [], "step_seconds": []}
+    for step in range(kw["steps"]):
+        t0 = time.perf_counter()
+        m = bootstrap.run_step(sess, step)
+        rec["losses"].append(float(m["loss"]))
+        rec["gnorm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize(dev)
+        rec["step_seconds"].append(time.perf_counter() - t0)
+    rec.update(counts=read_counts(), digest=digest(sess.params[0]),
+               peak=torch.cuda.max_memory_allocated(dev),
+               exchanges=[sess.comm.exchanges, sess.ep_comm.exchanges],
+               n_layers=sess.cfg.n_layers)
+    del sess
+    free_cuda()
+    return rec
+
+
+def p12_ep(spec, dev) -> dict:
+    """(e)'s rank: ep phi-3.5-MoE on a 2x2 DistMesh at every width and
+    ``P12E``'s depth, kernels on and off; then the scaled-down 2x2
+    config of phase 6 (b), held by the parent against its in-process
+    run."""
+    from repro_torch.core import ceil_log2
+    on = ep_run(P12E, None, dev, "(e) kernels on")
+    off = ep_run(P12E, False, dev, "(e) kernels off")
+    steps, layers = P12E["steps"], P12E["n_layers"]
+    check(on["counts"]["permute_rows"] == steps * layers * 6,
+          f"(e) permute_rows {on['counts']['permute_rows']}, want "
+          f"{steps * layers * 6} = {steps} steps x {layers} layers x 6")
+    check(on["counts"]["fused_round"] > 0 and not any(off["counts"].values()),
+          f"(e) on {on['counts']}, off {off['counts']}")
+    check(on["losses"] == off["losses"] and on["gnorm"] == off["gnorm"] and
+          on["digest"] == off["digest"], "(e) kernels on and off differ")
+    check(on["exchanges"][1] == steps * layers * 8 * ceil_log2(2),
+          f"(e) model-axis exchanges {on['exchanges'][1]}")
+    small = ep_run({k: v for k, v in EP_SMALL.items()}, None, dev,
+                   "(e) scaled down")
+    return {"on": on, "off": off, "small": small}
+
+
+def serve_logits_path(label: str, rank: int):
+    return P12_DIR / f"{label}.logits.{rank}.pt"
+
+
+def p12_serve_ep2(spec, dev) -> dict:
+    """(f)'s 2-rank world: phase 10 (e)'s ep decode (pe = 2, 8 layers)
+    with one rank per card (every call's logits saved for the parent);
+    then the scheduler over that engine."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import bootstrap
+    e = EP_SERVE
+    b, s, new = e["batch"], e["prompt"], e["new"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sess = bootstrap.build_serve_session(
+        arch=e["arch"], max_len=s + new, moe_dispatch="ep",
+        ep_devices=e["ep_devices"], n_layers=e["n_layers"], device="cuda")
+    on_card(sess.params, dev, "(f) pe = 2")
+    prompts = np.random.default_rng(0).integers(
+        0, sess.cfg.vocab_size, (b, s)).astype(np.int32)
+    zero_counts()
+    tokens, logits = generate_logits(sess.engine, prompts, new)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    want = 2 * e["n_layers"] * (1 + new)
+    check(counts["permute_rows"] == want, f"(f) pe = 2: permute_rows "
+          f"{counts['permute_rows']}, want {want}")
+    torch.save(torch.stack([x.cpu() for x in logits]),
+               serve_logits_path(spec["label"], dist.get_rank()))
+    t = sess.engine.timings
+    sched = p12_scheduler(sess.engine, sess.cfg.vocab_size)
+    return {"tokens": tokens.tolist(), "counts": counts,
+            "ttft_ms": t["ttft_s"] * 1e3, "p50": pct(t["step_s"], 50),
+            "p99": pct(t["step_s"], 99), "sched": sched,
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def p12_sched_requests(vocab: int):
+    """(f)'s scheduler requests from seed 12: prompt lengths 256-1024 in
+    steps of 64, 8-24 new tokens."""
+    rng = np.random.default_rng(12)
+    lens = rng.integers(4, 17, P12F_SCHED["n"]) * 64
+    new = rng.integers(8, 25, P12F_SCHED["n"])
+    return [(rng.integers(0, vocab, (n,)).astype(np.int32), int(m))
+            for n, m in zip(lens, new)]
+
+
+def p12_scheduler(engine, vocab: int) -> dict:
+    """The scheduler over ``engine`` (one paged cache per rank): each
+    request's tokens, how many equal a one-shot run of it alone, and the
+    decode-boundary p50 / p99."""
+    from repro_torch.serve import Scheduler
+    reqs = p12_sched_requests(vocab)
+    sched = Scheduler(engine, max_batch=P12F_SCHED["max_batch"],
+                      kv_block_size=P12F_SCHED["block"])
+    rids = [sched.submit(toks, n) for toks, n in reqs]
+    done = sched.run()
+    got = [done[r].tolist() for r in rids]
+    alone = [engine.generate(toks[None], n)[0].tolist() for toks, n in reqs]
+    same = sum(a == b for g, o in zip(got, alone) for a, b in zip(g, o))
+    return {"tokens": got, "equal_one_shot": same,
+            "total": sum(len(g) for g in got),
+            "p50": pct(sched.boundary_s, 50), "p99": pct(sched.boundary_s, 99)}
+
+
+def p12_serve_4(spec, dev) -> dict:
+    """(f)'s 4-rank world: ep decode at pe = 4 (16 layers; a warm call
+    timed for tokens/s); then the broadcast fan-out of qwen3-1.7b to 4
+    replicas, one a card."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import ceil_log2
+    from repro_torch.launch import bootstrap
+    e = P12F_EP4
+    b, s, new = e["batch"], e["prompt"], e["new"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sess = bootstrap.build_serve_session(
+        arch=e["arch"], max_len=s + new, moe_dispatch="ep",
+        ep_devices=e["ep_devices"], n_layers=e["n_layers"], device="cuda")
+    on_card(sess.params, dev, "(f) pe = 4")
+    prompts = np.random.default_rng(0).integers(
+        0, sess.cfg.vocab_size, (b, s)).astype(np.int32)
+    sess.engine.generate(prompts, new)
+    zero_counts()
+    t0 = time.perf_counter()
+    tokens = sess.engine.generate(prompts, new)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = 2 * e["n_layers"] * (1 + new)
+    check(counts["permute_rows"] == want, f"(f) pe = 4: permute_rows "
+          f"{counts['permute_rows']}, want {want}")
+    t = sess.engine.timings
+    ep = {"tokens": tokens.tolist(), "counts": counts,
+          "ttft_ms": t["ttft_s"] * 1e3, "p50": pct(t["step_s"], 50),
+          "p99": pct(t["step_s"], 99), "tok_s": b * new / wall,
+          "peak": torch.cuda.max_memory_allocated(dev),
+          "weights": tree_bytes(sess.params)}
+    del sess
+    free_cuda()
+    sess = bootstrap.build_serve_session(
+        arch="qwen3-1.7b", max_len=128, replicas=P12F_REPLICAS,
+        device="cuda")
+    st = sess.push_stats
+    check(st["rounds"] == ceil_log2(P12F_REPLICAS) and
+          st["exchanges"] == st["n_leaves"] * st["rounds"],
+          f"(f) fan-out: {st}")
+    on_card(sess.replica_set.engines[0].params, dev, "(f) fan-out")
+    check(all(same_bits(a, c) for a, c in zip(
+        T.leaves(sess.params), T.leaves(sess.replica_set.engines[0].params))),
+        "(f) fan-out: this replica's weights differ from the source's")
+    prompts = np.random.default_rng(0).integers(
+        0, sess.cfg.vocab_size, (P12F_REPLICAS * 2, 64)).astype(np.int32)
+    out = sess.replica_set.generate(prompts, 8)
+    return {"ep": ep, "fanout": {k: st[k] for k in
+                                 ("n_leaves", "bytes", "rounds", "exchanges",
+                                  "seconds")},
+            "replica_tokens": out.tolist()}
+
+
+def timed_manager(writes: list, restores: list):
+    """``CheckpointManager`` keeping the ``last_write`` of each write in
+    ``writes`` and the seconds of each restore in ``restores`` (g)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def _write(self, snap):
+            super()._write(snap)
+            writes.append(self.last_write)
+
+        def restore(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().restore(*args, **kwargs)
+            restores.append(time.perf_counter() - t0)
+            return out
+
+    return Timed
+
+
+def p12_checkpoint(spec, dev) -> dict:
+    """(g)'s worlds: at 4 ranks the uninterrupted run, the run that fails
+    at step 2 (checkpointed at step 2) and its resumption; rank 0 copies
+    the step-2 checkpoint for the 3-rank world, which resumes from it."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.ft import SimulatedFailure
+    from repro_torch.launch import train as trainer
+    out = {"writes": [], "restores": []}
+    trainer.CheckpointManager = timed_manager(out["writes"], out["restores"])
+    a_dir, b_dir = P12_DIR / "ckpt_a", P12_DIR / "ckpt_b"
+    ck = ["--ckpt-every", "2"]
+    with cut_depth(P12G_LAYERS):
+        if dist.get_world_size() == 4:
+            out["uninterrupted"] = trainer.main(P12G_ARGV).losses
+            try:
+                trainer.main(P12G_ARGV + ck + ["--ckpt-dir", str(a_dir),
+                                               "--fail-at-step", "2"])
+                fail("(g): no failure injected at step 2")
+            except SimulatedFailure:
+                pass
+            if dist.get_rank() == 0:
+                shutil.copytree(a_dir / "step_2", b_dir / "step_2")
+            dist.barrier()
+            out["resumed"] = trainer.main(
+                P12G_ARGV + ck + ["--ckpt-dir", str(a_dir)]).losses
+        else:
+            out["resumed"] = trainer.main(argv_with(
+                P12G_ARGV + ck, mesh="3x1", ckpt_dir=str(b_dir))).losses
+    return out
+
+
+P12_PHASES = {"a": p12_launcher_one_card, "b": p12_collectives,
+              "c": p12_main_path, "d": p12_wire, "e": p12_ep,
+              "f2": p12_serve_ep2, "f4": p12_serve_4, "g": p12_checkpoint}
+
+
+def phase_launcher_one_card(smi: str) -> dict:
+    """Phase 12 (a): the train launcher under torchrun on one card (one
+    process, NCCL, ``cuda:0`` pinned), its losses bitwise those of the
+    in-process launcher's same argv, both at 3 of 28 layers."""
+    import torch
+    from repro_torch.launch import train as trainer
+    t0 = time.perf_counter()
+    print(f"phase 12 (a): {' '.join(P12A_ARGV)}; reduced: depth 28 -> "
+          f"{P12A_LAYERS}")
+    [child] = torchrun(1, "a", "a", argv=P12A_ARGV)
+    with cut_depth(P12A_LAYERS):
+        run = trainer.main(P12A_ARGV)
+    check(child["losses"] == run.losses, f"phase 12 (a): losses over NCCL "
+          f"{child['losses']} vs in process {run.losses}")
+    print(f"phase 12 (a): losses {child['losses']} bitwise the in-process "
+          f"run's; step seconds {[round(x, 4) for x in child['step_seconds']]}"
+          f"; peak {child['peak'] / 2**30:.2f} GiB; launches "
+          f"{child['counts']} (p = 1: no round); "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    return child["counts"]
+
+
+def alpha_beta(times: dict, p: int):
+    """α and β (seconds, seconds per element, the fold folded in) fitted
+    by least squares to the ring reduce-scatter's medians: ``t = (p - 1)
+    (α + β m / p)`` for m elements per rank."""
+    rows = [(m, t / 1e3) for m, t in times.items()]
+    a = np.array([[p - 1, (p - 1) * m / p] for m, _ in rows])
+    y = np.array([t for _, t in rows])
+    (alpha, beta), *_ = np.linalg.lstsq(a, y, rcond=None)
+    return float(alpha), float(beta)
+
+
+def phase_collectives_on_links(smi: str) -> None:
+    """Phase 12 (b): RS and AR by every algorithm over NCCL at p = 2, 3,
+    4, one rank per card."""
+    from repro_torch.core import cost_model as cm
+    for p in (2, 3, 4):
+        [r0, *_] = torchrun(p, "b", f"b{p}")
+        for key, c in r0["counts"].items():
+            print(f"(b) p={p} {key}: {c[0]} exchanges, {c[1]} native calls, "
+                  f"{c[2]} bytes sent per rank per call at "
+                  f"{P12B_CHECK_BYTES} bytes per rank")
+        by = {}
+        for key, ms in r0["ms"].items():
+            coll, *name, m = key.split()
+            by.setdefault((coll, " ".join(name)), {})[int(m)] = ms
+        alpha, beta = alpha_beta(by[("RS", "ring")], p)
+        model = cm.CommModel(alpha=alpha, beta=beta, gamma=0.0)
+        print(f"(b) p={p}: α-β fit to the ring RS: α {alpha * 1e6:.2f} µs, "
+              f"β {beta * 1e12:.3f} ps per f32 element "
+              f"({4 / beta / 1e9:.1f} GB/s); data, not a gate")
+        sizes = sorted({m for pts in by.values() for m in pts})
+        print(f"(b) p={p}: ms per call (median of {P12B_CALLS}, slowest "
+              f"rank) at {[m * 4 for m in sizes]} bytes f32 a rank ({smi})")
+        for (coll, name), pts in sorted(by.items()):
+            fn = None
+            if name.startswith("circulant"):
+                fn = cm.t_reduce_scatter if coll == "RS" else cm.t_allreduce
+            elif name == "ring":
+                fn = cm.t_ring_reduce_scatter if coll == "RS" else \
+                    cm.t_ring_allreduce
+            print(f"(b) p={p} {coll} {name}: "
+                  + " ".join(f"{pts[m]:.4f}" for m in sizes)
+                  + ("" if fn is None else "; α-β model " + " ".join(
+                      f"{fn(m, p, model) * 1e3:.4f}" for m in sizes)))
+
+
+def phase_main_path_on_cards(smi: str) -> dict:
+    """Phase 12 (c), the parent's half: the 3-layer run of 4 virtual ranks
+    on card 0, held against the world's."""
+    from repro_torch.launch import train as trainer
+    res = torchrun(4, "c", "c")
+    c = res[0]
+    on = c["on"]
+    print(f"(c) {' '.join(P12C_ARGV)}; reduced: none")
+    print(f"(c) losses {on['losses']}, grad norms {on['gnorm']}; every "
+          f"rank's params bitwise equal after every step; kernels off: "
+          f"step-0 loss, grad norm and params after step 1 bitwise")
+    for r, x in enumerate(res):
+        print(f"(c) rank {r}: step seconds "
+              f"{[round(t, 4) for t in x['on']['step_seconds']]}, warm "
+              f"step 1 of the profiled session {x['warm_ms']:.1f} ms, sync "
+              f"bytes {x['on']['sync_bytes'][0]} and {x['on']['exchanges'][0]}"
+              f" exchanges per step, fused_round "
+              f"{x['on']['counts']['fused_round']} launches, peak "
+              f"{x['on']['peak'] / 2**30:.2f} GiB ({smi})")
+    rec = {"gnorm": [], "digests": []}
+
+    def on_step(step, sess, metrics):
+        rec["gnorm"].append(float(metrics["grad_norm"]))
+        rec["digests"].append(digest(sess.params[0]))
+
+    with cut_depth(P12C_CROSS_LAYERS):
+        run = trainer.main(argv_with(P12C_ARGV, steps=2), on_step=on_step)
+    cross = c["cross"]
+    check(run.losses[0] == cross["losses"][0] and
+          rec["digests"][1] == cross["digests"][1],
+          f"(c) at {P12C_CROSS_LAYERS} layers: 4 processes and 4 virtual "
+          f"ranks differ in step 0's loss ({cross['losses'][0]} vs "
+          f"{run.losses[0]}) or the params after step 1")
+    print(f"(c) at {P12C_CROSS_LAYERS} layers (both worlds; 4 virtual "
+          f"ranks of the full depth were not tried on one card): step-0 "
+          f"loss {run.losses[0]} and the params after step 1 bitwise "
+          f"between 4 processes on 4 cards and 4 virtual ranks on one")
+    free_cuda()
+    return {k: sum(x["on"]["counts"][k] + x["off"]["counts"][k] +
+                   x["cross"]["counts"][k] for x in res) for k in counters()}
+
+
+def phase_wire_on_cards(smi: str) -> dict:
+    res = torchrun(3, "d", "d")
+    on = res[0]["on"]
+    print(f"(d) {' '.join(P12D_ARGV)}; reduced: none (three ranks of it "
+          f"do not fit one card: phase 5 (b) runs EF at p = 2)")
+    for r, x in enumerate(res):
+        print(f"(d) rank {r}: losses {x['on']['losses']}, grad norm "
+              f"{x['on']['gnorm']} (exact {x['exact']['gnorm'][0]}), step "
+              f"seconds {[round(t, 4) for t in x['on']['step_seconds']]}, "
+              f"sync bytes {x['on']['sync_bytes'][0]}, launches "
+              f"{x['on']['counts']}, peak {x['on']['peak'] / 2**30:.2f} GiB "
+              f"({smi})")
+    print(f"(d) kernels on and off bitwise; step-0 grad norm {on['gnorm'][0]}"
+          f" within {WIRE_RTOL} of the exact step's "
+          f"{res[0]['exact']['gnorm'][0]}")
+    return {k: sum(x["on"]["counts"][k] + x["off"]["counts"][k] +
+                   x["exact"]["counts"][k] for x in res) for k in counters()}
+
+
+def phase_ep_on_cards(smi: str) -> dict:
+    from repro_torch.launch import bootstrap
+    res = torchrun(4, "e", "e")
+    for r, x in enumerate(res):
+        print(f"(e) rank {r}: {x['on']['n_layers']} layers, losses "
+              f"{x['on']['losses']}, step seconds "
+              f"{[round(t, 4) for t in x['on']['step_seconds']]}, launches "
+              f"{x['on']['counts']}, exchanges data / model "
+              f"{x['on']['exchanges']}, peak {x['on']['peak'] / 2**30:.2f} "
+              f"GiB ({smi})")
+    print(f"(e) {P12E}; reduced: depth 32 -> {P12E['n_layers']}; kernels on "
+          f"and off bitwise on every rank")
+    sess = bootstrap.build_session(**EP_SMALL)
+    for step in range(EP_SMALL["steps"]):
+        bootstrap.run_step(sess, step)
+    for g, x in enumerate(res):
+        check(digest(sess.params[g]) == x["small"]["digest"],
+              f"(e) scaled down: rank {g}'s params differ from the "
+              f"in-process 2x2 run's")
+    print(f"(e) scaled-down 2x2 (phase 6 (b)'s session): every rank's "
+          f"params after {EP_SMALL['steps']} steps bitwise the in-process "
+          f"LocalMesh run's; losses {res[0]['small']['losses']}")
+    del sess
+    free_cuda()
+    return {k: sum(x["on"]["counts"][k] + x["off"]["counts"][k] +
+                   x["small"]["counts"][k] for x in res) for k in counters()}
+
+
+def phase_serving_on_cards(smi: str) -> dict:
+    """Phase 12 (f): the 2-rank world (ep decode at pe = 2 held against
+    phase 10 (e)'s in-process run, the scheduler over it), then the
+    4-rank one (ep decode at pe = 4, the fan-out)."""
+    two, four = serving_two_cards(smi), serving_four_cards(smi)
+    return {k: two[k] + four[k] for k in counters()}
+
+
+def serving_two_cards(smi: str) -> dict:
+    import torch
+    from repro_torch.launch import bootstrap
+    e = EP_SERVE
+    res2 = torchrun(2, "f2", "f2")
+    b, s, new = e["batch"], e["prompt"], e["new"]
+    sess = bootstrap.build_serve_session(
+        arch=e["arch"], max_len=s + new, moe_dispatch="ep",
+        ep_devices=e["ep_devices"], n_layers=e["n_layers"], device="cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, sess.cfg.vocab_size, (b, s)).astype(np.int32)
+    tokens, logits = generate_logits(sess.engine, prompts, new)
+    want = torch.stack([x.cpu() for x in logits])
+    for r, x in enumerate(res2):
+        got = torch.load(serve_logits_path("f2", r))
+        check(same_bits(got, want) and x["tokens"] == tokens.tolist(),
+              f"(f) pe = 2: rank {r}'s logits or tokens differ from phase "
+              f"10 (e)'s in-process run")
+    local = p12_scheduler(sess.engine, sess.cfg.vocab_size)
+    check(local["tokens"] == res2[0]["sched"]["tokens"],
+          "(f) the scheduler over the ep engine: tokens over 2 processes "
+          "differ from the in-process scheduler's")
+    x = res2[0]
+    print(f"(f) pe = 2, {e['n_layers']} layers (phase 10 (e)'s config): "
+          f"{1 + new} calls' logits and the tokens bitwise the in-process "
+          f"run's on both ranks; time to first token {x['ttft_ms']:.1f} ms, "
+          f"decode p50 {x['p50']:.3f} ms, p99 {x['p99']:.3f} ms; "
+          f"permute_rows {x['counts']['permute_rows']} per rank; peak "
+          f"{x['peak'] / 2**30:.2f} GiB ({smi})")
+    sc = x["sched"]
+    print(f"(f) scheduler over the ep engine (pe = 2, {P12F_SCHED}): "
+          f"tokens bitwise the in-process scheduler's; {sc['equal_one_shot']}"
+          f" of {sc['total']} equal to one-shot runs alone; decode "
+          f"boundaries p50 {sc['p50']:.3f} ms, p99 {sc['p99']:.3f} ms")
+    del sess, logits, want
+    free_cuda()
+    return {k: sum(r["counts"][k] for r in res2) for k in counters()}
+
+
+def serving_four_cards(smi: str) -> dict:
+    res4 = torchrun(4, "f4", "f4")
+    x = res4[0]["ep"]
+    print(f"(f) pe = 4, {P12F_EP4['n_layers']} layers (reduced: depth 32 -> "
+          f"{P12F_EP4['n_layers']}; weights {x['weights']} bytes a rank): "
+          f"time to first token {x['ttft_ms']:.1f} ms, decode p50 "
+          f"{x['p50']:.3f} ms, p99 {x['p99']:.3f} ms, {x['tok_s']:.1f} tok/s "
+          f"warm; peak {x['peak'] / 2**30:.2f} GiB ({smi})")
+    check(all(r["ep"]["tokens"] == x["tokens"] for r in res4),
+          "(f) pe = 4: ranks' tokens differ")
+    secs = max(r["fanout"]["seconds"] for r in res4)
+    st = res4[0]["fanout"]
+    check(all(r["replica_tokens"] == res4[0]["replica_tokens"]
+              for r in res4), "(f) fan-out: replicas' gathered tokens differ")
+    print(f"(f) fan-out to {P12F_REPLICAS} replicas over NCCL: "
+          f"{st['n_leaves']} leaves, {st['bytes']} bytes, {st['rounds']} "
+          f"rounds, {st['exchanges']} exchanges a rank, {secs:.4f} s (the "
+          f"slowest rank), {st['bytes'] / secs / 1e9:.2f} GB/s of weights; "
+          f"every replica bitwise the source (phase 10 (d): the fan-out "
+          f"on one card) ({smi})")
+    return {k: sum(r["ep"]["counts"][k] for r in res4) for k in counters()}
+
+
+def phase_checkpoint_on_cards(smi: str) -> None:
+    import shutil
+    from repro_torch.launch import train as trainer
+    for d in ("ckpt_a", "ckpt_b", "ckpt_c"):
+        shutil.rmtree(P12_DIR / d, ignore_errors=True)
+    g4 = torchrun(4, "g", "g4")
+    g3 = torchrun(3, "g", "g3")
+    un, res = g4[0]["uninterrupted"], g4[0]["resumed"]
+    check(res == un[2:], f"(g) resumed at 4 ranks {res} vs uninterrupted "
+          f"{un}")
+    shutil.copytree(P12_DIR / "ckpt_b" / "step_2",
+                    P12_DIR / "ckpt_c" / "step_2")
+    with cut_depth(P12G_LAYERS):
+        ref = trainer.main(argv_with(P12G_ARGV + ["--ckpt-every", "2"],
+                                     mesh="3x1",
+                                     ckpt_dir=str(P12_DIR / "ckpt_c")))
+    check(g3[0]["resumed"] == ref.losses, f"(g) resumed at 3 ranks "
+          f"{g3[0]['resumed']} vs the p' run {ref.losses}")
+    w = g4[0]["writes"][0]
+    print(f"(g) {' '.join(P12G_ARGV)} at {P12G_LAYERS} layers (reduced: "
+          f"depth 28 -> {P12G_LAYERS}, global batch 4 -> 12 for p' = 3): "
+          f"resumed at 4 ranks bitwise the uninterrupted run ({un}); the "
+          f"step-2 checkpoint resumed by 3 ranks bitwise the in-process p' "
+          f"run ({ref.losses}); write {w['s']:.2f} s for {w['bytes']} bytes "
+          f"by rank 0; restores {[round(t, 2) for t in g4[0]['restores']]} "
+          f"s at 4 ranks (rank 0), {[round(t, 2) for t in g3[0]['restores']]}"
+          f" s at 3 ({smi})")
+    for d in ("ckpt_a", "ckpt_b", "ckpt_c"):
+        shutil.rmtree(P12_DIR / d, ignore_errors=True)
+    free_cuda()
+
+
+def phase_multi_card(smi: str, parts: str = "bcdefg") -> dict:
+    """Phase 12 (b)-(g) on four cards (the parts named in ``parts``);
+    returns the launches on the workload paths, by path."""
+    import torch
+    check(torch.cuda.device_count() >= P12_CARDS,
+          f"phase 12 needs {P12_CARDS} cards, this machine shows "
+          f"{torch.cuda.device_count()}")
+    t12 = time.perf_counter()
+    out = {}
+    steps = {"b": phase_collectives_on_links, "c": phase_main_path_on_cards,
+             "d": phase_wire_on_cards, "e": phase_ep_on_cards,
+             "f": phase_serving_on_cards, "g": phase_checkpoint_on_cards}
+    for part in parts:
+        t0 = time.perf_counter()
+        counts = steps[part](smi)
+        if counts is not None:
+            out["12" + part] = counts
+        print(f"phase 12 ({part}) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"phase 12 in {time.perf_counter() - t12:.1f} s ({smi})")
+    return out
+
+
+def cards_main() -> int:
+    """``python3 chip_smoke.py --cards 4``: phase 1 for every card, then
+    phase 12 (b)-(g), the kernels line and the verdict."""
+    import torch
+    check(torch.cuda.device_count() >= P12_CARDS,
+          f"--cards {P12_CARDS} needs {P12_CARDS} cards, this machine shows "
+          f"{torch.cuda.device_count()}")
+    t_all = time.perf_counter()
+    smi = phase_card_and_build()
+    every = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"cards:\n{every}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True).stdout
+    print(f"nvidia-smi topo -m:\n{topo}")
+    print(f"NCCL {torch.cuda.nccl.version()}", flush=True)
+    by_path = phase_multi_card(smi)
+    names = {"fused_round": ("src/repro_torch/csrc/fused_round.cu",
+                             "src/repro/kernels/fused_round.py:109"),
+             "fused_round_dq": ("src/repro_torch/csrc/fused_round_dq.cu",
+                                "src/repro/kernels/fused_round.py:228"),
+             "quantize": ("src/repro_torch/csrc/quantize.cu",
+                          "src/repro/kernels/quantize.py:83"),
+             "dequant_add": ("src/repro_torch/csrc/quantize.cu",
+                             "src/repro/kernels/quantize.py:131"),
+             "block_reduce": ("src/repro_torch/csrc/block_reduce.cu",
+                              "src/repro/kernels/block_reduce.py:40"),
+             "permute_rows": ("src/repro_torch/csrc/permute_rows.cu",
+                              "src/repro/kernels/fused_round.py:319")}
+    # the kernels' times, bounds and plain versions are the default run's
+    # (phase 2); this mode counts the launches of the phase-12 paths
+    print(json.dumps({"kernels": [
+        {"name": n, "route": "cuda", "source": src, "replaces": rep,
+         "launches": sum(c[n] for c in by_path.values()),
+         "launches_by_path": {k: c[n] for k, c in by_path.items()},
+         "max_abs_err": None, "ms": None, "plain_ms": None,
+         "bound_ms": None, "bound_by": "bytes", "library_ms": None}
+        for n, (src, rep) in names.items()]}))
+    print(f"total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout")
@@ -3564,7 +4465,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this test needs a card")
     sys.path.insert(0, str(ROOT / "src"))
+    if len(sys.argv) == 3 and sys.argv[1] == RANK_CHILD:
+        return rank_child(sys.argv[2])  # pins its own card first
     torch.cuda.set_device(0)
+    if sys.argv[1:] == [CARDS, str(P12_CARDS)]:
+        return cards_main()
     if len(sys.argv) == 3 and sys.argv[1] == AGAINST:
         return against_report(sys.argv[2])
     if sys.argv[1:] == [PROFILE_WIRE_STEP]:
@@ -3603,9 +4508,15 @@ def main() -> int:
     print(f"phase 9 in {time.perf_counter() - t9:.1f} s ({smi})")
     serving = phase_serving(smi)
     families = phase_families(smi)
+    launcher = phase_launcher_one_card(smi)
+    print("phase 12 (b)-(g), one rank per card over NCCL (the collectives "
+          "on the links, the main path at p = 4, the int8 wire with EF at "
+          "p = 3, ep training and serving, the fan-out, checkpoints across "
+          "processes), runs under python3 chip_smoke.py --cards 4")
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
                "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs,
-               "9b": rowwise, "9c": drill, "10": serving, "11": families}
+               "9b": rowwise, "9c": drill, "10": serving, "11": families,
+               "12a": launcher}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}

@@ -21,6 +21,8 @@ Layout:  <dir>/step_<N>/arrays.npz + manifest.json
   when the newest one is truncated/corrupt (an explicit ``step`` never
   falls back — the caller asked for that exact checkpoint).
 * Retention: keep_last completed checkpoints (older ones pruned).
+* Stable bytes: ``arrays.npz`` is ``np.savez``'s layout with a fixed
+  member timestamp, so one state always writes the same file.
 * Fault injection: an optional ``io_hook(step)`` runs before every
   write/read — ``ft.FailurePlan.io_hook`` raises transient
   ``CheckpointIOError``\\ s through it, which the elastic controller's
@@ -52,6 +54,22 @@ import numpy as np
 import torch
 
 from .. import tree as T
+
+
+def _save_npz(path: str, arrays: dict) -> None:
+    """``np.savez``'s file (one stored ``<key>.npy`` member per array, in
+    order) with a fixed timestamp on every member, so the bytes depend
+    on the arrays alone: the same state gives the same file, whichever
+    world wrote it."""
+    import zipfile
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in arrays.items():
+            info = zipfile.ZipInfo(key + ".npy", date_time=(1980, 1, 1, 0, 0,
+                                                            0))
+            with zf.open(info, "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(val),
+                                          allow_pickle=False)
 
 
 class CheckpointError(RuntimeError):
@@ -175,7 +193,7 @@ class CheckpointManager:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "arrays.npz"), **snap.arrays)
+        _save_npz(os.path.join(tmp, "arrays.npz"), snap.arrays)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(snap.manifest, f, indent=1)
         if os.path.exists(final):

@@ -17,9 +17,11 @@ over any fixed set of ``(src, dst)`` pairs (recursive halving's partner
   holds all ``D·M`` ranks and exchanges along its axis only, every group
   of that axis in the same lockstep exchange.
 * :class:`DistComm` — one rank per process over ``torch.distributed``
-  (``batch_isend_irecv``: gloo on the CPU, NCCL on cards).  Its lists
-  hold one tensor.  A :class:`DistMesh` has one ``DistComm`` per mesh
-  axis, each over that axis's process group.
+  (``batch_isend_irecv``: gloo on the CPU, NCCL on cards, one card a
+  process; ``launch.mesh.init_world`` joins the world torchrun started).
+  Its lists hold one tensor.  A :class:`DistMesh` has one ``DistComm``
+  per mesh axis, each over that axis's process group, every group
+  warmed up by one all-reduce as it is made.
 
 ``exchanges`` counts one per :meth:`shift` or :meth:`permute` call in
 both worlds.  It takes the place of the reference's HLO
@@ -38,12 +40,21 @@ counterparts of the reference's ``psum_scatter`` / ``all_gather`` /
 to ``exchanges`` or ``bytes`` and count one each in ``natives``.  On a
 ``LocalComm`` they fold in rank order with elementwise ops, so they are
 deterministic and the same bits on the CPU and on a card; on a
-``DistComm`` they are ``torch.distributed``'s calls.
+``DistComm`` they are ``torch.distributed``'s calls (NCCL's or gloo's
+own sums).  :meth:`fold_sum` is the rank-order sum in both worlds, for
+the small tensors a step folds over ranks (scalars, tiny leaves, router
+statistics): a ``DistComm`` gathers every rank's tensor and folds them
+as a ``LocalComm`` does, so a process world gives the in-process
+world's bits.  It counts one in ``natives``.
 
 :meth:`shift` and :meth:`permute` are differentiable: under autograd the
 backward is the reverse exchange, one more counted exchange, as the
 transpose of the reference's ``ppermute`` is the reverse
-collective-permute in its HLO.  :meth:`post` starts an exchange and
+collective-permute in its HLO.  :meth:`all_reduce_sum` and
+:meth:`fold_sum` are differentiable in both worlds (the backward sums
+the cotangents, as ``psum`` transposes); over a ``DistComm`` each
+process takes the backward of its own loss, and these reverse steps
+carry the other ranks' terms.  :meth:`post` starts an exchange and
 returns a pending one whose ``wait()`` completes it: on a ``DistComm``
 the sends are in flight until then, so a caller can post the next
 payload's round before it folds the current one's (the pipelined round
@@ -109,6 +120,13 @@ class _Comm:
         destination receives zeros (``lax.ppermute``'s rule)."""
         _check_len(self, xs)
         return _exchange(self, xs, _as_pairs(pairs))
+
+    def fold_sum(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """Elementwise sum over each axis group in rank order (``xs[0] +
+        xs[1] + ...``), replicated within the group and differentiable:
+        the same bits in both worlds."""
+        _check_len(self, xs)
+        return self._fold(xs)
 
     def post(self, xs: Sequence[torch.Tensor], s: int):
         """Start :meth:`shift` by ``s``; ``.wait()`` on the result returns
@@ -186,6 +204,9 @@ class LocalComm(_Comm):
                 out[m] = acc.clone()
         return out
 
+    def _fold(self, xs):
+        return self.all_reduce_sum(xs)
+
     def reduce_scatter_sum(self, xs: Sequence[torch.Tensor]
                            ) -> list[torch.Tensor]:
         """The native reduce-scatter (``psum_scatter``): each rank's
@@ -254,7 +275,11 @@ class LocalMesh:
 
 
 class _Exchange(torch.autograd.Function):
-    """A differentiable exchange: the backward is the reverse route."""
+    """A differentiable exchange: the backward is the reverse route.  Over
+    a ``DistComm`` it is a cross-process exchange that every rank of the
+    group runs, in the same order (each process's backward walks the same
+    graph), its cotangent materialized as zeros where its output took no
+    gradient: a rank that skipped its half would hang its peers."""
 
     @staticmethod
     def forward(ctx, comm, route, *xs):
@@ -270,6 +295,23 @@ def _exchange(comm, xs, route) -> list[torch.Tensor]:
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         return list(_Exchange.apply(comm, route, *xs))
     return comm._exchange(xs, route)
+
+
+class _Summed(torch.autograd.Function):
+    """A ``DistComm`` op whose output on every rank is the sum over the
+    ranks (``op``: :meth:`DistComm._gather_fold` or
+    :meth:`DistComm._all_reduce`), so the backward applies the same op to
+    the cotangents, the transpose of ``psum``.  It is a collective: each
+    rank runs it, zeros or not."""
+
+    @staticmethod
+    def forward(ctx, op, x):
+        ctx.op = op
+        return op(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.op(g)
 
 
 class _Pending:
@@ -349,13 +391,37 @@ class DistComm(_Comm):
 
     def all_reduce_sum(self, xs: Sequence[torch.Tensor]
                        ) -> list[torch.Tensor]:
-        """``all_reduce`` (SUM) of this rank's tensor; returns a new one."""
-        import torch.distributed as dist
+        """``all_reduce`` (SUM) of this rank's tensor; returns a new one.
+        Differentiable: the backward is the all-reduce of the cotangents
+        (the transpose of the reference's ``psum``)."""
         _check_len(self, xs)
         self.natives += 1
-        out = xs[0].clone()
+        if torch.is_grad_enabled() and xs[0].requires_grad:
+            return [_Summed.apply(self._all_reduce, xs[0])]
+        return [self._all_reduce(xs[0])]
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
-        return [out]
+        return out
+
+    def _fold(self, xs):
+        self.natives += 1
+        if torch.is_grad_enabled() and xs[0].requires_grad:
+            return [_Summed.apply(self._gather_fold, xs[0])]
+        return [self._gather_fold(xs[0])]
+
+    def _gather_fold(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` gathered (the native allgather of the
+        flattened tensors), then ``_fold_sum`` in rank order."""
+        import torch.distributed as dist
+        flat = x.contiguous().reshape(-1)
+        out = flat.new_empty(self.p * flat.numel())
+        gather = getattr(dist, "all_gather_single", None) or \
+            dist.all_gather_into_tensor
+        gather(out, flat, group=self.group)
+        return _fold_sum(list(out.reshape(self.p, *x.shape).unbind(0)))
 
     def reduce_scatter_sum(self, xs: Sequence[torch.Tensor]
                            ) -> list[torch.Tensor]:
@@ -429,11 +495,23 @@ class DistMesh:
                            for k in range(self.shape[i])]
                 group = dist.new_group(members)  # collective: every process
                 if me in members:
+                    _warm_up(group)
                     self.axes[name] = DistComm(group)
 
     def axis(self, name: str) -> DistComm:
         """This process's communicator on axis ``name``."""
         return self.axes[name]
+
+
+def _warm_up(group) -> None:
+    """One all-reduce on a new group, so that its communicator exists
+    before the first point-to-point call (NCCL's batched sends misbehave
+    when the first call on a group leaves some of its ranks out)."""
+    import torch.distributed as dist
+    dev = torch.device("cpu")
+    if dist.get_backend(group) == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dist.all_reduce(torch.zeros(1, device=dev), group=group)
 
 
 def _blocks(x: torch.Tensor, p: int) -> torch.Tensor:

@@ -8,7 +8,12 @@ The zero1 mode runs its ``dp`` ranks as virtual ranks of a
 (``moe_dispatch="ep"``) it runs a ``dp × mp`` ``LocalMesh`` fully
 manual, as the reference does: every rank holds whole replicas, zero1
 syncs over the data axis and the MoE dispatch exchanges over the model
-axis.
+axis.  Started by torchrun (``launch.mesh.is_process_world()``), each
+process is one rank of that world instead, on a card of its own
+(``cuda:LOCAL_RANK``, NCCL) or over gloo on the CPU: a ``DistComm`` of
+the world for ``dp × 1``, a ``DistMesh`` with its data and model axes
+for ep.  Every process initializes the same parameters from ``seed``,
+as the reference replicates them, and its lists hold its one rank.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); asking for ``cuda`` where there is none raises.
@@ -30,7 +35,9 @@ import torch
 
 from .. import tree as T
 from ..checkpoint.manager import to_host
-from ..comm import LocalComm, LocalMesh, resolve_device
+from ..comm import DistComm, LocalComm, LocalMesh, resolve_device
+from ..core import collectives as C
+from ..core.spec import CollectiveSpec
 from ..configs import get_config
 from ..data import for_model
 from ..models import build, is_ep, leaf_dtype, param_shapes
@@ -39,6 +46,7 @@ from ..optim.zero1 import (GradSyncConfig, Zero1State, is_zero_leaf,
                            resize_zero1_state)
 from ..serve import ReplicaSet
 from ..train import build_single, build_zero1
+from . import mesh as meshlib
 
 
 @dataclass
@@ -48,7 +56,9 @@ class Session:
     ``comm.ranks``.  ``world`` is the data-parallel world (1 in single
     mode).  ``comm`` is the data axis's communicator; with expert
     parallelism ``ep_comm`` is the model axis's (both over the same
-    ``dp × mp`` ranks, data-major), else ``None``."""
+    ``dp × mp`` ranks, data-major), else ``None``.  ``proc`` is this
+    process's global rank in a process world (one rank per process),
+    ``None`` in the in-process world."""
 
     cfg: Any
     mode: str
@@ -63,6 +73,14 @@ class Session:
     params: Any = None
     opt: Any = None
     ep_comm: Any = None
+    proc: int | None = None
+
+    @property
+    def lead(self) -> bool:
+        """True in the process that logs and writes checkpoints: rank 0
+        of a process world, or the one process of the in-process
+        world."""
+        return self.proc in (None, 0)
 
 
 def resolve_cfg(arch: str, *, scale_down: bool = False,
@@ -82,6 +100,16 @@ def resolve_cfg(arch: str, *, scale_down: bool = False,
                 f"moe_dispatch given but {arch} is not a MoE arch")
         cfg = replace(cfg, moe_dispatch=moe_dispatch)
     return cfg
+
+
+def join_world(n: int, device, what: str) -> torch.device:
+    """Join torchrun's process world after checking that it holds the
+    ``n`` ranks ``what`` asks for; returns this rank's device."""
+    have = meshlib.world_size()
+    if have != n:
+        raise ValueError(f"{what} needs a world of {n} processes, but "
+                         f"torchrun started {have} (--nproc-per-node)")
+    return meshlib.init_world(device)
 
 
 def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
@@ -109,20 +137,28 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
     ``compress`` is its deprecated alias.  ``use_fused_kernel`` picks the
     kernels of every collective (the sync's rounds and the dispatch's
     ``permute_rows``).  With ``init_state=False`` params/opt stay
-    ``None``.  ``n_layers`` cuts the config's depth."""
-    dev = resolve_device(device)
+    ``None``.  ``n_layers`` cuts the config's depth.  Under torchrun
+    the ``dp × mp`` ranks are the world's processes (one each)."""
     cfg = resolve_cfg(arch, scale_down=scale_down, moe_dispatch=moe_dispatch,
                       n_layers=n_layers)
     ep = is_ep(cfg)
     if mp != 1 and not ep:
         raise NotImplementedError(
             f"mesh {dp}x{mp}: the model (tensor-parallel) axis is not ported "
-            f"yet (ROADMAP.md queue 1 item 11.1); use {dp}x1, or a MoE arch "
+            f"yet (ROADMAP.md queue 1 item 11.2); use {dp}x1, or a MoE arch "
             f"with --moe-dispatch ep")
     mode = mode or ("single" if dp * mp == 1 else "zero1")
+    if mode not in ("single", "zero1"):
+        raise NotImplementedError(f"mode {mode!r} is not ported yet "
+                                  f"(ROADMAP.md queue 1 item 11.2)")
     if ep and mode != "zero1":
         raise NotImplementedError(f"moe_dispatch='ep' runs in mode zero1, "
                                   f"not {mode!r}")
+    procs = meshlib.is_process_world()
+    if procs:
+        dev = join_world(dp * mp, device, f"mesh {dp}x{mp}")
+    else:
+        dev = resolve_device(device)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=warmup, total_steps=steps)
     pipe = for_model(cfg, seq_len=seq_len, global_batch=global_batch)
     sync = GradSyncConfig(impl=grad_sync, schedule=schedule,
@@ -133,26 +169,25 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                           bucket_bytes=bucket_bytes)
     comm = ep_comm = None
     if ep:
-        mesh = LocalMesh((dp, mp), ("data", "model"))
+        mesh = (meshlib.make_mesh((dp, mp), ("data", "model")) if procs
+                else LocalMesh((dp, mp), ("data", "model")))
         comm, ep_comm = mesh.axis("data"), mesh.axis(cfg.ep_axis)
     model = build(cfg, ep_comm=ep_comm, use_fused_kernel=use_fused_kernel)
     if mode == "single":
         if dp != 1:
             raise ValueError(f"mode single runs one rank, got mesh {dp}x{mp}")
         built, world = build_single(model, opt_cfg), 1
-    elif mode == "zero1":
-        comm = comm or LocalComm(dp)
+    else:
+        comm = comm or (DistComm() if procs else LocalComm(dp))
         if global_batch % dp:
             raise ValueError(f"global batch {global_batch} % dp {dp} != 0")
         built = build_zero1(model, comm, opt_cfg, sync, dev,
                             ep_world=mp if ep else None)
         world = dp
-    else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1 item 11.1)")
     sess = Session(cfg=cfg, mode=mode, device=dev, comm=comm, model=model,
                    opt_cfg=opt_cfg, sync=sync, built=built, pipe=pipe,
-                   world=world, ep_comm=ep_comm)
+                   world=world, ep_comm=ep_comm,
+                   proc=meshlib.rank() if procs else None)
     if init_state:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = model.init(gen, dev)
@@ -171,7 +206,8 @@ class ServeSession:
     the broadcast plan (``push_stats``: leaf count, payload bytes,
     rounds, exchanges, seconds); ``params`` is the tree they were pushed
     from.  ``ep_comm`` is the expert-parallel communicator MoE decode
-    exchanges over (``None`` otherwise)."""
+    exchanges over (``None`` otherwise).  ``proc`` is this process's
+    rank in a process world, else ``None``."""
 
     cfg: Any
     device: torch.device
@@ -180,6 +216,7 @@ class ServeSession:
     replica_set: Any
     ep_comm: Any
     push_stats: dict
+    proc: int | None = None
 
     @property
     def engine(self):
@@ -201,18 +238,36 @@ def build_serve_session(*, arch: str, max_len: int, scale_down: bool = False,
     runs ``ep_devices`` virtual ranks of a ``LocalComm`` on the one
     parameter tree, exchanging dispatch buffers through the circulant
     alltoall (its ``permute_rows`` kernel when the buffer lies on a
-    card)."""
-    dev = resolve_device(device)
+    card).  Under torchrun each process is one rank: of the ep
+    communicator (``ep_devices`` must equal the world), or one replica
+    (``replicas`` must equal the world), the weights drawn from ``seed``
+    in every process and each process sending its row of every leaf
+    through the same plan."""
     cfg = resolve_cfg(arch, scale_down=scale_down, moe_dispatch=moe_dispatch,
                       n_layers=n_layers)
-    ep_comm = LocalComm(ep_devices) if is_ep(cfg) else None
+    ep = is_ep(cfg)
+    procs = meshlib.is_process_world()
+    if procs:
+        if ep and replicas != 1:
+            raise ValueError("under torchrun the world is either the ep "
+                             "ranks or the replicas, not both")
+        dev = join_world(ep_devices if ep else replicas, device,
+                         f"--ep-devices {ep_devices}" if ep
+                         else f"--replicas {replicas}")
+        ep_comm = DistComm() if ep else None
+        rep_comm = DistComm() if not ep and replicas > 1 else None
+    else:
+        dev = resolve_device(device)
+        ep_comm = LocalComm(ep_devices) if ep else None
+        rep_comm = None
     model = build(cfg, remat=False, ep_comm=ep_comm)
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
     rs = ReplicaSet(model, max_len, replicas, temperature=temperature,
-                    schedule=broadcast_schedule)
+                    schedule=broadcast_schedule, comm=rep_comm)
     stats = rs.push_weights(params)
     return ServeSession(cfg=cfg, device=dev, model=model, params=params,
-                        replica_set=rs, ep_comm=ep_comm, push_stats=stats)
+                        replica_set=rs, ep_comm=ep_comm, push_stats=stats,
+                        proc=meshlib.rank() if procs else None)
 
 
 def place_batch(sess: Session, batch: dict):
@@ -262,8 +317,15 @@ def _check_gatherable(sess: Session) -> None:
             "each model column keeps its own replica of the ZeRO-1 state")
 
 
-def _gather_rows(parts: list) -> np.ndarray:
-    """The ranks' shards stacked along dim 0, in one host array."""
+def _gather_rows(sess: Session, parts: list) -> np.ndarray | None:
+    """The ranks' shards stacked along dim 0, in one host array: the
+    local ranks' parts in the in-process world; in a process world every
+    rank's through the circulant allgather (each process takes part),
+    copied to the host by the lead process only (``None`` elsewhere)."""
+    if sess.proc is not None:
+        full = C.allgather(list(parts), sess.comm,
+                           spec=CollectiveSpec(schedule=sess.sync.schedule))
+        return to_host(full[0]) if sess.lead else None
     host = torch.empty((sum(x.shape[0] for x in parts), *parts[0].shape[1:]),
                        dtype=parts[0].dtype)
     off = 0
@@ -273,7 +335,7 @@ def _gather_rows(parts: list) -> np.ndarray:
     return to_host(host)
 
 
-def opt_flat(sess: Session) -> dict:
+def opt_flat(sess: Session) -> dict | None:
     """Checkpoint form of the optimizer state: the reference's GLOBAL host
     arrays keyed ``leaf_<i>`` in its flatten order: every ``m`` leaf,
     every ``v`` leaf, ``step`` (int32), then in zero1 every EF residual
@@ -281,7 +343,9 @@ def opt_flat(sess: Session) -> dict:
     gathered into the ``(ld_pad, *rest)`` array the reference stores,
     its EF residuals into ``(world, *leaf)`` (tiny leaves: rank 0's
     replica and a ``(1, *leaf)`` dummy), so :func:`restore_session` can
-    restore it at any world size."""
+    restore it at any world size.  In a process world every process must
+    call it (the shards come through the allgather); the lead process
+    gets the arrays, the others ``None``."""
     if sess.mode == "single":
         o = sess.opt
         leaves = ([to_host(x) for x in T.leaves(o.m)]
@@ -292,18 +356,23 @@ def opt_flat(sess: Session) -> dict:
     opts = sess.opt
     flags = _zero_flags(sess, sess.params[0])
 
+    def whole(x):  # a replicated leaf: the lead's copy
+        return to_host(x) if sess.lead else None
+
     def gather(trees):
         per_rank = [T.leaves(t) for t in trees]
-        return [_gather_rows([r[i] for r in per_rank]) if flag
-                else to_host(per_rank[0][i]) for i, flag in enumerate(flags)]
+        return [_gather_rows(sess, [r[i] for r in per_rank]) if flag
+                else whole(per_rank[0][i]) for i, flag in enumerate(flags)]
 
     leaves = (gather([o.m for o in opts]) + gather([o.v for o in opts])
               + [np.asarray(opts[0].step, np.int32)])
     if opts[0].ef is not None:
         per_rank = [T.leaves(o.ef) for o in opts]
-        leaves += [_gather_rows([r[i][None] for r in per_rank]) if flag
-                   else to_host(per_rank[0][i][None])
+        leaves += [_gather_rows(sess, [r[i][None] for r in per_rank]) if flag
+                   else whole(per_rank[0][i][None])
                    for i, flag in enumerate(flags)]
+    if not sess.lead:
+        return None
     return {f"leaf_{i}": x for i, x in enumerate(leaves)}
 
 
@@ -323,8 +392,10 @@ def restore_session(sess: Session, mgr, step: int | None = None
     :func:`opt_flat`), so a world mismatch is handled on the host:
     rebuild the saved world's global :class:`Zero1State`, run
     ``resize_zero1_state`` to ``sess.world``, then cut each rank's shard
-    and move it to the session's device.  ``sess.params`` may be
-    ``None`` (a session built with ``init_state=False``)."""
+    and move it to the session's device.  In a process world every
+    process reads the checkpoint and cuts its own rank's shard.
+    ``sess.params`` may be ``None`` (a session built with
+    ``init_state=False``)."""
     _check_gatherable(sess)
     if sess.params is None:
         template = T.unflatten(

@@ -44,6 +44,7 @@ from ..configs import ALIASES
 from ..ft import (ElasticConfig, ElasticController, FailurePlan, FaultEvent,
                   RankFailure, Watchdog, WatchdogConfig, active_specs)
 from . import bootstrap
+from . import mesh as meshlib
 
 
 def _ckpt_extra(sess, step: int, arch: str) -> dict:
@@ -119,7 +120,15 @@ def run_drill(*, arch: str = "qwen3-1.7b", scale_down: bool = True,
     world, the peak device memory (``peaks``, ``None`` on the CPU) and
     the checkpoint's write and restore timings (``ckpt``).  ``n_layers``
     cuts the config's depth (no CLI flag: for runs of a full-width config
-    on one card)."""
+    on one card).  Under torchrun it refuses: over processes the loss of
+    a rank needs a new communicator of the survivors (ROADMAP.md queue 1
+    item 11.2)."""
+    if meshlib.is_process_world():
+        raise NotImplementedError(
+            "the elastic drill runs its worlds as virtual ranks in one "
+            "process; over processes the loss of a rank needs a new "
+            "communicator of the survivors, which is not ported (ROADMAP.md "
+            "queue 1 item 11.2): run it without torchrun")
     if mp != 1:
         raise NotImplementedError(
             f"mp={mp}: the drill reshards the data axis of a dp x 1 mesh "

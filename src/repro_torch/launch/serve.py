@@ -14,7 +14,18 @@ switches to the continuous-batching scheduler (paged KV cache sized by
 ``--kv-block-size``); ``--replicas N`` serves data-parallel over N
 replicas whose weights were fanned out through the ``kind="broadcast"``
 plan (N virtual ranks of a ``LocalComm``); ``--moe-dispatch ep`` serves
-a MoE arch expert parallel over ``--ep-devices`` virtual ranks.  Prompts
+a MoE arch expert parallel over ``--ep-devices`` virtual ranks, with
+``--max-batch`` too (one paged cache per rank).  Under torchrun each
+process is one of those ranks or replicas, one per card (NCCL) or over
+gloo with ``--device cpu``, and ``--ep-devices`` or ``--replicas`` must
+equal the world; rank 0 prints::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch phi3.5-moe-42b-a6.6b --scale-down --device cpu \\
+        --moe-dispatch ep --ep-devices 2 --batch 2 --prompt-len 8
+
+Prompts
 are drawn from ``np.random.default_rng(0)``, as the reference draws
 them, and after them the encoder-decoder family's ``frames`` ``(batch,
 prompt_len, d_model)`` or the VLM's ``image_embeds`` ``(batch,
@@ -35,6 +46,7 @@ from ..configs import ALIASES
 from ..serve import Scheduler
 from ..serve.engine import cache_bytes
 from . import bootstrap
+from . import mesh as meshlib
 
 
 class ServeRun(NamedTuple):
@@ -124,14 +136,15 @@ def main(argv=None) -> ServeRun:
     except (ValueError, RuntimeError, NotImplementedError) as e:
         raise SystemExit(str(e)) from e
     cfg, dev = sess.cfg, sess.device
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.dtype}, on {dev}")
+    say = print if sess.proc in (None, 0) else (lambda *a, **k: None)
+    say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype}, on {dev}, {meshlib.describe()}")
     if args.replicas > 1:
         st = sess.push_stats
-        print(f"broadcast weight fan-out: {st['n_leaves']} leaves, "
-              f"{st['bytes']} bytes, {st['rounds']} rounds x "
-              f"{args.replicas} replicas, {st['exchanges']} exchanges, "
-              f"{st['seconds']:.3f} s")
+        say(f"broadcast weight fan-out: {st['n_leaves']} leaves, "
+            f"{st['bytes']} bytes, {st['rounds']} rounds x "
+            f"{args.replicas} replicas, {st['exchanges']} exchanges, "
+            f"{st['seconds']:.3f} s")
 
     prompts, extras = prompts_and_extras(cfg, args.batch, args.prompt_len)
     if extras and args.max_batch > 0:
@@ -147,9 +160,9 @@ def main(argv=None) -> ServeRun:
                               kv_block_size=args.kv_block_size)
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(str(e)) from e
-        print(f"paged KV cache: {sched.kv.num_blocks} blocks of "
-              f"{args.kv_block_size} rows, "
-              f"{cache_bytes([sched.kv.k, sched.kv.v])} bytes")
+        say(f"paged KV cache: {sched.kv.num_blocks} blocks of "
+            f"{args.kv_block_size} rows, "
+            f"{cache_bytes([sched.kv.k, sched.kv.v])} bytes")
         t0 = time.perf_counter()
         rids = [sched.submit(prompts[b], args.max_new)
                 for b in range(args.batch)]
@@ -157,12 +170,12 @@ def main(argv=None) -> ServeRun:
         _sync(dev)
         dt = time.perf_counter() - t0
         total = sum(len(done[r]) for r in rids)
-        print(f"scheduler: {args.batch} requests, {total} tokens in "
-              f"{dt:.2f}s ({total / dt:.1f} tok/s; {sched.n_decode_steps} "
-              f"decode steps, {sched.n_prefills} prefills); decode "
-              f"boundaries {_ms(sched.boundary_s)}")
+        say(f"scheduler: {args.batch} requests, {total} tokens in "
+            f"{dt:.2f}s ({total / dt:.1f} tok/s; {sched.n_decode_steps} "
+            f"decode steps, {sched.n_prefills} prefills); decode "
+            f"boundaries {_ms(sched.boundary_s)}")
         for r in rids[:2]:
-            print(f"  req{r}: {done[r][:12].tolist()}")
+            say(f"  req{r}: {done[r][:12].tolist()}")
         return ServeRun(sess, prompts, done, dt, None, sched)
 
     if args.replicas > 1:
@@ -174,23 +187,23 @@ def main(argv=None) -> ServeRun:
     out = gen(prompts, args.max_new)
     _sync(dev)
     dt = time.perf_counter() - t0
-    print(f"generated {out.shape} in {dt:.2f}s "
-          f"({args.batch * args.max_new / dt:.1f} tok/s incl. warm-up); "
-          f"cache {sess.engine.timings['cache_bytes']} bytes "
-          f"({args.batch} x {max_len} positions)")
+    say(f"generated {out.shape} in {dt:.2f}s "
+        f"({args.batch * args.max_new / dt:.1f} tok/s incl. warm-up); "
+        f"cache {sess.engine.timings.get('cache_bytes')} bytes "
+        f"({args.batch} x {max_len} positions)")
     for b in range(min(2, args.batch)):
-        print(f"  seq{b}: {out[b][:12].tolist()}")
+        say(f"  seq{b}: {out[b][:12].tolist()}")
     t0 = time.perf_counter()
     gen(prompts, args.max_new)
     _sync(dev)
     dt2 = time.perf_counter() - t0
-    print(f"steady-state: {args.batch * args.max_new / dt2:.1f} tok/s")
+    say(f"steady-state: {args.batch * args.max_new / dt2:.1f} tok/s")
     for r, eng in enumerate(sess.replica_set.engines):
         t = eng.timings
         if t:
-            print(f"  engine {r}: time to first token "
-                  f"{t['ttft_s'] * 1e3:.3f} ms; decode steps "
-                  f"{_ms(t['step_s'])}")
+            say(f"  engine {r}: time to first token "
+                f"{t['ttft_s'] * 1e3:.3f} ms; decode steps "
+                f"{_ms(t['step_s'])}")
     return ServeRun(sess, prompts, out, dt, dt2)
 
 

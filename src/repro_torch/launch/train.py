@@ -24,6 +24,14 @@ Runs on the card unless asked for the CPU::
         --seq-len 16 --global-batch 3 --ckpt-dir /tmp/ck --ckpt-every 2 \\
         --fail-at-step 4      # dies at step 4; rerun without the flag
 
+One rank per process (per card over NCCL, or over gloo with ``--device
+cpu``), started by torchrun with the same flags; ``--mesh DxM`` must
+hold as many ranks as torchrun starts::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --mesh 4x1 --mode zero1 --steps 4 --seq-len 2048 --global-batch 4
+
 The flags are the reference's plus ``--device``.
 ``--grad-sync`` picks the gradient sync: ``circulant`` (the paper's),
 the baselines ``ring`` and ``xla`` (the native collectives), or
@@ -43,7 +51,13 @@ restart drill: rerun with the same ``--ckpt-dir`` to resume on the same
 trajectory).  Each step's time feeds the straggler watchdog, whose
 verdict ends the step's log line.  The flags of features not ported yet
 exit with a message (``--mode fsdp_auto`` and ``--mesh`` with a model
-axis but no ``--moe-dispatch ep``: ROADMAP.md queue 1 item 11.1).
+axis but no ``--moe-dispatch ep``: ROADMAP.md queue 1 item 11.2).
+
+Under torchrun every process trains its rank; rank 0 prints the log
+lines (the loss and grad norm are the global ones, folded in rank order:
+the bits of the in-process run of the same flags) and writes the
+checkpoints, gathered from every rank; every process reads them to
+resume, at the same world or another.
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ from ..checkpoint import CheckpointManager, config_fingerprint
 from ..configs import ALIASES
 from ..ft import FailureInjector, Watchdog
 from . import bootstrap
+from . import mesh as meshlib
 
 
 class TrainRun(NamedTuple):
@@ -153,15 +168,29 @@ def main(argv=None, on_step=None) -> TrainRun:
     step, once the step is timed.  With ``--fail-at-step`` the injected
     crash propagates (``ft.SimulatedFailure``), as a real one would."""
     args, sess = build(argv)
-    cuda = sess.device.type == "cuda"
-    comm = sess.comm
+    say = print if sess.lead else (lambda *a, **k: None)
+    say(f"{sess.cfg.name}: mesh {args.mesh}, {meshlib.describe()}, on "
+        f"{sess.device}")
     start, mgr = 0, None
-    if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir)
-        if mgr.latest_step() is not None:
-            start, man = bootstrap.restore_session(sess, mgr)
-            print(f"resumed from step {start} "
-                  f"(manifest cursor {man.get('data_cursor')})")
+    try:
+        if args.ckpt_dir:
+            mgr = CheckpointManager(args.ckpt_dir)
+            if mgr.latest_step() is not None:
+                start, man = bootstrap.restore_session(sess, mgr)
+                say(f"resumed from step {start} "
+                    f"(manifest cursor {man.get('data_cursor')})")
+        return _loop(args, sess, on_step, start, mgr, say)
+    finally:
+        if mgr:
+            mgr.wait()
+        if sess.proc is not None:  # every rank waits for rank 0's write
+            import torch.distributed as dist
+            dist.barrier()
+
+
+def _loop(args, sess, on_step, start, mgr, say) -> TrainRun:
+    """The step loop of :func:`main` from ``start``."""
+    cuda, comm = sess.device.type == "cuda", sess.comm
     injector = FailureInjector(fail_at_step=args.fail_at_step)
     wd = Watchdog()
     losses, times, nbytes, nexch = [], [], [], []
@@ -181,23 +210,25 @@ def main(argv=None, on_step=None) -> TrainRun:
         nexch.append((comm.exchanges if comm is not None else 0) - x0)
         status = wd.observe(step, dt)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d}  loss {loss:.4f}  "
-                  f"gnorm {float(metrics['grad_norm']):.3f}  "
-                  f"lr {float(metrics['lr']):.2e}  {dt * 1e3:.0f}ms "
-                  f"[{status}]", flush=True)
+            say(f"step {step:5d}  loss {loss:.4f}  "
+                f"gnorm {float(metrics['grad_norm']):.3f}  "
+                f"lr {float(metrics['lr']):.2e}  {dt * 1e3:.0f}ms "
+                f"[{status}]", flush=True)
         if on_step is not None:
             on_step(step, sess, metrics)
         if mgr and (step + 1) % args.ckpt_every == 0:
-            mgr.save_async(
-                step + 1, sess.params[0] if sess.mode == "zero1"
-                else sess.params, bootstrap.opt_flat(sess),
-                {"data_cursor": step + 1,
-                 "config": config_fingerprint(sess.cfg),
-                 "mesh": args.mesh, "arch": args.arch, "world": sess.world})
-    if mgr:
-        mgr.wait()
+            opt = bootstrap.opt_flat(sess)  # every rank: a collective
+            if sess.lead:
+                mgr.save_async(
+                    step + 1, sess.params[0] if sess.mode == "zero1"
+                    else sess.params, opt,
+                    {"data_cursor": step + 1,
+                     "config": config_fingerprint(sess.cfg),
+                     "mesh": args.mesh, "arch": args.arch,
+                     "world": sess.world})
+            del opt
     if losses:
-        print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
+        say(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
     return TrainRun(losses=losses, step_seconds=times, sync_bytes=nbytes,
                     sync_exchanges=nexch, first_step=start)
 

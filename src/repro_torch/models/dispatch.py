@@ -33,7 +33,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..comm import LocalComm
 from ..core.plan import plan
 from ..core.spec import CollectiveSpec
 
@@ -257,16 +256,14 @@ def moe_ffn_ep(ps: list, cfg, xs: list, comm,
     phantom and over-capacity slots are exactly zero); the reverse
     alltoall brings the results back and each rank combines its own.
     The aux loss averages the router statistics over the ranks before
-    the product (``all_reduce_sum / pe`` for the reference's ``pmean``),
-    so it equals the single-pool loss.  Returns per-rank ``(outs,
+    the product (``fold_sum / pe`` for the reference's ``pmean``, in rank
+    order in both worlds), so it equals the single-pool loss.  ``comm``
+    is a ``LocalComm`` axis (every rank in this process) or a
+    ``DistComm`` (one rank per process; the backward's reverse exchanges
+    carry the other ranks' cotangents).  Returns per-rank ``(outs,
     auxs)``.  Exchanges per call: ``3·ceil(log2 pe)``; with
     ``use_fused_kernel`` on, two ``permute_rows`` launches per rank.
     """
-    if not isinstance(comm, LocalComm):
-        raise NotImplementedError(
-            "moe_dispatch='ep' runs over a LocalComm axis; over NCCL "
-            "sub-groups (DistComm) it is not ported yet (ROADMAP.md queue "
-            "1 item 11.1)")
     pe = comm.p
     e, k = cfg.n_experts, cfg.experts_per_token
     b, s, d = xs[0].shape
@@ -301,8 +298,8 @@ def moe_ffn_ep(ps: list, cfg, xs: list, comm,
     # Aux loss on the GLOBAL pool statistics: both are linear in the
     # tokens, so averaging them over the ranks first reproduces the
     # single-pool loss.
-    fracs = [f / pe for f in comm.all_reduce_sum(fracs)]
-    mprobs = [m / pe for m in comm.all_reduce_sum(mprobs)]
+    fracs = [f / pe for f in comm.fold_sum(fracs)]
+    mprobs = [m / pe for m in comm.fold_sum(mprobs)]
     auxs = [e * torch.sum(f * m) * cfg.router_aux_coef
             for f, m in zip(fracs, mprobs)]
 

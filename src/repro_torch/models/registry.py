@@ -52,7 +52,11 @@ class ModelApi(NamedTuple):
     ``prefill`` and ``decode_step`` of such a model run every rank of its
     communicator on the same tokens with the one parameter tree (the
     reference's ``shard_map`` with every spec ``P()``): the cache is then
-    a list, one per rank, and the logits are rank 0's."""
+    a list of ``ep_ranks`` caches, one per rank the communicator holds in
+    this process (every rank of a ``LocalComm``, one of a ``DistComm``),
+    and the logits are this process's first rank's (every rank's are
+    the same bits).  ``ep_ranks`` is 0 for any other model (one cache,
+    no list)."""
     cfg: ModelConfig
     init: Callable            # (generator, device) -> params
     loss: Callable            # (params, batch) -> scalar
@@ -60,6 +64,7 @@ class ModelApi(NamedTuple):
     prefill: Callable         # (params, tokens, max_len, **ex) -> (cache, lg)
     decode_step: Callable     # (params, cache, token, pos) -> (cache, logits)
     loss_ranks: Callable | None = None  # ([params], [batch]) -> [scalar]
+    ep_ranks: int = 0
 
 
 def is_ep(cfg: ModelConfig) -> bool:
@@ -97,7 +102,7 @@ def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
         raise ValueError("an expert-parallel model's ranks are coupled: "
                          "use loss_ranks over all local ranks")
 
-    n = ep_comm.size
+    n = len(ep_comm.ranks)
 
     def prefill(params, tokens, max_len):
         caches, logits = mod.prefill_ep([params] * n, cfg, [tokens] * n,
@@ -113,7 +118,8 @@ def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
     return ModelApi(cfg=cfg, init=init, loss=coupled, forward_logits=coupled,
                     prefill=prefill, decode_step=decode_step,
                     loss_ranks=lambda ps, bs: mod.loss_fn_ep(
-                        ps, cfg, bs, ep_comm, remat, use_fused_kernel))
+                        ps, cfg, bs, ep_comm, remat, use_fused_kernel),
+                    ep_ranks=n)
 
 
 def value_and_grad(loss: Callable) -> Callable:
@@ -133,10 +139,13 @@ def value_and_grad(loss: Callable) -> Callable:
 
 def value_and_grad_ranks(loss_ranks: Callable) -> Callable:
     """``([params], [batch]) -> ([loss], [grads])`` for coupled ranks: one
-    forward over every rank, then ONE backward of the sum of their
+    forward over every local rank, then ONE backward of the sum of their
     losses, each rank's gradient taken from its own leaves — rank r gets
     ``d(sum_s L_s) / d params_r``, what the reference's gradient inside
-    ``shard_map`` gives each device through the transposed exchanges."""
+    ``shard_map`` gives each device through the transposed exchanges.
+    Over a ``DistComm`` (one rank per process) each process takes the
+    backward of its own loss, and the other ranks' terms arrive through
+    the reverse exchanges, run by every rank in the same order."""
     def f(params, batches):
         items = [T.flatten(p) for p in params]
         leaves = [[leaf.detach().requires_grad_(True) for _, leaf in it]

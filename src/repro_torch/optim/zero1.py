@@ -11,7 +11,11 @@ summed with a plain all-reduce and updated replicated.
 
 Per-rank values are lists over the ranks the communicator holds in this
 process (``comm.ranks``): p entries on a ``LocalComm``, one on a
-``DistComm``.  The reference's grad-sync implementations
+``DistComm``.  The scalars the step folds over ranks (the grad norm's
+shard sums, the reported loss) and the tiny leaves fold in rank order
+(``comm.fold_sum``), so one rank per process gives the bits of the
+in-process world; the ``xla`` and ``allreduce`` impls keep the native
+sums for their leaves.  The reference's grad-sync implementations
 (``GradSyncConfig.impl``):
 
   circulant   paper Algorithm 1/2, exact or with the reduce-scatter on
@@ -232,10 +236,15 @@ def allgather_leaf(shards: Sequence[torch.Tensor], ld: int, comm,
     return [o[:ld] for o in out]
 
 
-def allreduce_leaf(gs: Sequence[torch.Tensor], comm, world: int
-                   ) -> list[torch.Tensor]:
-    """Tiny-leaf path: replicated mean over a plain all-reduce."""
-    return [s / world for s in comm.all_reduce_sum(gs)]
+def allreduce_leaf(gs: Sequence[torch.Tensor], comm, world: int,
+                   native: bool = False) -> list[torch.Tensor]:
+    """Tiny-leaf path: replicated mean over a rank-order fold
+    (``comm.fold_sum``: a process world gives the in-process world's
+    bits), or with ``native`` over the native all-reduce (NCCL's or
+    gloo's own sum on a ``DistComm``; the ``xla`` and ``allreduce``
+    impls)."""
+    sums = comm.all_reduce_sum(gs) if native else comm.fold_sum(gs)
+    return [s / world for s in sums]
 
 
 def ef_quantize(g: torch.Tensor, residual: torch.Tensor, group: int
@@ -510,7 +519,8 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
                 gs = [ef_step(j, i, g) for j, g in enumerate(gs)]
             out = reduce_scatter_leaf(gs, comm, sync, world)
         else:
-            out = allreduce_leaf([g.to(f32) for g in gs], comm, world)
+            out = allreduce_leaf([g.to(f32) for g in gs], comm, world,
+                                 native=sync.impl in ("xla", "allreduce"))
         del gs
         for j, o in enumerate(out):
             g_red[j][i] = o
@@ -537,7 +547,7 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
                 t = t + torch.sum(torch.square(g))
         shard_sq.append(s)
         tiny_sq.append(t)
-    shard_sq = comm.all_reduce_sum(shard_sq)
+    shard_sq = comm.fold_sum(shard_sq)
     gnorms = [torch.sqrt(s + t) for s, t in zip(shard_sq, tiny_sq)]
 
     # --- AdamW on shards, then allgather each updated leaf (bucketed:
@@ -579,7 +589,7 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
             for j, val in enumerate(full):
                 T.assign(params[j], items[i][0], val)
 
-    mloss = comm.all_reduce_sum([l.detach().to(f32) for l in losses])
+    mloss = comm.fold_sum([l.detach().to(f32) for l in losses])
     metrics = {"loss": mloss[0] / world, "grad_norm": gnorms[0], "lr": lr}
     new_opt = [Zero1State(m=o.m, v=o.v, step=step, ef=o.ef) for o in opt]
     return params, new_opt, metrics

@@ -14,9 +14,13 @@ r), runs the broadcast plan so that each rank reconstructs the whole
 leaf, and checks that the p reconstructions are BITWISE identical before
 handing one of them to every engine (the others are freed): the plan
 moves payload bits untouched, so any mismatch is a routing bug, not
-rounding.  All communication goes through the plan layer
-(``core.collectives.broadcast``); this module issues no exchange of its
-own.
+rounding.  Over a ``DistComm`` (one replica per process, under
+torchrun) each process holds one engine and sends its own row of every
+leaf; every process drew the same weights, so each reconstruction is
+checked bitwise against the process's own copy, and :meth:`generate`
+runs each process's share of the requests and allgathers the
+completions.  All communication goes through the plan layer
+(``core.collectives``); this module issues no exchange of its own.
 """
 from __future__ import annotations
 
@@ -38,26 +42,35 @@ from .engine import ServeEngine, params_device
 class ReplicaSet:
     """``replicas`` data-parallel :class:`ServeEngine` copies whose
     weights arrive through the broadcast plan (``schedule``: "power2" or
-    "halving" give the optimal ``ceil(log2 p)`` rounds at every p)."""
+    "halving" give the optimal ``ceil(log2 p)`` rounds at every p): all
+    in this process over a ``LocalComm``, or with ``comm`` (a
+    ``DistComm`` of ``replicas`` processes) this process's one.
+    ``engines`` holds the engines of this process."""
 
     def __init__(self, model: ModelApi, max_len: int, replicas: int, *,
-                 temperature: float = 0.0, schedule: str = "power2"):
+                 temperature: float = 0.0, schedule: str = "power2",
+                 comm=None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
+        if comm is not None and comm.p != replicas:
+            raise ValueError(f"{replicas} replicas over a communicator of "
+                             f"{comm.p} ranks")
         self.replicas = replicas
         self.spec = CollectiveSpec(kind="broadcast", schedule=schedule)
-        self.comm = LocalComm(replicas) if replicas > 1 else None
+        if comm is None and replicas > 1:
+            comm = LocalComm(replicas)
+        self.comm = comm
         self.engines = [
             ServeEngine(model=model, params=None, max_len=max_len,
                         temperature=temperature)
-            for _ in range(replicas)]
+            for _ in (comm.ranks if comm is not None else [0])]
 
     # -- weight distribution -----------------------------------------------
 
     def _fan_out_leaf(self, leaf: torch.Tensor) -> torch.Tensor:
         """One leaf through the broadcast plan: rows over the ranks,
-        all-broadcast so every rank reconstructs all rows, the p
-        reconstructions bitwise identical; returns one."""
+        all-broadcast so every rank reconstructs all rows, each
+        reconstruction bitwise the rows it came from; returns one."""
         p = self.replicas
         flat = leaf.reshape(-1)
         n = flat.numel()
@@ -65,13 +78,13 @@ class ReplicaSet:
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
         rows = flat.reshape(p, -1)
-        outs = C.broadcast([rows[r:r + 1] for r in range(p)], self.comm,
-                           spec=self.spec)
-        for r in range(1, p):
-            if not T.same_bits(outs[r], outs[0]):
+        outs = C.broadcast([rows[r:r + 1] for r in self.comm.ranks],
+                           self.comm, spec=self.spec)
+        for r, out in zip(self.comm.ranks, outs):
+            if not T.same_bits(out, rows):
                 raise AssertionError(
                     f"replica {r} reconstructed different weight bits than "
-                    f"replica 0 (broadcast must be bit-exact)")
+                    f"the source (broadcast must be bit-exact)")
         return outs[0].reshape(-1)[:n].reshape(leaf.shape)
 
     def push_weights(self, params: dict) -> dict:
@@ -112,14 +125,34 @@ class ReplicaSet:
     def generate(self, tokens: np.ndarray, max_new_tokens: int,
                  eos_id: int | None = None) -> np.ndarray:
         """Split a (B, S) prompt batch round-robin across the replicas and
-        reassemble the (B, max_new_tokens) completions in order."""
+        reassemble the (B, max_new_tokens) completions in order (over a
+        ``DistComm`` every process runs its rows and gets them all)."""
         if any(e.params is None for e in self.engines):
             raise RuntimeError("call push_weights before generate")
         b = tokens.shape[0]
         out = np.zeros((b, max_new_tokens), np.int32)
-        for r, eng in enumerate(self.engines):
+        ranks = self.comm.ranks if self.comm is not None else (0,)
+        for r, eng in zip(ranks, self.engines):
             rows = list(range(r, b, self.replicas))
             if rows:
                 out[rows] = eng.generate(tokens[rows], max_new_tokens,
                                          eos_id=eos_id)
+        if self.comm is not None and len(ranks) < self.replicas:
+            self._gather_completions(out)
         return out
+
+    def _gather_completions(self, out: np.ndarray) -> None:
+        """Fill every other process's rows of ``out`` (round-robin) with
+        its completions, through the circulant allgather: each process
+        sends its ``ceil(B / p)`` rows, zero-padded."""
+        p, b = self.replicas, out.shape[0]
+        per = -(-b // p)
+        dev = params_device(self.engines[0].params)
+        mine = np.zeros((per, out.shape[1]), np.int32)
+        own = out[self.comm.ranks[0]::p]
+        mine[:own.shape[0]] = own
+        got = C.allgather([torch.as_tensor(mine, device=dev)], self.comm,
+                          spec=CollectiveSpec())[0].cpu().numpy()
+        for r in range(p):
+            rows = out[r::p]
+            rows[:] = got[r * per:r * per + rows.shape[0]]

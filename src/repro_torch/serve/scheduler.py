@@ -17,6 +17,11 @@ request block tables gather to the dense view a static cache would hold
 ``decode_step`` takes per-slot (B,) positions so staggered requests each
 attend at their own offset.
 
+An expert-parallel engine (``model.ep_ranks > 0``) holds one cache per
+rank it runs in this process (every rank of a ``LocalComm``, one under
+torchrun), so the scheduler keeps one paged cache per rank, on the same
+block tables: each rank's prefill and decode write its own.
+
 Collectives never appear here: the engine's model owns its
 communicator, and replica-level communication goes through the plan
 layer (``replica.py``).
@@ -30,7 +35,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..models import is_ep
 from .engine import ServeEngine, eos_done_mask, params_device
 from .kv_cache import (BlockAllocator, OutOfBlocks, PagedKVCache,
                        blocks_per_request, scratch_table)
@@ -72,16 +76,15 @@ class Scheduler:
     ``max_batch`` bounds the decode batch; every slot's KV lives in paged
     blocks of ``kv_block_size`` rows (``engine.max_len`` must be a
     multiple).  ``num_blocks`` defaults to scratch + full occupancy.
-    ``boundary_s`` records the host-clock seconds of each :meth:`step`
-    (each ends in a device sync: the sampled tokens are read back)."""
+    ``kvs`` holds one paged cache per rank of an expert-parallel engine
+    (one for any other; ``kv`` is the first).  ``boundary_s`` records the
+    host-clock seconds of each :meth:`step` (each ends in a device sync:
+    the sampled tokens are read back)."""
 
     def __init__(self, engine: ServeEngine, max_batch: int,
                  kv_block_size: int, num_blocks: int | None = None):
-        if is_ep(engine.model.cfg):
-            raise NotImplementedError(
-                "the scheduler over an expert-parallel engine (one cache per "
-                "rank) is not ported (ROADMAP.md queue 1 item 11.1)")
         self.engine = engine
+        self.ep_ranks = engine.model.ep_ranks
         self.max_batch = max_batch
         self.blocks_per_req = blocks_per_request(engine.max_len,
                                                  kv_block_size)
@@ -89,8 +92,9 @@ class Scheduler:
             num_blocks = 1 + max_batch * self.blocks_per_req
         self.alloc = BlockAllocator(num_blocks)
         self.device = params_device(engine.params)
-        self.kv = PagedKVCache.create(engine.model.cfg, num_blocks,
-                                      kv_block_size, self.device)
+        self.kvs = [PagedKVCache.create(engine.model.cfg, num_blocks,
+                                        kv_block_size, self.device)
+                    for _ in range(max(1, self.ep_ranks))]
         self.slots: list[Request | None] = [None] * max_batch
         self.waiting: deque[Request] = deque()
         self.finished: dict[int, np.ndarray] = {}
@@ -115,6 +119,16 @@ class Scheduler:
                                     max_new_tokens=max_new_tokens,
                                     eos_id=eos_id))
         return rid
+
+    @property
+    def kv(self) -> PagedKVCache:
+        """The (first rank's) paged cache."""
+        return self.kvs[0]
+
+    def _per_rank(self, cache) -> list:
+        """An engine's cache (or an ep engine's list of caches) as a list
+        over ``kvs``."""
+        return cache if self.ep_ranks else [cache]
 
     @property
     def in_flight(self) -> int:
@@ -150,11 +164,12 @@ class Scheduler:
             cache, logits = self.engine.prefill_fn(
                 self.engine.params,
                 torch.as_tensor(req.tokens[None], device=self.device))
-            if not isinstance(cache, dict) or set(cache) != {"k", "v"}:
-                raise NotImplementedError(
-                    "paged scheduler covers attention-family caches only")
-            self.kv.write_prefill(
-                blocks, {"k": cache["k"][:, 0], "v": cache["v"][:, 0]})
+            for kv, c in zip(self.kvs, self._per_rank(cache)):
+                if not isinstance(c, dict) or set(c) != {"k", "v"}:
+                    raise NotImplementedError(
+                        "paged scheduler covers attention-family caches only")
+                kv.write_prefill(blocks, {"k": c["k"][:, 0],
+                                          "v": c["v"][:, 0]})
             del cache
             self.n_prefills += 1
             req.pos = req.prompt_len
@@ -183,12 +198,13 @@ class Scheduler:
             token[i] = req.last_token
             pos[i] = req.pos
             tables[i] = np.asarray(req.blocks, np.int32)
-        dense = self.kv.gather(tables)
+        dense = [kv.gather(tables) for kv in self.kvs]
         new_cache, logits = self.engine.decode_fn(
-            self.engine.params, dense,
+            self.engine.params, dense if self.ep_ranks else dense[0],
             torch.as_tensor(token, device=self.device),
             torch.as_tensor(pos, device=self.device))
-        self.kv.write_token(tables, new_cache, pos)
+        for kv, c in zip(self.kvs, self._per_rank(new_cache)):
+            kv.write_token(tables, c, pos)
         del dense, new_cache
         self.n_decode_steps += 1
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()

@@ -14,7 +14,10 @@ On 4 fake CPU devices (meshes through ``repro.compat``), writes
   ``PRNGKey(1)`` (``ep/param/<path>``); ``ep/prompts`` (2, 8) from
   ``default_rng(1)``; ``ServeEngine(mesh=...)``'s greedy ``ep/tokens``
   (2, 6) and the logits each token was taken from, ``ep/logits`` (6, 2,
-  vocab): the prefill's, then each decode step's.
+  vocab): the prefill's, then each decode step's; and the reference's
+  ``Scheduler`` over that engine (``max_batch=2``, blocks of 8): the
+  ``SCHED_NEW`` requests of ``ep/sched_prompts`` (3, 8) from
+  ``default_rng(2)``, their tokens ``ep/sched_tokens_<i>``.
 
 Run: python tests/_torch_serve_ref.py <out.npz>
 """
@@ -35,9 +38,11 @@ import numpy as np  # noqa: E402
 from repro import compat  # noqa: E402
 from repro.configs import get_config  # noqa: E402
 from repro.models import build  # noqa: E402
-from repro.serve import ReplicaSet, ServeEngine  # noqa: E402
+from repro.serve import ReplicaSet, Scheduler, ServeEngine  # noqa: E402
 
 REP_NEW, EP_NEW = 4, 6
+#: new tokens of each scheduler request (3 requests, 2 slots)
+SCHED_NEW = (4, 2, 3)
 
 
 def flat(prefix, params):
@@ -84,6 +89,13 @@ def expert_parallel():
     out = flat("ep", params)
     out.update({"ep/prompts": prompts, "ep/tokens": tokens,
                 "ep/logits": np.stack(steps)})
+    sched = Scheduler(eng, max_batch=2, kv_block_size=8)
+    sp = np.random.default_rng(2).integers(0, 64, (3, 8)).astype(np.int32)
+    rids = [sched.submit(p, n) for p, n in zip(sp, SCHED_NEW)]
+    done = sched.run()
+    out["ep/sched_prompts"] = sp
+    for i, rid in enumerate(rids):
+        out[f"ep/sched_tokens_{i}"] = done[rid]
     return out
 
 

@@ -10,7 +10,10 @@
   and the expert-parallel MoE path on a 2x2 mesh; the elastic drill's
   CLI shrinks a world on the CPU;
 * the serve CLI (``python -m repro_torch.launch.serve``) generates on
-  the CPU when asked, and refuses to start without a card otherwise.
+  the CPU when asked, and refuses to start without a card otherwise;
+* ``launch/mesh.py`` makes no process group on import, and in torchrun's
+  environment (a world of one process, gloo) both launchers join the
+  process world and run where JAX and ``repro`` cannot be imported.
 """
 import ast
 import math
@@ -80,6 +83,35 @@ def test_every_family_builds_and_runs_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     assert ("FAMILIES ['dense', 'encdec', 'hybrid', 'moe', 'ssm_xlstm', "
             "'vlm']") in proc.stdout
+
+
+def test_process_world_runs_without_jax_or_repro():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    code = (
+        "import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import mesh, serve, train\n"
+        "assert not dist.is_initialized() and mesh.is_process_world()\n"
+        "run = train.main(['--arch', 'qwen3-1.7b', '--scale-down', "
+        "'--device', 'cpu', '--mesh', '1x1', '--mode', 'zero1', '--steps', "
+        "'1', '--seq-len', '8', '--global-batch', '1'])\n"
+        "assert dist.get_backend() == 'gloo' and len(run.losses) == 1\n"
+        "out = serve.main(['--arch', 'phi3.5-moe-42b-a6.6b', '--scale-down', "
+        "'--device', 'cpu', '--moe-dispatch', 'ep', '--ep-devices', '1', "
+        "'--batch', '1', '--prompt-len', '8', '--max-new', '2'])\n"
+        "assert out.tokens.shape == (1, 2)\n"
+        "print('PROCESS WORLD OK')\n")
+    env = _env()
+    env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PROCESS WORLD OK" in proc.stdout
+    assert "process world: 1 processes over gloo" in proc.stdout
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -331,11 +331,13 @@ def test_ep_owner_grads_with_identical_ranks(reference):
 
 
 def test_ep_refuses_dist_comm_and_single_rank_loss():
-    cfg = _cfg(ModelConfig, 4, 1.25, True)
-    params, x, _ = _case_inputs("same2")
-    with pytest.raises(NotImplementedError):
-        dispatch.moe_ffn_ep([{k: _t(v) for k, v in params.items()}], cfg,
-                            [_t(x[0])], object.__new__(DistComm))
+    """A ``DistComm`` needs a process world (``moe_ffn_ep`` over one,
+    a rank per process, is held on gloo in
+    ``test_torch_dist_train.py``); an ep model's ranks are coupled, so
+    the single-rank loss raises, and an ep config needs its
+    communicator."""
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        DistComm()
     model = port_build(dataclasses.replace(
         port_config("phi3.5-moe-42b-a6.6b").scaled_down(),
         moe_dispatch="ep"), ep_comm=LocalComm(2))

@@ -530,12 +530,15 @@ def test_scheduler_queue_waits_for_blocks(models):
 
 
 def test_scheduler_refuses_ep_engine_and_oversized_requests(models):
+    """An ep engine is taken (it was refused before the scheduler kept
+    one paged cache per rank): two ranks, two caches; an oversized
+    request is refused."""
     from repro_torch.comm import LocalComm
     cfg = dataclasses.replace(_scaled(port_config, PHI), moe_dispatch="ep")
     pm = port_build(cfg, remat=False, ep_comm=LocalComm(2))
     pp = models["phi_global"][3]
-    with pytest.raises(NotImplementedError):
-        Scheduler(ServeEngine(pm, pp, MAX_LEN), max_batch=2, kv_block_size=4)
+    ep = Scheduler(ServeEngine(pm, pp, MAX_LEN), max_batch=2, kv_block_size=4)
+    assert len(ep.kvs) == 2 and ep.kv is ep.kvs[0]
     _, eng = _engines(models)
     sched = Scheduler(eng, max_batch=2, kv_block_size=4)
     with pytest.raises(ValueError):
@@ -566,7 +569,7 @@ def test_serve_cli_one_shot_and_scheduler_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--moe-dispatch", "ep", "--max-batch", "2"],
+    ["--moe-dispatch", "ep", "--ep-devices", "0"],
     ["--moe-dispatch", "ep", "--arch", QWEN],
     ["--max-batch", "2", "--kv-block-size", "5"]])
 def test_serve_cli_refusals(extra):

@@ -15,10 +15,23 @@ same weights (``convert.params_from_numpy``) on a ``LocalComm``:
   step (``test_torch_moe.py``'s MoE tolerance), greedy tokens equal, and
   every rank's logits and caches bitwise rank 0's; the ``permute_rows``
   backend and the plain one give the same tokens;
+* the scheduler over the ep engine (one paged cache per rank): tokens
+  bitwise one-shot ``generate`` of each request alone, and equal to the
+  reference's ``Scheduler`` over its ep engine;
+* one rank per process (one spawn of 3 gloo processes,
+  ``_torch_dist_serve_worker.py``): ``ReplicaSet(3)`` over a
+  ``DistComm`` (fan-out bitwise, ``n_leaves * ceil_log2(3)`` exchanges,
+  tokens equal to the reference's and to the in-process set's), the ep
+  engine at pe = 2 over 2 processes (logits of every step bitwise the
+  in-process engine's, tokens equal to the reference's), the scheduler
+  over it (tokens bitwise the in-process scheduler's, equal to the
+  reference's), and the serve launcher's argv in both worlds, tokens
+  bitwise; the in-process side on one torch thread, as the workers;
 * the reference's ``serve-collectives-via-plan`` lint rule on the port's
   ``serve`` package.
 """
 import os
+import socket
 import subprocess
 import sys
 
@@ -26,14 +39,17 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_serve_worker as SW
+from _torch_arch_cases import one_torch_thread  # noqa: F401
 from repro_torch import tree as T
 from repro_torch.comm import LocalComm
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import ceil_log2
+from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build
 from repro_torch.models import transformer as ptr
-from repro_torch.serve import ReplicaSet, ServeEngine
+from repro_torch.serve import ReplicaSet, Scheduler, ServeEngine
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 QWEN, PHI = "qwen3-1.7b", "phi3.5-moe-42b-a6.6b"
@@ -145,6 +161,83 @@ def test_ep_serving_matches_reference(reference):
     np.testing.assert_array_equal(got, reference["ep/tokens"])
     off, _ = _ep_engine(reference, fused=False)
     np.testing.assert_array_equal(off.generate(prompts, got.shape[1]), got)
+
+
+def test_scheduler_over_ep_engine_matches_reference(reference):
+    eng, _ = _ep_engine(reference)
+    prompts = reference["ep/sched_prompts"]
+    got = SW.scheduled(eng, prompts)
+    for i, (toks, n) in enumerate(zip(got, SW.SCHED_NEW)):
+        np.testing.assert_array_equal(toks,
+                                      reference[f"ep/sched_tokens_{i}"])
+        np.testing.assert_array_equal(toks, eng.generate(prompts[i][None],
+                                                         n)[0])
+
+
+@pytest.fixture(scope="module")
+def processes(reference, tmp_path_factory):
+    """The gloo worlds of ``_torch_dist_serve_worker.py`` (3 ranks, then
+    2), one spawn; returns each rank's output."""
+    tmp = tmp_path_factory.mktemp("serve_procs")
+    np.savez(tmp / "ref.npz", **reference)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(str(s.getsockname()[1]))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "..", "src"), env.get("PYTHONPATH", "")])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "_torch_dist_serve_worker.py"),
+         str(r), ",".join(ports), str(tmp / "ref.npz"), str(tmp / "out")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(3)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    return [dict(np.load(tmp / f"out.{r}.npz")) for r in range(3)]
+
+
+def test_replica_set_over_processes(processes, reference):
+    cfg = _cfg(QWEN)
+    rs = ReplicaSet(build(cfg, remat=False), 24, 3)
+    st = rs.push_weights(_params(reference, "rep", cfg))
+    want = rs.generate(reference["rep/prompts"], 4)
+    cli = serve_cli.main(SW.REP_ARGV).tokens
+    n = st["n_leaves"]
+    for out in processes:
+        assert out["rep/stats"].tolist() == [
+            n, st["bytes"], ceil_log2(3), n * ceil_log2(3), n * ceil_log2(3)]
+        np.testing.assert_array_equal(out["rep/tokens"], want)
+        np.testing.assert_array_equal(out["rep/tokens"],
+                                      reference["rep/tokens"])
+        np.testing.assert_array_equal(out["rep/cli"], cli)
+
+
+def test_ep_serving_over_processes(processes, reference):
+    eng, _ = _ep_engine(reference)
+    prompts = reference["ep/prompts"]
+    want = torch.stack(SW.ep_logits(eng, prompts,
+                                    reference["ep/logits"].shape[0]))
+    cli = serve_cli.main(SW.EP_ARGV).tokens
+    for out in processes[:2]:
+        np.testing.assert_array_equal(out["ep/logits"], want.numpy())
+        np.testing.assert_array_equal(out["ep/tokens"],
+                                      reference["ep/tokens"])
+        np.testing.assert_array_equal(out["ep/cli"], cli)
+
+
+def test_scheduler_over_ep_engine_over_processes(processes, reference):
+    eng, _ = _ep_engine(reference)
+    want = SW.scheduled(eng, reference["ep/sched_prompts"])
+    cli = serve_cli.main(SW.SCHED_ARGV).tokens
+    for out in processes[:2]:
+        for i, toks in enumerate(want):
+            np.testing.assert_array_equal(out[f"sched/{i}"], toks)
+            np.testing.assert_array_equal(out[f"sched/{i}"],
+                                          reference[f"ep/sched_tokens_{i}"])
+        for b, toks in cli.items():
+            np.testing.assert_array_equal(out[f"ep/cli_sched_{b}"], toks)
 
 
 def test_serve_modules_communicate_only_through_the_plan_layer():
