@@ -173,6 +173,20 @@ Phases (any failure exits non-zero; none is caught):
    and for each a float32 run at batch 2, 16 new tokens: prefill and
    every decode step within 1e-3 of ``forward_logits``.
 
+13. the roofline of the card's own runs (``repro_torch.roofline``; it
+   runs nothing new, in well under a second): for phase 4's, phase 5
+   (a)'s and each phase 11 (a) run's fastest warm step, phase 10 (a)'s
+   time to first token (a ``prefill`` cell of 8 x 2048) and decode p50
+   (a ``decode`` cell at the 2176-token cache each step reads), and under
+   ``--cards 4`` phase 12 (c)'s world step: the ``CellSpec``, the
+   compute, memory and collective terms on the H100's data-sheet peaks,
+   the bound (the largest), the bottleneck, measured ÷ bound and
+   ``mfu``; the sync's bytes and exchanges a step counted from the plans
+   (``sync_counts``) beside the launcher's ``comm.bytes`` /
+   ``comm.exchanges``, which must be equal, and no measured time below
+   its bound; one JSON record a path in ``build/roofline`` and the
+   rendered table (``repro_torch.roofline.report``).
+
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
 rows, a misaligned base, every alltoall shape of phases 3 and 6) and
@@ -243,6 +257,10 @@ def argv_with(argv: list, **flags) -> list:
 WIRE_A_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", no_error_feedback=True)
 WIRE_B_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", mesh=f"{P_EF}x1",
                         global_batch=P_EF)
+
+#: phase 13's inputs: label -> what phases 4, 5 (a), 10 (a), 11 (a) and
+#: 12 (c) measured (see :func:`measured_train`, :func:`phase_roofline`)
+MEASURED: dict[str, dict] = {}
 
 
 def fail(msg: str) -> None:
@@ -1518,6 +1536,7 @@ def phase_main_path():
     want["fused_round"] = STEPS * P_MAIN * n_zero * 2
     run, counts, peak, rs_bytes, _ = run_path(MAIN_ARGV, "main path", want,
                                               P_MAIN, wire=False)
+    measured_train("4", "qwen3-1.7b", 2048, P_MAIN, run, peak, {})
     launches = counts["fused_round"]
     print(f"main path: fused_round launches {launches} "
           f"(= {STEPS} steps x {P_MAIN} ranks x {n_zero} leaves x 2 rounds)")
@@ -1602,6 +1621,8 @@ def phase_wire_path(f32_rs_bytes: int):
                 fused_round_dq=STEPS * P_MAIN * n_a * 2)
     run_a, counts_a, peak_a, rs_a, _ = run_path(
         WIRE_A_ARGV, "wire path (a)", want, P_MAIN, wire=True)
+    measured_train("5a", "qwen3-1.7b", 2048, P_MAIN, run_a, peak_a,
+                   dict(wire_dtype="int8", error_feedback=False))
     print(f"wire path (a): reduce-scatter bytes per step {rs_a} vs "
           f"{f32_rs_bytes} in float32 (phase 4): {f32_rs_bytes / rs_a:.4f}x "
           f"fewer")
@@ -2925,6 +2946,12 @@ def serve_oneshot(smi: str):
           and out.max() < cfg.vocab_size, f"serving (a): tokens {out.shape} "
           f"in [{out.min()}, {out.max()}]")
     t = sess.engine.timings
+    for label, kind, seq, sec in (("10a-prefill", "prefill", s, t["ttft_s"]),
+                                  ("10a-decode", "decode", s + new,
+                                   pct(t["step_s"], 50) / 1e3)):
+        MEASURED[label] = dict(arch=cfg.name, kind=kind, seq=seq, batch=b,
+                               ranks=1, local=True, mode="serve",
+                               measured_s=sec, peak=peak)
     kv = b * (s + new) * kv_bytes_per_token(cfg)
     w = tree_bytes(sess.params)
     bound = (w + kv) / HBM_BYTES_PER_S * 1e3
@@ -3533,6 +3560,8 @@ def phase_families(smi: str) -> dict:
     for arch, seq in FAMILY_TRAIN.items():
         t0 = time.perf_counter()
         run, counts, peak = family_train(arch, seq)
+        measured_train(f"11a-{arch.split('-')[0]}", arch, seq, P_MAIN, run,
+                       peak, {})
         for k in total:
             total[k] += counts[k]
         print(f"phase 11 (a) {arch}: seq {seq}, step seconds "
@@ -3541,6 +3570,9 @@ def phase_families(smi: str) -> dict:
               f"({smi})")
     t0 = time.perf_counter()
     run, counts, peak = family_wire()
+    measured_train("11a-hymba-int8", FAMILY_WIRE[0],
+                   FAMILY_TRAIN[FAMILY_WIRE[0]], P_MAIN, run, peak,
+                   dict(wire_dtype="int8", error_feedback=False))
     for k in total:
         total[k] += counts[k]
     print(f"phase 11 (a) {FAMILY_WIRE[0]} int8 wire: step seconds "
@@ -3555,6 +3587,95 @@ def phase_families(smi: str) -> dict:
         print(f"phase 11 (c) {arch} in {time.perf_counter() - t0:.1f} s")
     print(f"phase 11 in {time.perf_counter() - t11:.1f} s ({smi})")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the roofline of the card's own runs
+# ---------------------------------------------------------------------------
+
+#: where phase 13 writes its records (``python -m repro_torch.roofline.report
+#: --dir build/roofline --mesh h100`` renders them again)
+ROOFLINE_DIR = ROOT / "build" / "roofline"
+
+
+def measured_train(label: str, arch: str, seq: int, p: int, run, peak: int,
+                   sync: dict) -> None:
+    """Record a ZeRO-1 run of ``p`` virtual ranks on one card (global
+    batch ``p``) for phase 13: its fastest warm step (step 0 builds the
+    plans and warms the allocator), the sync bytes and exchanges the
+    launcher counted each step, and ``sync``, the ``GradSyncConfig``
+    keywords of its argv."""
+    MEASURED[label] = dict(
+        arch=arch, kind="train", seq=seq, batch=p, ranks=p, local=True,
+        mode="zero1" + (" int8" if sync.get("wire_dtype") else ""),
+        sync=sync, measured_s=min(run.step_seconds[1:]),
+        sync_bytes=run.sync_bytes, exchanges=run.sync_exchanges, peak=peak)
+
+
+def phase_roofline(smi: str, mesh: str = "h100") -> None:
+    """Phase 13: every measured path of :data:`MEASURED` against its
+    roofline bound (``repro_torch.roofline``; nothing runs on the card).
+    Each path's ``CellSpec`` at full width (``p`` ranks: on one card
+    virtual ranks, whose compute and memory the card does p times and
+    whose exchanges are HBM copies; over NCCL one rank a card, the sync
+    on NVLink), its three terms, the bound (the largest), measured ÷
+    bound and ``mfu``; the sync's bytes and exchanges counted from the
+    plans beside those the launcher counted, which must be equal; no
+    measured time may be below its bound.  One JSON record a path in
+    ``build/roofline`` (``<arch>_phase<label>_<mesh>.json``), then the
+    rendered table."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.optim.zero1 import GradSyncConfig
+    from repro_torch.roofline import CellSpec, analyze, report, sync_counts
+    t13 = time.perf_counter()
+    ROOFLINE_DIR.mkdir(parents=True, exist_ok=True)
+    rows = []
+    for label, m in MEASURED.items():
+        cfg = get_config(m["arch"])
+        p = m["ranks"]
+        cell = CellSpec(kind=m["kind"], seq=m["seq"], batch=m["batch"],
+                        n_chips=p, tp=1, dp_world=p)
+        sync = None
+        if "sync" in m:
+            sync = sync_counts(cfg, GradSyncConfig(**m["sync"]), p,
+                               ranks=p if m["local"] else 1)
+            check(all(b == sync.bytes for b in m["sync_bytes"]) and
+                  all(x == sync.exchanges for x in m["exchanges"]),
+                  f"phase 13 ({label}): the plans count {sync.bytes} bytes "
+                  f"and {sync.exchanges} exchanges a step, the launcher "
+                  f"{m['sync_bytes']} and {m['exchanges']}")
+        rl = analyze(cfg, cell, sync=sync, local=m["local"],
+                     measured_s=m["measured_s"])
+        where = (f"{p} cards, one rank each" if not m["local"] else
+                 "one card" if p == 1 else f"one card, {p} virtual ranks")
+        print(f"phase 13 ({label}): {cell} ({where})")
+        print(f"phase 13 ({label}): t_compute {rl.t_compute * 1e3:.3f} ms, "
+              f"t_memory {rl.t_memory * 1e3:.3f} ms, t_collective "
+              f"{rl.t_collective * 1e3:.3f} ms; bound {rl.t_bound * 1e3:.3f}"
+              f" ms ({rl.bottleneck}); measured {m['measured_s'] * 1e3:.3f}"
+              f" ms = {m['measured_s'] / rl.t_bound:.2f}x the bound; mfu "
+              f"{rl.mfu:.5f} ({smi})")
+        if sync is not None:
+            print(f"phase 13 ({label}): sync a step, plans {sync.bytes} bytes"
+                  f" / {sync.exchanges} exchanges, counted "
+                  f"{m['sync_bytes'][0]} / {m['exchanges'][0]}; bytes by "
+                  f"dtype {sync.stats.raw_bytes_by_dtype}")
+        check(m["measured_s"] >= rl.t_bound,
+              f"phase 13 ({label}): measured {m['measured_s']} s is below "
+              f"its bound {rl.t_bound} s: a term counts more work than the "
+              f"path does")
+        rec = {"arch": m["arch"], "shape": f"phase{label}",
+               "mode": m["mode"], "mesh": mesh, "status": "OK",
+               "cell": dataclasses.asdict(cell), "card": smi,
+               "roofline": rl.as_dict(),
+               "memory": {"argument_bytes": m["peak"], "temp_bytes": 0}}
+        with open(ROOFLINE_DIR / f"{m['arch']}_phase{label}_{mesh}.json",
+                  "w") as f:
+            json.dump(rec, f, indent=1)
+        rows.append(rec)
+    print(report.render(rows))
+    print(f"phase 13 in {time.perf_counter() - t13:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3587,10 +3708,10 @@ P12C_CROSS_LAYERS = 3
 P12D_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", steps=2)
 #: (e): ep phi-3.5-MoE on a 2x2 DistMesh, every width, depth 32 -> 2.
 P12E = dict(EP_MAIN, dp=2, mp=2, global_batch=2, n_layers=2, steps=2)
-#: (f): ep decode at pe = 4, depth 32 -> 10 (a whole replica a card; the
-#: initializer's float32 temporaries of the stacked expert leaves put 16
-#: layers past 80 GB); the scheduler's requests.
-P12F_EP4 = dict(EP_SERVE, ep_devices=4, n_layers=10)
+#: (f): ep decode at pe = 4, depth 32 -> 16 (a whole replica a card:
+#: weights and the initializer's one float32 temporary of a stacked
+#: expert leaf); the scheduler's requests.
+P12F_EP4 = dict(EP_SERVE, ep_devices=4, n_layers=16)
 P12F_SCHED = dict(n=4, max_batch=2, block=16)
 #: (f): the fan-out's replicas (qwen3-1.7b, every width and layer).
 P12F_REPLICAS = 4
@@ -4204,6 +4325,18 @@ def phase_main_path_on_cards(smi: str) -> dict:
     res = torchrun(4, "c", "c")
     c = res[0]
     on = c["on"]
+    for x in res[1:]:
+        check(x["on"]["sync_bytes"] == on["sync_bytes"] and
+              x["on"]["exchanges"] == on["exchanges"],
+              "(c) ranks counted different sync bytes or exchanges")
+    # a world's step ends with its slowest rank
+    world_s = [max(x["on"]["step_seconds"][i] for x in res)
+               for i in range(len(on["step_seconds"]))]
+    MEASURED["12c"] = dict(
+        arch="qwen3-1.7b", kind="train", seq=2048, batch=4, ranks=4,
+        local=False, mode="zero1", sync={}, measured_s=min(world_s[1:]),
+        sync_bytes=on["sync_bytes"], exchanges=on["exchanges"],
+        peak=max(x["on"]["peak"] for x in res))
     print(f"(c) {' '.join(P12C_ARGV)}; reduced: none")
     print(f"(c) losses {on['losses']}, grad norms {on['gnorm']}; every "
           f"rank's params bitwise equal after every step; kernels off: "
@@ -4430,6 +4563,7 @@ def cards_main() -> int:
     print(f"nvidia-smi topo -m:\n{topo}")
     print(f"NCCL {torch.cuda.nccl.version()}", flush=True)
     by_path = phase_multi_card(smi)
+    phase_roofline(smi, mesh="h100x4")
     names = {"fused_round": ("src/repro_torch/csrc/fused_round.cu",
                              "src/repro/kernels/fused_round.py:109"),
              "fused_round_dq": ("src/repro_torch/csrc/fused_round_dq.cu",
@@ -4509,6 +4643,7 @@ def main() -> int:
     serving = phase_serving(smi)
     families = phase_families(smi)
     launcher = phase_launcher_one_card(smi)
+    phase_roofline(smi)
     print("phase 12 (b)-(g), one rank per card over NCCL (the collectives "
           "on the links, the main path at p = 4, the int8 wire with EF at "
           "p = 3, ep training and serving, the fan-out, checkpoints across "

@@ -42,8 +42,8 @@ from ..configs import get_config
 from ..data import for_model
 from ..models import build, is_ep, leaf_dtype, param_shapes
 from ..optim.adamw import AdamWConfig, TreeAdamState
-from ..optim.zero1 import (GradSyncConfig, Zero1State, is_zero_leaf,
-                           resize_zero1_state)
+from ..optim.zero1 import (GradSyncConfig, Zero1State, resize_zero1_state,
+                           zero_flags)
 from ..serve import ReplicaSet
 from ..train import build_single, build_zero1
 from . import mesh as meshlib
@@ -305,9 +305,8 @@ def run_step(sess: Session, step: int) -> dict:
 
 def _zero_flags(sess: Session, params: dict) -> list[bool]:
     """Per leaf (flatten order): sharded at ``sess.world``?"""
-    return [sess.sync.use_zero and is_zero_leaf(tuple(p.shape), sess.world,
-                                                sess.sync.min_shard_numel)
-            for p in T.leaves(params)]
+    return zero_flags([tuple(p.shape) for p in T.leaves(params)],
+                      sess.world, sess.sync)
 
 
 def _check_gatherable(sess: Session) -> None:

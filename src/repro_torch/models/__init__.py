@@ -1,4 +1,5 @@
 """Models of the port: every architecture family of the reference."""
-from .config import ModelConfig  # noqa: F401
+from .config import ModelConfig, ShardingRecipe  # noqa: F401
 from .registry import (ModelApi, build, is_ep, leaf_dtype,  # noqa: F401
-                       param_shapes, value_and_grad, value_and_grad_ranks)
+                       make_param_specs, param_shapes, value_and_grad,
+                       value_and_grad_ranks)

@@ -143,3 +143,28 @@ class ModelConfig:
         expert_ffn = 3 * self.d_model * self.d_ff
         inactive = (self.n_experts - self.experts_per_token) * expert_ffn
         return full - self.n_layers * inactive
+
+
+@dataclass(frozen=True)
+class ShardingRecipe:
+    """Named mesh axes of the tensor-parallel parameter specs (the
+    reference's ``ShardingRecipe``; ``registry.make_param_specs`` reads
+    it).
+
+    mode:
+      'tp'       params replicated over data, sharded over model (ZeRO-1
+                 handles the optimizer memory over data) — small/mid models.
+      'tp_fsdp'  params additionally sharded over (pod, data) on a weight
+                 axis — the >=90B models.
+    """
+    data_axes: tuple[str, ...] = ("data",)    # ('pod', 'data') multi-pod
+    model_axis: str = "model"
+    mode: str = "tp"
+
+    @property
+    def batch_axes(self):
+        return self.data_axes
+
+    @property
+    def fsdp_axes(self):
+        return self.data_axes if self.mode == "tp_fsdp" else ()

@@ -38,7 +38,9 @@ def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int,
     std = fan_in ** -0.5 if std is None else std
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (std * w).to(dtype)
+    # scaled in place: a stacked leaf at full width holds one float32
+    # temporary, not two
+    return w.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype, device=None

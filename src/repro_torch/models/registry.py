@@ -1,6 +1,7 @@
 """Model registry, ported from ``repro/models/registry.py``: one API over
-every architecture family, for training and serving, and the family's
-parameter shapes and leaf dtypes."""
+every architecture family, for training and serving, the family's
+parameter shapes and leaf dtypes, and the tensor-parallel parameter
+specs (``make_param_specs``)."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -8,8 +9,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import tree as T
+from ..sharding import PartitionSpec as P
 from . import encdec, transformer, vlm, xlstm
-from .config import ModelConfig
+from .config import ModelConfig, ShardingRecipe
 
 _FAMILY_MODULES = {
     "dense": transformer,
@@ -166,3 +168,78 @@ def value_and_grad_ranks(loss_ranks: Callable) -> Callable:
         return [loss.detach() for loss in losses], grads
 
     return f
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (leaf-name based; stacked layer dims padded with None)
+# ---------------------------------------------------------------------------
+
+def _rules(fsdp):
+    """name -> base spec (innermost dims).  fsdp is an axis tuple or None."""
+    f = fsdp
+    return {
+        # embeddings / heads
+        "embed": (("model", f)),
+        "lm_head": ((f, "model")),
+        # attention
+        "wq": (f, "model", None), "wk": (f, "model", None),
+        "wv": (f, "model", None), "wo": ("model", None, f),
+        "wo_gate": (f, "model", None),
+        "bq": ("model", None), "bk": ("model", None), "bv": ("model", None),
+        # dense ffn
+        "w_gate": (f, "model"), "w_up": (f, "model"), "w_down": ("model", f),
+        # moe (expert-parallel over 'model')
+        "moe.w_gate": ("model", f, None), "moe.w_up": ("model", f, None),
+        "moe.w_down": ("model", None, f), "router": (None, None),
+        # mamba
+        "w_in": (f, "model"), "w_out": ("model", f),
+        "w_dt": ("model", None), "w_B": ("model", None), "w_C": ("model", None),
+        "A_log": ("model", None), "D": ("model",), "conv_w": (None, "model"),
+        "dt_bias": ("model",),
+        # mlstm / slstm
+        "wi": (f, "model"), "wf": (f, "model"),
+        "w_x": (f, None, "model", None), "r_h": (None, "model", None, None),
+    }
+
+
+def _leaf_name(path) -> tuple[str, str]:
+    """(name, qualified) — qualified includes the parent dict key (a
+    path's ``str`` keys; list indices are skipped)."""
+    names = [k for k in path if isinstance(k, str)]
+    name = names[-1] if names else ""
+    parent = names[-2] if len(names) > 1 else ""
+    return name, f"{parent}.{name}"
+
+
+def make_param_specs(params, recipe: ShardingRecipe | None):
+    """``PartitionSpec`` tree matching ``params`` (tensors, or shape
+    tuples as ``param_shapes`` gives them).
+
+    TP rule set above; when recipe.mode == 'tp_fsdp' the designated weight
+    dim is additionally sharded over the data axes (FSDP).  Leading stacked
+    dims (scan layers / vlm groups) are padded with None.  Unknown leaves
+    replicate.  ``launch.mesh.sanitize_specs`` then drops what a mesh
+    does not divide.
+    """
+    items = T.flatten(params)
+    if recipe is None:
+        return T.unflatten((path, P()) for path, _ in items)
+    fsdp = tuple(recipe.fsdp_axes) if recipe.fsdp_axes else None
+    rules = _rules(fsdp)
+
+    def spec_for(path, leaf):
+        name, qual = _leaf_name(path)
+        base = rules.get(qual, rules.get(name))
+        ndim = len(getattr(leaf, "shape", leaf))
+        if base is None:
+            return P(*([None] * ndim))
+        base = tuple(base)
+        if ndim < len(base):  # scalar-ish leaf (smoke config edge): replicate
+            return P(*([None] * ndim))
+        pad = ndim - len(base)
+        spec = (None,) * pad + base
+        # Replace 'model' with the recipe's model axis name.
+        spec = tuple(recipe.model_axis if s == "model" else s for s in spec)
+        return P(*spec)
+
+    return T.unflatten((path, spec_for(path, leaf)) for path, leaf in items)

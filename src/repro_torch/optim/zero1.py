@@ -141,6 +141,12 @@ class GradSyncConfig:
         """False for the no-ZeRO ``allreduce`` baseline."""
         return self.impl != "allreduce"
 
+    @property
+    def native_sums(self) -> bool:
+        """The ``xla`` and ``allreduce`` impls sum the tiny leaves with
+        the native all-reduce; the others fold them in rank order."""
+        return self.impl in ("xla", "allreduce")
+
     def rs_spec(self) -> CollectiveSpec:
         """The reduce-scatter :class:`CollectiveSpec` this config means
         (``allreduce`` shards nothing; its spec is the native one)."""
@@ -187,12 +193,26 @@ def is_zero_leaf(shape, world: int, min_numel: int) -> bool:
     return pad_ld <= 2 * ld or numel // max(ld, 1) * pad_ld >= min_numel
 
 
+def padded_rows(ld: int, world: int) -> int:
+    """A zero leaf's leading dim ``ld`` padded to a multiple of
+    ``world``."""
+    return ld + (-ld) % world
+
+
+def zero_flags(shapes: Sequence[tuple], world: int,
+               sync: GradSyncConfig) -> list[bool]:
+    """Per leaf of ``shapes``: does a step shard it (the allreduce
+    baseline shards none)?"""
+    return [sync.use_zero and is_zero_leaf(s, world, sync.min_shard_numel)
+            for s in shapes]
+
+
 def _pad_lead(x: torch.Tensor, world: int, dtype: torch.dtype) -> torch.Tensor:
     """``x`` cast to ``dtype`` with its leading dim zero-padded to a
     multiple of ``world``, in one new tensor (at full width a cast and a
     pad as two copies would double the largest transient)."""
     ld = x.shape[0]
-    out = x.new_zeros((ld + (-ld) % world, *x.shape[1:]), dtype=dtype)
+    out = x.new_zeros((padded_rows(ld, world), *x.shape[1:]), dtype=dtype)
     out[:ld] = x
     return out
 
@@ -208,7 +228,7 @@ def local_rows(p: torch.Tensor, rank: int, world: int) -> torch.Tensor:
     (the reference pads the whole leaf and slices; this slices first and
     pads only the rows past the end)."""
     ld = p.shape[0]
-    off, rows = shard_offset(ld + (-ld) % world, rank, world)
+    off, rows = shard_offset(padded_rows(ld, world), rank, world)
     part = p[min(off, ld):min(off + rows, ld)]
     if part.shape[0] < rows:
         part = torch.cat(
@@ -318,6 +338,89 @@ def _last_use(buckets) -> dict[int, int]:
     return {li: b for b, bucket in enumerate(buckets) for li, _, _ in bucket}
 
 
+def grad_buckets(zero_shapes: Sequence[tuple], world: int,
+                 sync: GradSyncConfig) -> list[list[tuple[int, int, int]]]:
+    """The bucket partition the bucketed reduce and allgather both run
+    on: :func:`plan_grad_buckets` of the zero leaves at ``rs_dtype``."""
+    return plan_grad_buckets(zero_shapes, world, sync.bucket_bytes,
+                             _DTYPES[sync.rs_dtype].itemsize)
+
+
+def bucket_width(bucket, zero_shapes: Sequence[tuple]) -> int:
+    """Elements of one rank's block of a bucket's vector."""
+    return sum((hi - lo) * _row_numel(zero_shapes[li])
+               for li, lo, hi in bucket)
+
+
+def bucket_dtype(dtypes: Sequence[torch.dtype]) -> torch.dtype:
+    """The bucketed allgather's payload dtype: the zero leaves' parameter
+    dtypes promoted (each leaf casts back losslessly)."""
+    dt = dtypes[0]
+    for d in dtypes[1:]:
+        dt = torch.promote_types(dt, d)
+    return dt
+
+
+class SyncCall(NamedTuple):
+    """One collective call a rank makes in a step.  ``op``:
+    ``"reduce_scatter"`` / ``"allgather"`` on the plan of ``spec``,
+    ``"fold"`` (``comm.fold_sum``) or ``"all_reduce"`` (the native sum;
+    ``spec`` is ``None`` for both).  ``numel``: the elements of the
+    rank's payload, the whole padded vector of a reduce-scatter, the
+    block of an allgather, the tensor of a fold or an all-reduce."""
+    op: str
+    spec: CollectiveSpec | None
+    numel: int
+    dtype: torch.dtype
+
+
+def sync_schedule(shapes: Sequence[tuple], dtypes: Sequence[torch.dtype],
+                  world: int, sync: GradSyncConfig) -> list[SyncCall]:
+    """The collective calls one rank makes in one :func:`zero1_step`
+    over ``world`` ranks, for leaves of ``shapes`` and parameter
+    ``dtypes`` (flatten order), in the step's order: each zero leaf's
+    reduce-scatter (padded, at ``rs_dtype``) and each tiny leaf's float32
+    fold or native all-reduce, in leaf order, the buckets'
+    reduce-scatters after them; the fold of the grad norm's shard sums;
+    each zero leaf's allgather (its parameter dtype), or each bucket's
+    (:func:`bucket_dtype`); the fold of the loss.  The step lays its
+    sync out with the same helpers (:func:`zero_flags`,
+    :func:`padded_rows`, :func:`grad_buckets`, :func:`bucket_width`,
+    :func:`bucket_dtype`, ``GradSyncConfig.native_sums``);
+    ``roofline/analysis.sync_counts`` counts these calls' bytes on
+    their plans."""
+    flags = zero_flags(shapes, world, sync)
+    zero = [i for i, f in enumerate(flags) if f]
+    zshapes = [shapes[i] for i in zero]
+    buckets = (grad_buckets(zshapes, world, sync)
+               if sync.bucket_bytes is not None and zero else None)
+    rs_dt, f32 = _DTYPES[sync.rs_dtype], torch.float32
+    rs, ag = sync.rs_spec(), sync.ag_spec()
+    tiny = "all_reduce" if sync.native_sums else "fold"
+    calls = []
+    for shape, flag in zip(shapes, flags):
+        if not flag:
+            calls.append(SyncCall(tiny, None, int(np.prod(shape)), f32))
+        elif buckets is None:
+            calls.append(SyncCall(
+                "reduce_scatter", rs,
+                padded_rows(shape[0], world) * _row_numel(shape), rs_dt))
+    for bucket in buckets or ():
+        calls.append(SyncCall("reduce_scatter", rs,
+                              world * bucket_width(bucket, zshapes), rs_dt))
+    calls.append(SyncCall("fold", None, 1, f32))  # the grad norm
+    if buckets is None:
+        calls += [SyncCall("allgather", ag, padded_rows(shapes[i][0], world)
+                           // world * _row_numel(shapes[i]), dtypes[i])
+                  for i in zero]
+    else:
+        dt = bucket_dtype([dtypes[i] for i in zero])
+        calls += [SyncCall("allgather", ag, bucket_width(b, zshapes), dt)
+                  for b in buckets]
+    calls.append(SyncCall("fold", None, 1, f32))  # the loss
+    return calls
+
+
 def _bucketed_reduce(grads: list, zero_idx: list, items: list, comm,
                      sync: GradSyncConfig, world: int, ef_step=None) -> list:
     """Bucketed, pipelined reduce-scatter of the zero leaves' gradients
@@ -338,16 +441,14 @@ def _bucketed_reduce(grads: list, zero_idx: list, items: list, comm,
     """
     dt = _DTYPES[sync.rs_dtype]
     shapes = [items[i][1] for i in zero_idx]
-    buckets = plan_grad_buckets(shapes, world, sync.bucket_bytes,
-                                dt.itemsize)
+    buckets = grad_buckets(shapes, world, sync)
     last = _last_use(buckets)
     n = len(grads)
     sources: list[dict] = [{} for _ in range(n)]
 
     def vectors():
         for b, bucket in enumerate(buckets):
-            width = sum((hi - lo) * _row_numel(shapes[li])
-                        for li, lo, hi in bucket)
+            width = bucket_width(bucket, shapes)
             vecs = []
             for j in range(n):
                 vec, col = None, 0
@@ -412,12 +513,9 @@ def _bucketed_allgather(shards: list, zero_idx: list, items: list, comm,
     dropped after its last leaf.  Pure transport: bitwise the per-leaf
     allgather (mixed dtypes promote and cast back losslessly)."""
     shapes = [items[i][1] for i in zero_idx]
-    buckets = plan_grad_buckets(shapes, world, sync.bucket_bytes,
-                                _DTYPES[sync.rs_dtype].itemsize)
+    buckets = grad_buckets(shapes, world, sync)
     last = _last_use(buckets)
-    dt = dtypes[zero_idx[0]]
-    for i in zero_idx[1:]:
-        dt = torch.promote_types(dt, dtypes[i])
+    dt = bucket_dtype([dtypes[i] for i in zero_idx])
     n = len(shards)
 
     def vectors():
@@ -486,10 +584,9 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     items = [(path, tuple(p.shape)) for path, p in flat]
     dtypes = [p.dtype for _, p in flat]
     del flat
-    # the allreduce baseline shards nothing: every leaf takes the tiny path
-    flags = [sync.use_zero and is_zero_leaf(shape, world,
-                                            sync.min_shard_numel)
-             for _, shape in items]
+    # the layout is :func:`sync_schedule`'s: the allreduce baseline
+    # shards nothing, so every leaf takes the tiny path
+    flags = zero_flags([shape for _, shape in items], world, sync)
     zero_idx = [i for i, f in enumerate(flags) if f]
     bucketed = sync.bucket_bytes is not None and bool(zero_idx)
     f32 = torch.float32
@@ -520,7 +617,7 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
             out = reduce_scatter_leaf(gs, comm, sync, world)
         else:
             out = allreduce_leaf([g.to(f32) for g in gs], comm, world,
-                                 native=sync.impl in ("xla", "allreduce"))
+                                 native=sync.native_sums)
         del gs
         for j, o in enumerate(out):
             g_red[j][i] = o
