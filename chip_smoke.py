@@ -153,9 +153,9 @@ Phases (any failure exits non-zero; none is caught):
 
 11. the other architecture families: (a) ``python -m
    repro_torch.launch.train`` with phase 4's argv for ``hymba-1.5b``
-   (seq 2048: past its 1024-token window), ``xlstm-125m`` (seq 1024) and
+   (seq 2048: past its 1024-token window), ``xlstm-125m`` (seq 512) and
    ``whisper-small`` (1500 encoder frames, 448 decoder tokens), full
-   width and depth, 3 steps over 3 virtual ranks: ``fused_round``
+   width and depth, 2 steps over 3 virtual ranks: ``fused_round``
    launches, sync bytes and exchanges exact, step seconds and peak
    memory, then step 0 again with ``--fused-kernel off``: loss, grad norm
    and the params after it bitwise; and hymba with ``--wire-dtype int8
@@ -185,7 +185,33 @@ Phases (any failure exits non-zero; none is caught):
    (``sync_counts``) beside the launcher's ``comm.bytes`` /
    ``comm.exchanges``, which must be equal, and no measured time below
    its bound; one JSON record a path in ``build/roofline`` and the
-   rendered table (``repro_torch.roofline.report``).
+   rendered table (``repro_torch.roofline.report``).  Tensor-parallel
+   paths (phase 14 (a), and under ``--cards 4`` (c), (d)) are
+   ``CellSpec(tp=M)`` with both axes' counts from ``tp_counts`` (the
+   plans' data-axis sync of the blocks, the model's model-axis calls
+   from a run on ``meta`` tensors), equal to ``comm.bytes`` /
+   ``exchanges`` / ``natives`` of both axes on every step.
+
+14. tensor parallelism (``--mesh DxM`` with M > 1: ZeRO-1 over the data
+   axis, TP over the model axis) and ``--mode fsdp_auto``: (a) phase 4's
+   argv at ``--mesh 2x2 --global-batch 2 --steps 3`` (qwen3-1.7b full
+   width and depth, bf16, 4 virtual ranks on one card), the launch
+   counts set to 0 just before: ``fused_round`` launched 3 steps x 4
+   ranks x the
+   blocks' zero leaves x 1 round, the warm step, the peak, a profiled
+   warm step's idle share; step 0 bitwise with ``--fused-kernel off``;
+   at 3 layers in float32, 2 steps, held against the 2x1 path (loss
+   within 1e-5 relative, params rtol 1e-4 / atol 1e-6); (b) ``--mode
+   fsdp_auto`` on 2x2 at 3 layers in float32 against mode ``single``
+   at the same global batch (the same bounds), no kernel launched; and
+   qwen1.5-110b at full width, ``tp_fsdp`` on 2x2, at 1 of 80 layers
+   (the 12-bytes-a-parameter reckoning printed): step seconds and peak.
+   Under ``--cards 4``: (c) (a)'s argv on a 2x2 ``DistMesh`` over NCCL,
+   full depth: per-rank steps, peaks, rank 0's idle share; at 3 layers
+   every rank's blocks against (a)'s in-process run within rtol 1e-5 /
+   atol 1e-5 (the model axis sums with NCCL's ``all_reduce``; whether
+   they came out bitwise is printed); (d) qwen1.5-110b fsdp_auto on a
+   2x2 ``DistMesh`` at 12 layers: step seconds, peak a card.
 
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
@@ -198,6 +224,9 @@ bitwise equal to eager, with exact exchange and launch counts.
 A profiled step counts only if its profile holds every launch of the
 port's kernels that the step made; otherwise its device time is printed
 as not measured.
+
+``python3 chip_smoke.py --cards 4`` runs phase 1 on every card, phase
+12 (b)-(g), phase 14 (c), (d) and phase 13 for 12 (c), 14 (c), (d).
 
 ``python3 chip_smoke.py --against SRC`` runs nothing of the above: it
 compares this tree's kernels with those of the ``repro_torch`` under
@@ -2583,10 +2612,11 @@ class Preflight:
         from repro_torch.train.steps import collective_specs
         self._orig = orig = bootstrap.build_zero1
 
-        def counted(model, comm, opt_cfg, sync, device=None, ep_world=None):
+        def counted(model, comm, opt_cfg, sync, device=None, ep_world=None,
+                    tp=None):
             self.builds += 1
             self.plans += len(collective_specs(sync, model.cfg, ep_world))
-            return orig(model, comm, opt_cfg, sync, device, ep_world)
+            return orig(model, comm, opt_cfg, sync, device, ep_world, tp=tp)
 
         bootstrap.build_zero1 = counted
         self._calls0 = assert_verified.calls
@@ -3315,12 +3345,13 @@ def phase_serving(smi: str) -> dict:
 #: phase 11 (a): arch -> sequence length of its full-width, full-depth
 #: ZeRO-1 run over 3 virtual ranks (hymba past its 1024-token window;
 #: Whisper: its 30-s encoder window of 1500 frames, the decoder at its
-#: ``dec_len`` of 448 tokens).  xLSTM at 1024, not 2048: its sLSTM
-#: recurrence runs one Python step a token, and at 2048 the script passes
-#: its 1200-s limit on a slow host (PERF.md §4).
-FAMILY_TRAIN = {"hymba-1.5b": 2048, "xlstm-125m": 1024,
+#: ``dec_len`` of 448 tokens).  xLSTM at 512, not 2048: its sLSTM
+#: recurrence runs one Python step a token; at 2048 the script passed its
+#: 1200-s limit on a slow host, and with phase 14 added 1024 left it at
+#: 1109.8 s (PERF.md §4).  Two steps each (one warm), for the same reason.
+FAMILY_TRAIN = {"hymba-1.5b": 2048, "xlstm-125m": 512,
                 "whisper-small": 1500}
-FAMILY_STEPS = 3
+FAMILY_STEPS = 2
 #: phase 11 (a): the int8-wire run (EF off): its arch and steps.
 FAMILY_WIRE = ("hymba-1.5b", 2)
 #: phase 11 (c): arch -> (batch, prompt, new tokens, depth cut or None).
@@ -3612,6 +3643,46 @@ def measured_train(label: str, arch: str, seq: int, p: int, run, peak: int,
         sync_bytes=run.sync_bytes, exchanges=run.sync_exchanges, peak=peak)
 
 
+def tp_roofline_counts(label: str, m: dict):
+    """A tensor-parallel path's ``CellSpec`` (``tp`` = M) and its two axes'
+    counts from ``roofline.tp_counts`` (the data axis's sync on the
+    plans, the hooks' calls from the model run on ``meta`` tensors),
+    checked equal to what the communicators counted every step:
+    ``comm.bytes``, ``comm.exchanges`` and ``comm.natives`` of both
+    axes.  Returns the cell and the axes' counts combined."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.bootstrap import FSDP_ARCHS
+    from repro_torch.models import ShardingRecipe
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim.zero1 import GradSyncConfig
+    from repro_torch.roofline import CellSpec, combined, tp_counts
+    d, mm = m["tp"]
+    cfg = get_config(m["arch"])
+    if m["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=m["layers"])
+    recipe = ShardingRecipe(tp_size=mm, mode=(
+        "tp_fsdp" if m["mode"] == "fsdp_auto" and cfg.name in FSDP_ARCHS
+        else "tp"))
+    t0 = time.perf_counter()
+    pc = tp_counts(cfg, shd.tp_layout(cfg, recipe, (d, mm)), mode=m["mode"],
+                   batch=m["batch"], seq=m["seq"],
+                   sync=GradSyncConfig(**m["sync"]),
+                   ranks=m["ranks"] if m["local"] else 1)
+    want = {a: [c.bytes, c.exchanges, c.natives] for a, c in pc.items()}
+    for i, got in enumerate(m["steps"]):
+        check(got == want, f"phase 13 ({label}): step {i} counted {got}, "
+              f"the plans and the model's calls {want}")
+    print(f"phase 13 ({label}): a step, data axis {want['data']} and model "
+          f"axis {want['model']} (bytes, exchanges, native calls) counted "
+          f"= predicted on every step; the native calls' volume "
+          f"{pc['data'].native_bytes:.0f} + {pc['model'].native_bytes:.0f} "
+          f"bytes; counted in {time.perf_counter() - t0:.1f} s")
+    cell = CellSpec(kind=m["kind"], seq=m["seq"], batch=m["batch"],
+                    n_chips=m["ranks"], tp=mm, dp_world=d)
+    return cell, combined(pc["data"], pc["model"])
+
+
 def phase_roofline(smi: str, mesh: str = "h100") -> None:
     """Phase 13: every measured path of :data:`MEASURED` against its
     roofline bound (``repro_torch.roofline``; nothing runs on the card).
@@ -3633,11 +3704,15 @@ def phase_roofline(smi: str, mesh: str = "h100") -> None:
     rows = []
     for label, m in MEASURED.items():
         cfg = get_config(m["arch"])
+        if m.get("layers"):
+            cfg = dataclasses.replace(cfg, n_layers=m["layers"])
         p = m["ranks"]
         cell = CellSpec(kind=m["kind"], seq=m["seq"], batch=m["batch"],
                         n_chips=p, tp=1, dp_world=p)
         sync = None
-        if "sync" in m:
+        if "tp" in m:
+            cell, sync = tp_roofline_counts(label, m)
+        elif "sync" in m:
             sync = sync_counts(cfg, GradSyncConfig(**m["sync"]), p,
                                ranks=p if m["local"] else 1)
             check(all(b == sync.bytes for b in m["sync_bytes"]) and
@@ -3656,7 +3731,7 @@ def phase_roofline(smi: str, mesh: str = "h100") -> None:
               f" ms ({rl.bottleneck}); measured {m['measured_s'] * 1e3:.3f}"
               f" ms = {m['measured_s'] / rl.t_bound:.2f}x the bound; mfu "
               f"{rl.mfu:.5f} ({smi})")
-        if sync is not None:
+        if sync is not None and "tp" not in m:
             print(f"phase 13 ({label}): sync a step, plans {sync.bytes} bytes"
                   f" / {sync.exchanges} exchanges, counted "
                   f"{m['sync_bytes'][0]} / {m['exchanges'][0]}; bytes by "
@@ -3676,6 +3751,284 @@ def phase_roofline(smi: str, mesh: str = "h100") -> None:
         rows.append(rec)
     print(report.render(rows))
     print(f"phase 13 in {time.perf_counter() - t13:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: tensor parallelism (the model axis of --mesh DxM) and fsdp_auto
+# ---------------------------------------------------------------------------
+
+#: (a): phase 4's argv on a 2x2 mesh: the circulant RS / AG over the data
+#: axis (each model column its own group), TP over the model axis
+P14A_ARGV = argv_with(MAIN_ARGV, mesh="2x2", global_batch=2, steps=3)
+#: the depth of the float32 holds of (a) and (b), and of (c)'s hold
+P14_HOLD_LAYERS = 3
+#: (b): fsdp_auto on 2x2 (qwen3-1.7b: recipe mode ``tp``)
+P14B_ARGV = argv_with(MAIN_ARGV, mesh="2x2", mode="fsdp_auto",
+                      global_batch=2)
+#: (b) and (d): qwen1.5-110b at full width, fsdp_auto ``tp_fsdp`` on 2x2
+P14_BIG_ARGV = argv_with(P14B_ARGV, arch="qwen1.5-110b", steps=3)
+P14B_BIG_LAYERS = 1
+P14D_BIG_LAYERS = 12
+#: (d)'s ranks' allocator setting (``PYTORCH_CUDA_ALLOC_CONF``): run 3 of
+#: the phase ran out of memory at 12 layers with 9.49 GiB reserved but
+#: unallocated
+P14D_ALLOC_CONF = "expandable_segments:True"
+#: the float32 holds: loss relative, params rtol / atol.  ``atol`` is a
+#: third of the last step's learning rate (3e-5): an element whose
+#: gradient sits near AdamW's eps (1e-8) takes its update's size from the
+#: float32 noise of the sums the two layouts order differently (run 1 of
+#: the phase: one ``wv`` element 1.01x an atol of 1e-6 past rtol 1e-4).
+P14_HOLD = dict(loss=1e-5, rtol=1e-4, atol=1e-5)
+
+
+class f32_configs:
+    """Within the block, every session the launchers build in this process
+    has its config in float32 (the launchers have no dtype flag)."""
+
+    def __enter__(self):
+        import dataclasses
+        from repro_torch.launch import bootstrap
+        self.resolve = resolve = bootstrap.resolve_cfg
+
+        def f32(*args, **kw):
+            return dataclasses.replace(resolve(*args, **kw), dtype="float32")
+
+        bootstrap.resolve_cfg = f32
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import bootstrap
+        bootstrap.resolve_cfg = self.resolve
+
+
+def tp_steps(sess) -> dict:
+    """The counters of a tensor-parallel session's two axes:
+    ``(bytes, exchanges, natives)`` of the data axis and of the model
+    axis."""
+    return {axis: (c.bytes, c.exchanges, c.natives) for axis, c in
+            (("data", sess.comm), ("model", sess.tp.axis.comm))}
+
+
+def tp_zero_leaves(argv) -> int:
+    """Zero leaves of one rank's blocks in ``argv``'s tensor-parallel
+    zero1 session (the sync's per-leaf reduce-scatters a rank)."""
+    from repro_torch.launch import bootstrap
+    from repro_torch.launch import train as trainer
+    from repro_torch.models import ShardingRecipe
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim.zero1 import GradSyncConfig, zero_flags
+    args = trainer._parser().parse_args(argv)
+    d, m = (int(x) for x in args.mesh.split("x"))
+    cfg = bootstrap.resolve_cfg(args.arch, scale_down=args.scale_down)
+    lay = shd.tp_layout(cfg, ShardingRecipe(tp_size=m), (d, m))
+    return sum(zero_flags(lay.local_shapes(), d, GradSyncConfig()))
+
+
+def tp_main(argv, label: str, *, keep_whole: bool = False,
+            profile: bool = False, dev=None) -> dict:
+    """``launch.train.main(argv)`` of a tensor-parallel session, every
+    launch count set to 0 just before: per step the loss, grad norm and
+    both axes' counters a step, after step 0 the digest of every local
+    rank's blocks; at the last step the launches and the peak, then
+    (``profile``) one unprofiled and one profiled warm step of the same
+    session, and (``keep_whole``, in process) the whole parameters."""
+    import torch
+    from repro_torch.launch import bootstrap
+    from repro_torch.launch import train as trainer
+    last_step = trainer._parser().parse_args(argv).steps - 1
+    rec = {"gnorm": [], "steps": []}
+    last = [None]
+
+    def on_step(step, sess, metrics):
+        if dev is not None:
+            on_card(sess.params[0], dev, label)
+        now = tp_steps(sess)
+        prev = last[0] or {a: (0, 0, 0) for a in now}
+        rec["steps"].append({a: [x - y for x, y in zip(now[a], prev[a])]
+                             for a in now})
+        last[0] = now
+        rec["gnorm"].append(float(metrics["grad_norm"]))
+        if step == 0:
+            rec["digest"] = digest(sess.params)
+        if step != last_step:
+            return
+        rec["counts"] = read_counts()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        if keep_whole:
+            rec["whole"] = bootstrap.whole_params(sess, sess.params)
+        if profile:
+            warm = timed_step(lambda: bootstrap.run_step(sess, step + 1))
+            rec["warm_ms"] = warm
+            profiled_step(lambda: bootstrap.run_step(sess, step + 2),
+                          f"{label}, a warm step", warm,
+                          ranks=len(sess.comm.ranks))
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = trainer.main(argv, on_step=on_step)
+    rec.update(losses=run.losses, step_seconds=run.step_seconds,
+               sync_bytes=run.sync_bytes, exchanges=run.sync_exchanges)
+    check(all(math.isfinite(x) for x in run.losses),
+          f"{label}: non-finite loss {run.losses}")
+    free_cuda()
+    return rec
+
+
+def held(got: dict, want: dict, label: str, rtol: float, atol: float
+         ) -> float:
+    """Every leaf of ``got`` within ``rtol`` / ``atol`` of ``want``'s;
+    returns the largest ``|got - want| / (atol + rtol |want|)`` and
+    prints how many elements are past ``rtol`` alone."""
+    from repro_torch import tree as T
+    worst, past, total = 0.0, 0, 0
+    for path, a in T.flatten(got):
+        b = T.get(want, path).to(a.device, a.dtype)
+        diff = (a - b).abs()
+        r = float((diff / (atol + rtol * b.abs())).max())
+        past += int((diff > rtol * b.abs()).sum())
+        total += b.numel()
+        check(r <= 1.0, f"{label}: {'.'.join(path)} beyond rtol {rtol} / "
+              f"atol {atol} ({r:.3f} of the bound)")
+        worst = max(worst, r)
+    print(f"{label}: {past} of {total} elements past rtol {rtol} alone, "
+          f"the largest {worst:.3f} of rtol {rtol} / atol {atol}")
+    return worst
+
+
+def loss_held(got: list, want: list, label: str, rel: float) -> None:
+    bad = [(a, b) for a, b in zip(got, want) if abs(a - b) > rel * abs(b)]
+    check(not bad, f"{label}: losses {got} vs {want} beyond {rel} relative")
+
+
+def print_tp_run(label: str, rec: dict, smi: str) -> None:
+    print(f"{label}: losses {rec['losses']}, grad norms {rec['gnorm']}")
+    print(f"{label}: step seconds {[round(t, 4) for t in rec['step_seconds']]}"
+          f" (host clock to device sync); peak "
+          f"{rec['peak'] / 2**30:.2f} GiB; launches {rec['counts']}")
+    s = rec["steps"][0]
+    print(f"{label}: a step: data axis {s['data'][0]} bytes, {s['data'][1]} "
+          f"exchanges, {s['data'][2]} native calls; model axis "
+          f"{s['model'][2]} native calls ({smi})")
+
+
+def measured_tp(label: str, arch: str, argv, rec: dict, *, local: bool,
+                layers: int | None = None, world_s=None) -> None:
+    """Record a tensor-parallel run for phase 13: both axes' counts a step
+    and its fastest warm step (``world_s``: the world's step, its slowest
+    rank's)."""
+    from repro_torch.launch import train as trainer
+    args = trainer._parser().parse_args(argv)
+    d, m = (int(x) for x in args.mesh.split("x"))
+    secs = world_s or rec["step_seconds"]
+    MEASURED[label] = dict(
+        arch=arch, kind="train", seq=args.seq_len, batch=args.global_batch,
+        ranks=d * m, local=local, mode=args.mode or "zero1", sync={},
+        tp=(d, m), layers=layers, measured_s=min(secs[1:]),
+        steps=rec["steps"], peak=rec["peak"])
+
+
+def phase_tensor_parallel(smi: str) -> dict:
+    """Phase 14 (a) and (b) on one card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ceil_log2
+    t14 = time.perf_counter()
+    # (a) the main path tensor parallel, full width and depth
+    n_zero = tp_zero_leaves(P14A_ARGV)
+    print(f"phase 14 (a): {' '.join(P14A_ARGV)}: qwen3-1.7b full width, 28 "
+          f"layers, bf16, 4 virtual ranks on one card (2 data x 2 model: "
+          f"each model column's blocks synced over its data group, "
+          f"{n_zero} zero leaves a rank); reduced: none")
+    a = tp_main(P14A_ARGV, "phase 14 (a)", profile=True)
+    want = {name: 0 for name in counters()}
+    steps = len(a["losses"])
+    want["fused_round"] = steps * 4 * n_zero * ceil_log2(2)
+    check(a["counts"] == want, f"phase 14 (a): launches {a['counts']}, "
+          f"expected {want} (= {steps} steps x 4 ranks x {n_zero} zero "
+          f"leaves x 1 round)")
+    print_tp_run("phase 14 (a)", a, smi)
+    print(f"phase 14 (a): fused_round launches {a['counts']['fused_round']} "
+          f"= {steps} steps x 4 ranks x {n_zero} zero leaves of the blocks "
+          f"x 1 round; warm step {a['warm_ms']:.1f} ms")
+    off = tp_main(argv_with(P14A_ARGV, steps=1, fused_kernel="off"),
+                  "phase 14 (a), kernels off")
+    check(not any(off["counts"].values()), f"phase 14 (a) off: "
+          f"{off['counts']}")
+    check(off["losses"][0] == a["losses"][0] and off["gnorm"][0] ==
+          a["gnorm"][0] and off["digest"] == a["digest"],
+          "phase 14 (a): kernels on and off differ in step 0's loss or grad "
+          "norm or the params after it")
+    print("phase 14 (a): --fused-kernel off gives a bitwise-equal step-0 "
+          "loss and grad norm and bitwise-equal params (every rank's "
+          "blocks) after step 0")
+    measured_tp("14a", "qwen3-1.7b", P14A_ARGV, a, local=True)
+    # (a)'s hold: 2x2 against 2x1 in float32 at 3 layers
+    with cut_depth(P14_HOLD_LAYERS), f32_configs():
+        tp = tp_main(argv_with(P14A_ARGV, steps=2), "phase 14 (a) hold 2x2",
+                     keep_whole=True)
+        dp = hold_run(argv_with(P14A_ARGV, steps=2, mesh="2x1"))
+    loss_held(tp["losses"], dp["losses"], "phase 14 (a) hold",
+              P14_HOLD["loss"])
+    worst = held(tp["whole"], dp["whole"], "phase 14 (a) hold",
+                 P14_HOLD["rtol"], P14_HOLD["atol"])
+    print(f"phase 14 (a): float32 at {P14_HOLD_LAYERS} layers, 2x2 vs 2x1 "
+          f"(phase 4's path at D = 2), 2 steps: losses {tp['losses']} vs "
+          f"{dp['losses']} (within {P14_HOLD['loss']} relative), params "
+          f"within rtol {P14_HOLD['rtol']} / atol {P14_HOLD['atol']} (the "
+          f"largest {worst:.3f} of the bound)")
+    del tp, dp
+    free_cuda()
+    # (b) fsdp_auto: 2x2 against single in float32 at 3 layers
+    with cut_depth(P14_HOLD_LAYERS), f32_configs():
+        fs = tp_main(argv_with(P14B_ARGV, steps=2), "phase 14 (b) fsdp_auto",
+                     keep_whole=True)
+        single = hold_run(argv_with(P14B_ARGV, steps=2, mesh="1x1",
+                                    mode="single"))
+    check(not any(fs["counts"].values()), f"phase 14 (b): fsdp_auto "
+          f"launched {fs['counts']} (it runs the native calls only)")
+    loss_held(fs["losses"], single["losses"], "phase 14 (b)",
+              P14_HOLD["loss"])
+    worst = held(fs["whole"], single["whole"], "phase 14 (b)",
+                 P14_HOLD["rtol"], P14_HOLD["atol"])
+    print(f"phase 14 (b): --mode fsdp_auto on 2x2 (recipe tp), float32 at "
+          f"{P14_HOLD_LAYERS} layers vs mode single at global batch 2: "
+          f"losses {fs['losses']} vs {single['losses']}, params the largest "
+          f"{worst:.3f} of the bound")
+    del fs, single
+    free_cuda()
+    big = get_config("qwen1.5-110b")
+    layer = (big.param_count() - 2 * big.vocab_size * big.d_model) \
+        / big.n_layers
+    embed = 2 * big.vocab_size * big.d_model
+    n = embed + P14B_BIG_LAYERS * layer
+    print(f"phase 14 (b): qwen1.5-110b full width, fsdp_auto tp_fsdp on "
+          f"2x2, {P14B_BIG_LAYERS} of {big.n_layers} layers: 12 B a "
+          f"parameter (bf16 leaf and gradient, float32 m and v) x "
+          f"({embed / 1e9:.2f} B embed + lm_head + {P14B_BIG_LAYERS} x "
+          f"{layer / 1e9:.2f} B) = {12 * n / 1e9:.1f} GB on the card, "
+          f"activations apart; reduced: depth {big.n_layers} -> "
+          f"{P14B_BIG_LAYERS}")
+    with cut_depth(P14B_BIG_LAYERS):
+        b = tp_main(P14_BIG_ARGV, "phase 14 (b) qwen1.5-110b")
+    check(not any(b["counts"].values()), f"phase 14 (b): {b['counts']}")
+    print_tp_run("phase 14 (b) qwen1.5-110b", b, smi)
+    print(f"phase 14 in {time.perf_counter() - t14:.1f} s ({smi})")
+    return {"14a": {k: a["counts"][k] + off["counts"][k] for k in a["counts"]},
+            "14b": b["counts"]}
+
+
+def hold_run(argv) -> dict:
+    """``launch.train.main(argv)`` of a session without a model axis: its
+    losses and rank 0's parameters after the last step."""
+    from repro_torch import tree as T
+    from repro_torch.launch import train as trainer
+    keep = {}
+
+    def on_step(step, sess, metrics):
+        p = sess.params[0] if isinstance(sess.params, list) else sess.params
+        keep["whole"] = T.map_leaves(lambda x: x.detach().clone(), p)
+
+    run = trainer.main(argv, on_step=on_step)
+    keep["losses"] = run.losses
+    return keep
 
 
 # ---------------------------------------------------------------------------
@@ -3826,6 +4179,8 @@ def rank_child(spec_json: str) -> int:
     import torch
     import torch.distributed as dist
     spec = json.loads(spec_json)
+    if spec.get("alloc_conf"):  # before the first allocation on the card
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = spec["alloc_conf"]
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import mesh
     rank = int(os.environ["RANK"])
@@ -3863,7 +4218,7 @@ def run_recorded(argv, label: str, dev) -> dict:
         on_card(sess.params[0], dev, label)
         rec["gnorm"].append(float(metrics["grad_norm"]))
         d = digest(sess.params[0])
-        if sess.ep_comm is None:
+        if sess.ep_comm is None and sess.tp is None:
             check(all(x == d for x in gathered(d)),
                   f"{label}: ranks' params differ after step {step}")
         rec["digests"].append(d)
@@ -4243,9 +4598,141 @@ def p12_checkpoint(spec, dev) -> dict:
     return out
 
 
+def p14_tp_rank(spec, dev) -> dict:
+    """14 (c)'s rank: phase 14 (a)'s argv on a 2x2 ``DistMesh`` over NCCL,
+    full depth, kernels on, and a profiled warm step; then 2 steps at 3
+    layers, this rank's blocks written for the parent's hold."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import train as trainer
+    on = tp_main(P14A_ARGV, "14 (c)", dev=dev, profile=True)
+    keep = {}
+
+    def on_step(step, sess, metrics):
+        keep["params"] = T.map_leaves(lambda x: x.detach().cpu(),
+                                      sess.params[0])
+
+    with cut_depth(P14_HOLD_LAYERS):
+        run = trainer.main(argv_with(P14A_ARGV, steps=2), on_step=on_step)
+    torch.save(keep["params"], P12_DIR / f"14c.params.{dev.index}.pt")
+    return {"on": on, "warm_ms": on["warm_ms"], "hold_losses": run.losses}
+
+
+def p14_fsdp_rank(spec, dev) -> dict:
+    """14 (d)'s rank: qwen1.5-110b fsdp_auto (``tp_fsdp``) on a 2x2
+    ``DistMesh``, full width, at ``P14D_BIG_LAYERS`` layers."""
+    with cut_depth(P14D_BIG_LAYERS):
+        return tp_main(P14_BIG_ARGV, "14 (d)", dev=dev)
+
+
+def phase_tp_on_cards(smi: str) -> dict:
+    """Phase 14 (c) and (d) on four cards, one rank a card over NCCL."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import ceil_log2
+    from repro_torch.launch import train as trainer
+    t0 = time.perf_counter()
+    # (c)
+    n_zero = tp_zero_leaves(P14A_ARGV)
+    print(f"phase 14 (c): {' '.join(P14A_ARGV)} on a 2x2 DistMesh, one rank "
+          f"a card over NCCL; reduced: none")
+    res = torchrun(4, "14c", "14c")
+    on = [x["on"] for x in res]
+    want = {name: 0 for name in counters()}
+    want["fused_round"] = len(on[0]["losses"]) * n_zero * ceil_log2(2)
+    for r, x in enumerate(on):
+        check(x["counts"] == want, f"(14c) rank {r}: launches "
+              f"{x['counts']}, expected {want}")
+        check(x["losses"] == on[0]["losses"], f"(14c) rank {r}'s losses "
+              f"{x['losses']} vs rank 0's {on[0]['losses']}")
+    world_s = [max(x["step_seconds"][i] for x in on)
+               for i in range(len(on[0]["step_seconds"]))]
+    for r, x in enumerate(on):
+        print(f"phase 14 (c) rank {r}: step seconds "
+              f"{[round(t, 4) for t in x['step_seconds']]}, warm step "
+              f"{res[r]['warm_ms']:.1f} ms, peak {x['peak'] / 2**30:.2f} "
+              f"GiB, launches {x['counts']}, a step: data axis "
+              f"{x['steps'][0]['data']}, model axis {x['steps'][0]['model']}"
+              f" ({smi})")
+    print(f"phase 14 (c): losses {on[0]['losses']}, grad norms "
+          f"{on[0]['gnorm']}; the world's step (its slowest rank) "
+          f"{[round(t, 4) for t in world_s]} s")
+    MEASURED["14c"] = dict(
+        arch="qwen3-1.7b", kind="train", seq=2048, batch=2, ranks=4,
+        local=False, mode="zero1", sync={}, tp=(2, 2), layers=None,
+        measured_s=min(world_s[1:]), steps=on[0]["steps"],
+        peak=max(x["peak"] for x in on))
+    for x in on[1:]:
+        check(x["steps"] == on[0]["steps"], "(14c) ranks counted "
+              "different calls")
+    # (c)'s hold: the same 2 steps at 3 layers in process (phase 14 (a)'s
+    # 4 virtual ranks)
+    keep = {}
+
+    def on_step(step, sess, metrics):
+        keep["params"] = [T.map_leaves(lambda x: x.detach().cpu(), p)
+                          for p in sess.params]
+
+    with cut_depth(P14_HOLD_LAYERS):
+        run = trainer.main(argv_with(P14A_ARGV, steps=2), on_step=on_step)
+    loss_held(res[0]["hold_losses"], run.losses, "(14c) hold", 1e-5)
+    worst, bitwise = 0.0, run.losses == res[0]["hold_losses"]
+    for r in range(4):
+        got = torch.load(P12_DIR / f"14c.params.{r}.pt")
+        worst = max(worst, held(got, keep["params"][r], f"(14c) hold rank "
+                                f"{r}", 1e-5, 1e-5))
+        bitwise = bitwise and all(
+            same_bits(a, b) for a, b in zip(T.leaves(got),
+                                            T.leaves(keep["params"][r])))
+        (P12_DIR / f"14c.params.{r}.pt").unlink()
+    print(f"phase 14 (c): at {P14_HOLD_LAYERS} layers, 2 steps: 4 processes "
+          f"over NCCL vs 4 virtual ranks on one card: losses "
+          f"{res[0]['hold_losses']} vs {run.losses}; every rank's blocks "
+          f"within rtol 1e-5 / atol 1e-5 (the largest {worst:.3f} of the "
+          f"bound): the model axis sums with NCCL's all_reduce; bitwise: "
+          f"{bitwise}")
+    free_cuda()
+    # (d)
+    big = get_config("qwen1.5-110b")
+    layer = (big.param_count() - 2 * big.vocab_size * big.d_model) \
+        / big.n_layers
+    embed = 2 * big.vocab_size * big.d_model
+    n = embed + P14D_BIG_LAYERS * layer
+    print(f"phase 14 (d): qwen1.5-110b full width, fsdp_auto tp_fsdp on a "
+          f"2x2 DistMesh, {P14D_BIG_LAYERS} of {big.n_layers} layers: 12 B a "
+          f"parameter x ({embed / 1e9:.2f} B + {P14D_BIG_LAYERS} x "
+          f"{layer / 1e9:.2f} B) / 4 cards = {12 * n / 4e9:.1f} GB a card, "
+          f"activations and a layer's gathered weights apart; reduced: "
+          f"depth {big.n_layers} -> {P14D_BIG_LAYERS}")
+    # a step's blocks come and go in many sizes (a layer's gathered
+    # weights, the vocab-split logits): segments that grow keep the free
+    # memory usable
+    big_res = torchrun(4, "14d", "14d", alloc_conf=P14D_ALLOC_CONF)
+    for r, x in enumerate(big_res):
+        check(not any(x["counts"].values()), f"(14d) rank {r}: "
+              f"{x['counts']}")
+        print_tp_run(f"phase 14 (d) rank {r}", x, smi)
+    world_d = [max(x["step_seconds"][i] for x in big_res)
+               for i in range(len(big_res[0]["step_seconds"]))]
+    MEASURED["14d"] = dict(
+        arch="qwen1.5-110b", kind="train", seq=2048, batch=2, ranks=4,
+        local=False, mode="fsdp_auto", sync={}, tp=(2, 2),
+        layers=P14D_BIG_LAYERS, measured_s=min(world_d[1:]),
+        steps=big_res[0]["steps"], peak=max(x["peak"] for x in big_res))
+    print(f"phase 14 (d): the world's step {[round(t, 4) for t in world_d]}"
+          f" s; peak a card {[round(x['peak'] / 2**30, 2) for x in big_res]}"
+          f" GiB")
+    print(f"phase 14 (c), (d) in {time.perf_counter() - t0:.1f} s ({smi})")
+    return {"14c": {k: sum(x["counts"][k] for x in on) for k in counters()},
+            "14d": {k: sum(x["counts"][k] for x in big_res)
+                    for k in counters()}}
+
+
 P12_PHASES = {"a": p12_launcher_one_card, "b": p12_collectives,
               "c": p12_main_path, "d": p12_wire, "e": p12_ep,
-              "f2": p12_serve_ep2, "f4": p12_serve_4, "g": p12_checkpoint}
+              "f2": p12_serve_ep2, "f4": p12_serve_4, "g": p12_checkpoint,
+              "14c": p14_tp_rank, "14d": p14_fsdp_rank}
 
 
 def phase_launcher_one_card(smi: str) -> dict:
@@ -4546,7 +5033,8 @@ def phase_multi_card(smi: str, parts: str = "bcdefg") -> dict:
 
 def cards_main() -> int:
     """``python3 chip_smoke.py --cards 4``: phase 1 for every card, then
-    phase 12 (b)-(g), the kernels line and the verdict."""
+    phase 12 (b)-(g), phase 14 (c), (d), phase 13, the kernels line and
+    the verdict."""
     import torch
     check(torch.cuda.device_count() >= P12_CARDS,
           f"--cards {P12_CARDS} needs {P12_CARDS} cards, this machine shows "
@@ -4563,6 +5051,7 @@ def cards_main() -> int:
     print(f"nvidia-smi topo -m:\n{topo}")
     print(f"NCCL {torch.cuda.nccl.version()}", flush=True)
     by_path = phase_multi_card(smi)
+    by_path.update(phase_tp_on_cards(smi))
     phase_roofline(smi, mesh="h100x4")
     names = {"fused_round": ("src/repro_torch/csrc/fused_round.cu",
                              "src/repro/kernels/fused_round.py:109"),
@@ -4643,6 +5132,7 @@ def main() -> int:
     serving = phase_serving(smi)
     families = phase_families(smi)
     launcher = phase_launcher_one_card(smi)
+    tensor_parallel = phase_tensor_parallel(smi)
     phase_roofline(smi)
     print("phase 12 (b)-(g), one rank per card over NCCL (the collectives "
           "on the links, the main path at p = 4, the int8 wire with EF at "
@@ -4651,7 +5141,7 @@ def main() -> int:
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
                "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs,
                "9b": rowwise, "9c": drill, "10": serving, "11": families,
-               "12a": launcher}
+               "12a": launcher, **tensor_parallel}
 
     def row(name, source, replaces, st, err):
         n = {path: c[name] for path, c in by_path.items()}

@@ -8,12 +8,23 @@ The zero1 mode runs its ``dp`` ranks as virtual ranks of a
 (``moe_dispatch="ep"``) it runs a ``dp × mp`` ``LocalMesh`` fully
 manual, as the reference does: every rank holds whole replicas, zero1
 syncs over the data axis and the MoE dispatch exchanges over the model
-axis.  Started by torchrun (``launch.mesh.is_process_world()``), each
-process is one rank of that world instead, on a card of its own
-(``cuda:LOCAL_RANK``, NCCL) or over gloo on the CPU: a ``DistComm`` of
-the world for ``dp × 1``, a ``DistMesh`` with its data and model axes
-for ep.  Every process initializes the same parameters from ``seed``,
-as the reference replicates them, and its lists hold its one rank.
+axis.  A dense config on ``mp > 1`` (or in mode ``fsdp_auto``) runs
+tensor parallel over the model axis (``models/sharding.py``): the
+recipe is ``ShardingRecipe(data_axes=("data",), model_axis="model",
+tp_size=mp)``, in mode ``tp`` for zero1 and, for fsdp_auto, by the
+reference's rule for training the largest archs (``FSDP_ARCHS``,
+``repro/launch/dryrun.py:51,85-90``: ``tp_fsdp`` for them, else ``tp``,
+the only place the reference says how qwen1.5-110b is sharded for
+training); each rank holds its blocks of the leaves.  The numbers do not
+depend on the layout, only the memory does.  Started by torchrun
+(``launch.mesh.is_process_world()``), each process is one rank of that
+world instead, on a card of its own (``cuda:LOCAL_RANK``, NCCL) or over
+gloo on the CPU: a ``DistComm`` of the world for ``dp × 1``, a
+``DistMesh`` with its data and model axes for ep and tensor
+parallelism.  Every process initializes the same parameters from
+``seed``, as the reference replicates them, and its lists hold its one
+rank (with tensor parallelism every leaf is drawn whole and cut to the
+rank's blocks).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); asking for ``cuda`` where there is none raises.
@@ -40,13 +51,19 @@ from ..core import collectives as C
 from ..core.spec import CollectiveSpec
 from ..configs import get_config
 from ..data import for_model
-from ..models import build, is_ep, leaf_dtype, param_shapes
+from ..models import (ShardingRecipe, build, is_ep, leaf_dtype,
+                      param_shapes)
+from ..models import sharding as shd
 from ..optim.adamw import AdamWConfig, TreeAdamState
 from ..optim.zero1 import (GradSyncConfig, Zero1State, resize_zero1_state,
                            zero_flags)
 from ..serve import ReplicaSet
-from ..train import build_single, build_zero1
+from ..train import build_fsdp_auto, build_single, build_zero1
 from . import mesh as meshlib
+
+#: archs whose parameters cannot be replicated across data ranks: fsdp_auto
+#: trains them ``tp_fsdp`` (a copy of ``repro/launch/dryrun.py:51``)
+FSDP_ARCHS = {"grok-1-314b", "qwen1.5-110b", "llama-3.2-vision-90b"}
 
 
 @dataclass
@@ -56,9 +73,11 @@ class Session:
     ``comm.ranks``.  ``world`` is the data-parallel world (1 in single
     mode).  ``comm`` is the data axis's communicator; with expert
     parallelism ``ep_comm`` is the model axis's (both over the same
-    ``dp × mp`` ranks, data-major), else ``None``.  ``proc`` is this
-    process's global rank in a process world (one rank per process),
-    ``None`` in the in-process world."""
+    ``dp × mp`` ranks, data-major), else ``None``.  With tensor
+    parallelism ``tp`` is the model's ``sharding.TensorParallel`` (its
+    ``axis.comm`` the model axis's communicator), else ``None``.
+    ``proc`` is this process's global rank in a process world (one rank
+    per process), ``None`` in the in-process world."""
 
     cfg: Any
     mode: str
@@ -74,6 +93,7 @@ class Session:
     opt: Any = None
     ep_comm: Any = None
     proc: int | None = None
+    tp: Any = None
 
     @property
     def lead(self) -> bool:
@@ -124,12 +144,17 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                   lr: float = 3e-4, warmup: int = 20,
                   device: str | torch.device = "cuda",
                   seed: int = 0, init_state: bool = True,
-                  n_layers: int | None = None) -> Session:
+                  n_layers: int | None = None,
+                  sequence_parallel: bool = False,
+                  expand_gqa: bool = False) -> Session:
     """Build a runnable :class:`Session` for a ``dp × mp`` mesh; zero1
-    runs its ``dp`` ranks on a ``LocalComm``.  ``mp > 1`` needs an
-    expert-parallel MoE config (``moe_dispatch="ep"``): the ``dp × mp``
-    ranks then run on a ``LocalMesh`` (tensor parallelism is not
-    ported).  ``grad_sync`` is the sync's impl (circulant, ring, xla or
+    runs its ``dp`` ranks on a ``LocalComm``.  ``mp > 1`` runs the
+    ``dp × mp`` ranks on a ``LocalMesh``: an expert-parallel MoE config
+    (``moe_dispatch="ep"``) exchanges over the model axis, a dense one is
+    tensor parallel over it, as is mode ``fsdp_auto`` on any mesh
+    (``sequence_parallel`` and ``expand_gqa``: the recipe's fields; any
+    other family raises ``NotImplementedError``, ROADMAP.md queue 1 item
+    11.2).  ``grad_sync`` is the sync's impl (circulant, ring, xla or
     allreduce) and ``bucket_bytes`` its bucket size (circulant; on an
     expert-parallel mesh the buckets run over the data axis).
     ``wire_dtype="int8"`` puts the gradient reduce-scatter on the int8
@@ -142,18 +167,20 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
     cfg = resolve_cfg(arch, scale_down=scale_down, moe_dispatch=moe_dispatch,
                       n_layers=n_layers)
     ep = is_ep(cfg)
-    if mp != 1 and not ep:
-        raise NotImplementedError(
-            f"mesh {dp}x{mp}: the model (tensor-parallel) axis is not ported "
-            f"yet (ROADMAP.md queue 1 item 11.2); use {dp}x1, or a MoE arch "
-            f"with --moe-dispatch ep")
     mode = mode or ("single" if dp * mp == 1 else "zero1")
-    if mode not in ("single", "zero1"):
-        raise NotImplementedError(f"mode {mode!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1 item 11.2)")
+    if mode not in ("single", "zero1", "fsdp_auto"):
+        raise ValueError(f"unknown mode {mode!r}")
     if ep and mode != "zero1":
         raise NotImplementedError(f"moe_dispatch='ep' runs in mode zero1, "
                                   f"not {mode!r}")
+    tensor_parallel = mode == "fsdp_auto" or (mode == "zero1" and mp != 1
+                                              and not ep)
+    if tensor_parallel and (cfg.family != "dense" or cfg.is_moe):
+        raise NotImplementedError(
+            f"mesh {dp}x{mp} in mode {mode}: tensor parallelism runs the "
+            f"dense family only; {cfg.name} ({cfg.family}) waits for "
+            f"ROADMAP.md queue 1 item 11.2 (use {dp}x1 in mode zero1, or a "
+            f"MoE arch with --moe-dispatch ep)")
     procs = meshlib.is_process_world()
     if procs:
         dev = join_world(dp * mp, device, f"mesh {dp}x{mp}")
@@ -167,14 +194,31 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                           error_feedback=error_feedback,
                           use_fused_kernel=use_fused_kernel,
                           bucket_bytes=bucket_bytes)
-    comm = ep_comm = None
-    if ep:
+    comm = ep_comm = tp = None
+    if ep or tensor_parallel:
         mesh = (meshlib.make_mesh((dp, mp), ("data", "model")) if procs
                 else LocalMesh((dp, mp), ("data", "model")))
-        comm, ep_comm = mesh.axis("data"), mesh.axis(cfg.ep_axis)
-    model = build(cfg, ep_comm=ep_comm, use_fused_kernel=use_fused_kernel)
-    if mode == "single":
-        if dp != 1:
+        comm = mesh.axis("data")
+    if ep:
+        ep_comm = mesh.axis(cfg.ep_axis)
+    if tensor_parallel:
+        recipe = ShardingRecipe(
+            data_axes=("data",), model_axis="model",
+            mode=("tp_fsdp" if mode == "fsdp_auto" and cfg.name in FSDP_ARCHS
+                  else "tp"),
+            sequence_parallel=sequence_parallel, tp_size=mp,
+            expand_gqa=expand_gqa)
+        tp = shd.TensorParallel(
+            axis=shd.ModelAxis(mesh.axis("model"), recipe), data=comm,
+            layout=shd.tp_layout(cfg, recipe, (dp, mp)))
+    model = build(cfg, ep_comm=ep_comm, use_fused_kernel=use_fused_kernel,
+                  tp=tp)
+    if mode == "fsdp_auto":
+        if global_batch % dp:
+            raise ValueError(f"global batch {global_batch} % dp {dp} != 0")
+        built, world = build_fsdp_auto(model, tp, opt_cfg), dp
+    elif mode == "single":
+        if dp * mp != 1:
             raise ValueError(f"mode single runs one rank, got mesh {dp}x{mp}")
         built, world = build_single(model, opt_cfg), 1
     else:
@@ -182,16 +226,16 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
         if global_batch % dp:
             raise ValueError(f"global batch {global_batch} % dp {dp} != 0")
         built = build_zero1(model, comm, opt_cfg, sync, dev,
-                            ep_world=mp if ep else None)
+                            ep_world=mp if ep else None, tp=tp)
         world = dp
     sess = Session(cfg=cfg, mode=mode, device=dev, comm=comm, model=model,
                    opt_cfg=opt_cfg, sync=sync, built=built, pipe=pipe,
                    world=world, ep_comm=ep_comm,
-                   proc=meshlib.rank() if procs else None)
+                   proc=meshlib.rank() if procs else None, tp=tp)
     if init_state:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = model.init(gen, dev)
-        if mode == "zero1":
+        params = model.init(gen, dev)  # per-rank blocks with tp
+        if mode == "zero1" and tp is None:
             params = [params] + [T.map_leaves(torch.clone, params)
                                  for _ in comm.ranks[1:]]
         sess.params = params
@@ -270,6 +314,31 @@ def build_serve_session(*, arch: str, max_len: int, scale_down: bool = False,
                         proc=meshlib.rank() if procs else None)
 
 
+def shard_params(sess: Session, params: dict) -> list:
+    """Every local rank's blocks of a whole parameter tree (a
+    tensor-parallel session's layout), each a copy of its own."""
+    per_leaf = [(path, sess.tp.blocks(path, x))
+                for path, x in T.flatten(params)]
+    return [T.unflatten((path, b[j]) for path, b in per_leaf)
+            for j in range(len(sess.comm.ranks))]
+
+
+def whole_params(sess: Session, trees: list) -> dict:
+    """The whole parameter tree from every local rank's blocks (the
+    in-process world, where every rank is local): the inverse of
+    :func:`shard_params`."""
+    lay = sess.tp.layout
+    out = []
+    for path, shape in T.flatten(param_shapes(sess.cfg)):
+        ll = T.get(lay.leaves, path)
+        full = T.get(trees[0], path).new_empty(shape)
+        for tree, c in zip(trees, sess.tp.coords()):
+            shd.leaf_block(full, ll, lay.mesh, c, copy=False).copy_(
+                T.get(tree, path))
+        out.append((path, full))
+    return T.unflatten(out)
+
+
 def place_batch(sess: Session, batch: dict):
     """Host batch to device tensors: the whole batch (single) or each
     local rank's slice of the global batch by its data-axis rank (zero1;
@@ -310,6 +379,11 @@ def _zero_flags(sess: Session, params: dict) -> list[bool]:
 
 
 def _check_gatherable(sess: Session) -> None:
+    if sess.tp is not None:
+        raise NotImplementedError(
+            "checkpoints of a tensor-parallel or fsdp_auto session are not "
+            "supported: resharding them across meshes waits for ROADMAP.md "
+            "queue 1 item 11.2")
     if sess.ep_comm is not None:
         raise NotImplementedError(
             "checkpoints of an expert-parallel session are not supported: "

@@ -20,8 +20,10 @@ size, no devices), :func:`sanitize_spec` / :func:`sanitize_specs` /
 :func:`named` / :func:`struct_with_sharding`, which map specs to DTensor
 placements (``Shard`` / ``Replicate``, one per mesh axis) and each
 leaf's per-rank shape and dtype (a ``meta`` tensor).  Tensor parallelism
-over a ``DeviceMesh`` built from them is not ported yet (ROADMAP.md
-queue 1 item 11.2).
+runs on the port's own meshes, not on a ``DeviceMesh``:
+``models/sharding.tp_layout`` reads the sanitized specs to give each rank
+its blocks, and the model-axis calls go over a ``LocalMesh`` or
+``DistMesh`` axis (``models/sharding.py`` says why not DTensor).
 """
 from __future__ import annotations
 

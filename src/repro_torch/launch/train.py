@@ -49,9 +49,19 @@ saves one every ``--ckpt-every`` steps (in the background; restorable at
 any world size); ``--fail-at-step N`` injects a crash at step N (the
 restart drill: rerun with the same ``--ckpt-dir`` to resume on the same
 trajectory).  Each step's time feeds the straggler watchdog, whose
-verdict ends the step's log line.  The flags of features not ported yet
-exit with a message (``--mode fsdp_auto`` and ``--mesh`` with a model
-axis but no ``--moe-dispatch ep``: ROADMAP.md queue 1 item 11.2).
+verdict ends the step's log line.  ``--mesh DxM`` with M > 1 and a dense
+arch trains tensor parallel over the model axis (zero1 over D, TP over
+M), and ``--mode fsdp_auto`` trains the reference's pure-GSPMD mode
+(blocks over the model axis, and for qwen1.5-110b, grok-1 and
+llama-3.2-vision also over the data axis, gathered a layer at a time)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --scale-down --device cpu --mesh 2x2 --steps 3 --seq-len 16 \\
+        --global-batch 4 [--mode fsdp_auto]
+
+A model axis on another family, and ``--ckpt-dir`` with either (their
+checkpoints would need resharding across meshes), exit with a message
+citing ROADMAP.md queue 1 item 11.2.
 
 Under torchrun every process trains its rank; rank 0 prints the log
 lines (the loss and grad norm are the global ones, folded in rank order:
@@ -96,8 +106,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM (data x model); M > 1 only with "
-                         "--moe-dispatch ep")
+                    help="DxM (data x model); M > 1: tensor parallelism "
+                         "(dense archs) or --moe-dispatch ep")
     ap.add_argument("--mode", default=None,
                     choices=[None, "single", "zero1", "fsdp_auto"])
     ap.add_argument("--grad-sync", default="circulant",
@@ -145,6 +155,12 @@ def build(argv=None):
         raise SystemExit(f"--fail-at-step must be >= 0, got "
                          f"{args.fail_at_step}")
     d, m = (int(x) for x in args.mesh.split("x"))
+    if args.ckpt_dir and (args.mode == "fsdp_auto" or (
+            m > 1 and args.moe_dispatch != "ep")):
+        raise SystemExit(
+            "--ckpt-dir with tensor parallelism or fsdp_auto: resharding "
+            "checkpoints across meshes waits for ROADMAP.md queue 1 item "
+            "11.2")
     try:
         sess = bootstrap.build_session(
             arch=args.arch, scale_down=args.scale_down, steps=args.steps,

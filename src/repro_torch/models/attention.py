@@ -10,6 +10,12 @@ memory projected once (:func:`project_memory`: the encoder's output or
 image embeddings, no RoPE, no mask, no bias).  Weights keep the
 reference's layout: ``wq`` (d, H, dh), ``wk``/``wv`` (d, Hkv, dh),
 ``wo`` (H, dh, d), biases ``bq`` (H, dh), ``bk``/``bv`` (Hkv, dh).
+
+:func:`self_attention_tp` is the tensor-parallel form (``models/
+sharding.py``): every local rank of a mesh at once, each with its blocks
+of the leaves, the reference's hooks (``act_bthd``) where its
+``self_attention`` has them, and :func:`_maybe_expand_gqa` (the
+reference's §Perf B) where kv heads do not divide the model axis.
 """
 from __future__ import annotations
 
@@ -17,9 +23,10 @@ from typing import NamedTuple
 
 import torch
 
+from . import sharding as shd
 from .config import ModelConfig
 from .flash import flash_attention
-from .layers import apply_rope, head_rmsnorm
+from .layers import apply_rope, head_rmsnorm, rmsnorm
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 1024  # use chunked online-softmax above this seq length
@@ -134,6 +141,127 @@ def self_attention(p: dict, cfg: ModelConfig, x, positions, *,
                 torch.zeros((), dtype=torch.float32, device=x.device))
         out = sdpa(q, k, v, mask)
     return torch.einsum("bthk,hkd->btd", out, p["wo"]), (k, v)
+
+
+def _expands_gqa(cfg: ModelConfig, recipe) -> bool:
+    """The reference's condition for expanding kv heads: asked for, the
+    model axis's size known, kv heads not dividing it but query heads
+    doing so."""
+    if recipe is None or not getattr(recipe, "expand_gqa", False):
+        return False
+    tp = getattr(recipe, "tp_size", 0)
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    return bool(tp) and hkv % tp != 0 and h % tp == 0 and h != hkv
+
+
+def _maybe_expand_gqa(k, v, cfg: ModelConfig, recipe):
+    """§Perf B: when kv heads do not divide the model axis but full heads
+    do, repeat every kv head over its query group, so that every
+    attention tensor keeps one head sharding (H/tp).  ``k``/``v``:
+    ``(B, T, Hkv, dh)`` whole."""
+    if not _expands_gqa(cfg, recipe):
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (torch.repeat_interleave(k, g, dim=2),
+            torch.repeat_interleave(v, g, dim=2))
+
+
+def _attend(q, k, v, causal: bool, window: int):
+    s = q.shape[1]
+    if s > FLASH_THRESHOLD:
+        return flash_attention(q, k, v, causal=causal, window=window)
+    mask = (causal_mask(s, window, q.device) if causal else
+            torch.zeros((), dtype=torch.float32, device=q.device))
+    return sdpa(q, k, v, mask)
+
+
+def _kv_for_heads(kv: torch.Tensor, lo: int, hq: int, g: int):
+    """The kv heads query heads ``[lo, lo + hq)`` map to (group size
+    ``g``): a contiguous run when the local heads group evenly, else one
+    kv head per query head."""
+    idx = [(lo + i) // g for i in range(hq)]
+    n = idx[-1] - idx[0] + 1
+    if hq % n == 0 and idx == [idx[0] + i // (hq // n) for i in range(hq)]:
+        return kv.narrow(2, idx[0], n)
+    return kv.index_select(2, torch.tensor(idx, device=kv.device))
+
+
+def _core_tp(tp, cfg: ModelConfig, q, k, v, causal: bool, window: int):
+    """Attention of every rank by the layouts the hooks left: local query
+    heads over local kv heads; local query heads over whole kv, each rank
+    taking the kv heads its own query heads map to; or whole heads on
+    every rank."""
+    if q.layout != "h":
+        q, k, v = tp.whole(q), tp.whole(k), tp.whole(v)
+        return q, [_attend(a, b, c, causal, window)
+                   for a, b, c in zip(q.xs, k.xs, v.xs)]
+    if k.layout == "h" and v.layout == "h":
+        ks, vs = k.xs, v.xs
+    else:
+        k, v = tp.whole(k), tp.whole(v)
+        hq = q.xs[0].shape[2]
+        g = cfg.n_heads // k.xs[0].shape[2]
+        ks, vs = [], []
+        for kk, vv, c in zip(tp.entering(k), tp.entering(v), tp.comm.ranks):
+            ks.append(_kv_for_heads(kk, c * hq, hq, g))
+            vs.append(_kv_for_heads(vv, c * hq, hq, g))
+    return q, [_attend(a, b, c, causal, window)
+               for a, b, c in zip(q.xs, ks, vs)]
+
+
+def _norm_tp(tp, x, gamma, eps: float):
+    """RMS norm over ``x``'s last dim, which must be whole on a rank."""
+    if x.layout in (shd.PARTIAL, x.dims[-1]):
+        x = tp.whole(x)
+    return shd.Act([rmsnorm(a, w, eps) for a, w in
+                    zip(x.xs, tp.like(gamma, x))], x.dims, x.layout)
+
+
+def _project_tp(tp, p: dict, cfg: ModelConfig, x, positions, w: str,
+                b: str, norm: str | None):
+    """``_project_q`` / ``_project_kv``'s steps for one of q, k, v: the
+    projection, its bias, its qk-norm, RoPE (not with ``positions``
+    ``None``: the values)."""
+    y = shd.project(tp, x, p[w], "btd,dhk->bthk")
+    if b in p:
+        if y.layout == shd.PARTIAL:
+            y = tp.whole(y)
+        y = shd.Act([a + c for a, c in zip(y.xs, tp.like(p[b], y))],
+                    y.dims, y.layout)
+    if norm is not None and cfg.qk_norm:
+        y = _norm_tp(tp, y, p[norm], cfg.norm_eps)
+    if positions is None:
+        return y
+    if y.layout in (shd.PARTIAL, "t", "k"):
+        y = tp.whole(y)
+    return shd.Act([apply_rope(a, positions, cfg.rope_theta)
+                    for a in y.xs], y.dims, y.layout)
+
+
+def self_attention_tp(tp, p: dict, cfg: ModelConfig, x, positions, *,
+                      causal: bool = True, window: int = 0):
+    """:func:`self_attention` of every local rank of a tensor-parallel
+    mesh: ``p`` maps each leaf name to its per-rank blocks
+    (``sharding.Act``), ``x`` is the normed stream (an ``Act``).  Returns
+    the output projection's ``Act`` (partial sums where ``wo``'s
+    contracted heads are split; the caller's ``act_btd`` sums them) and
+    the compact ``(k, v)`` Acts."""
+    q = _project_tp(tp, p, cfg, x, positions, "wq", "bq", "q_norm")
+    k = _project_tp(tp, p, cfg, x, positions, "wk", "bk", "k_norm")
+    v = _project_tp(tp, p, cfg, x, None, "wv", "bv", None)
+    k_c, v_c = k, v
+    if _expands_gqa(cfg, tp.recipe):
+        k_c, v_c = tp.whole(k), tp.whole(v)
+        pairs = [_maybe_expand_gqa(a, b, cfg, tp.recipe)
+                 for a, b in zip(k_c.xs, v_c.xs)]
+        k_c = shd.Act([a for a, _ in pairs], "bthk")
+        v_c = shd.Act([b for _, b in pairs], "bthk")
+    q = shd.act_bthd(q, tp)
+    k_c = shd.act_bthd(k_c, tp)
+    v_c = shd.act_bthd(v_c, tp)
+    q, outs = _core_tp(tp, cfg, q, k_c, v_c, causal, window)
+    out = shd.act_bthd(shd.Act(outs, "bthk", q.layout), tp)
+    return shd.project(tp, out, p["wo"], "bthk,hkd->btd"), (k, v)
 
 
 def cross_attention(p: dict, cfg: ModelConfig, x, memory_kv):

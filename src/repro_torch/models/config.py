@@ -147,9 +147,9 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ShardingRecipe:
-    """Named mesh axes of the tensor-parallel parameter specs (the
-    reference's ``ShardingRecipe``; ``registry.make_param_specs`` reads
-    it).
+    """Named mesh axes of the tensor-parallel parameter specs and
+    activation hooks (the reference's ``ShardingRecipe``;
+    ``registry.make_param_specs`` and ``models/sharding.py`` read it).
 
     mode:
       'tp'       params replicated over data, sharded over model (ZeRO-1
@@ -160,6 +160,13 @@ class ShardingRecipe:
     data_axes: tuple[str, ...] = ("data",)    # ('pod', 'data') multi-pod
     model_axis: str = "model"
     mode: str = "tp"
+    # sequence-parallel attention (context parallelism) for long prefill:
+    sequence_parallel: bool = False
+    # model-axis size (0 = unknown); enables GQA head expansion when
+    # kv-heads don't divide the axis (§Perf B: avoids GSPMD refactoring
+    # between (hkv, g) and H shardings that forces full rematerialization)
+    tp_size: int = 0
+    expand_gqa: bool = False
 
     @property
     def batch_axes(self):

@@ -30,6 +30,13 @@ at one offset or at a per-row offset, writing its k/v (and Mamba state)
 into the cache in place.  Their expert-parallel forms
 (:func:`prefill_ep`, :func:`decode_step_ep`) run every local rank of a
 communicator on the same tokens, each layer's MoE exchange across them.
+The dense family's tensor-parallel form (:func:`loss_fn_tp`) runs every
+local rank of a ``D x M`` mesh together, each rank with its blocks of
+the leaves (``models/sharding.py``): attention and FFN through the
+reference's hooks, the embedding a vocab-parallel lookup, the head
+vocab-sharded logits and the loss a vocab-parallel cross-entropy; under
+fsdp_auto each layer's leaves split over the data axis are gathered just
+before the layer runs (again in its recompute) and freed after.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 
 from .. import tree as T
 from . import attention as attn
+from . import sharding as shd
 from . import ssm
 from .config import ModelConfig
 from .layers import (cross_entropy_loss, dtype_of, ffn, init_leaf,
@@ -86,11 +94,27 @@ def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
     return torch.float32 if path[-1] == "router" else dtype_of(cfg)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
+                split=None) -> dict | list:
     """Random parameters from ``gen`` (on ``gen``'s device), each leaf by
     the reference's initializer for its name (:func:`layers.init_leaf`;
-    fan-in of the per-layer shape)."""
+    fan-in of the per-layer shape).  With ``split(path, leaf)``, a list
+    of per-rank blocks of a whole leaf, it returns one tree per rank:
+    each leaf is drawn whole, as the unsharded model draws it from the
+    same generator, cut into its blocks and freed (the dense family
+    only)."""
     dtype = dtype_of(cfg)
+    if split is not None:
+        _check_dense(cfg)
+        trees = None
+        for path, shape in T.flatten(param_shapes(cfg)):
+            blocks = split(path, init_leaf(gen, path[-1], shape,
+                                           int(path[0] == "layers"), dtype,
+                                           device))
+            trees = trees or [{} for _ in blocks]
+            for tree, b in zip(trees, blocks):
+                T.assign(tree, path, b)
+        return trees
     out: dict = {}
     for path, shape in T.flatten(param_shapes(cfg)):
         if path[:2] == ("layers", "moe"):
@@ -254,6 +278,174 @@ def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
         auxs = [a + b for a, b in zip(auxs, out[nr:])]
     return [cross_entropy_loss(_head(p, cfg, x), b["targets"], b.get("mask"))
             + a for p, x, b, a in zip(params, xs, batches, auxs)]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the dense family over the local ranks of a D x M mesh
+# ---------------------------------------------------------------------------
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism (a model axis without "
+            f"moe_dispatch='ep') and fsdp_auto run the dense family only; "
+            f"family {cfg.family!r} waits for ROADMAP.md queue 1 item 11.2")
+
+
+def _leaf_acts(tp: shd.TensorParallel, paths, lls, per_rank,
+               lead: int) -> dict:
+    """Each leaf's per-rank blocks as a ``sharding.Act`` (``per_rank``:
+    every rank's leaves in ``paths`` order), the blocks split over the
+    data axes gathered first (the allgather whose backward is the
+    reduce-scatter: the data ranks' gradients summed)."""
+    out = []
+    for j, (path, ll) in enumerate(zip(paths, lls)):
+        xs = [leaves[j] for leaves in per_rank]
+        if ll.data is not None:
+            xs = list(shd._Gather.apply(tp.data, ll.data - lead, *xs))
+        out.append((path, shd.Act(xs, ll.dims, ll.model)))
+    return T.unflatten(out)
+
+
+def _add(x, y):
+    if x.layout != y.layout:
+        raise ValueError(f"layouts {x.layout!r} and {y.layout!r}")
+    return shd.Act([a + b for a, b in zip(x.xs, y.xs)], x.dims, x.layout)
+
+
+def _stream(tp: shd.TensorParallel):
+    """The residual stream's layout: split on seq when
+    sequence-parallel."""
+    return "t" if tp.axis.recipe.sequence_parallel else None
+
+
+def _ffn_tp(ax, p: dict, h):
+    """SwiGLU over the layouts (the reference's ``ffn``; ``act_btf`` on
+    its hidden)."""
+    gate = shd.act_btf(shd.project(ax, h, p["w_gate"], "btd,df->btf"), ax)
+    up = shd.act_btf(shd.project(ax, h, p["w_up"], "btd,df->btf"), ax)
+    hid = shd.Act([F.silu(g) * u for g, u in zip(gate.xs, up.xs)], "btf",
+                  gate.layout)
+    return shd.project(ax, hid, p["w_down"], "btf,fd->btd")
+
+
+def _tp_layer_forward(cfg: ModelConfig, tp: shd.TensorParallel, paths,
+                      lls,
+                      positions, nr: int, *args):
+    """One dense layer for all local ranks: ``args`` is the ranks'
+    streams, then each rank's layer leaves in ``paths`` order."""
+    xs, leaves = args[:nr], args[nr:]
+    n = len(paths)
+    lp = _leaf_acts(tp, paths, lls,
+                    [leaves[r * n:(r + 1) * n] for r in range(nr)], 1)
+    ax = tp.axis
+    x = shd.Act(xs, "btd", _stream(tp))
+    h = attn._norm_tp(ax, x, lp["norm1"], cfg.norm_eps)
+    a, _ = attn.self_attention_tp(ax, lp["attn"], cfg, h, positions,
+                                  window=cfg.sliding_window)
+    x = _add(x, shd.act_btd(a, ax))
+    if cfg.d_ff > 0:
+        h = attn._norm_tp(ax, x, lp["norm2"], cfg.norm_eps)
+        x = _add(x, shd.act_btd(_ffn_tp(ax, lp["ffn"], h), ax))
+    return tuple(x.xs)
+
+
+def _embed_tp(ax, e, tokens: list, dtype):
+    """The embedding lookup by ``embed``'s layout: split on vocab, each
+    rank zeroes the tokens outside its rows (partial sums); whole or
+    split on d_model, a plain lookup."""
+    if e.layout not in (None, "v", "d"):
+        e = ax.whole(e)
+    if e.layout != "v":
+        return shd.Act([F.embedding(t.long(), w).to(dtype)
+                        for w, t in zip(e.xs, tokens)], "btd", e.layout)
+    out = []
+    for w, t, c in zip(e.xs, tokens, ax.comm.ranks):
+        n = w.shape[0]
+        loc = t.long() - c * n
+        ok = (loc >= 0) & (loc < n)
+        rows = F.embedding(loc.clamp(0, n - 1), w).to(dtype)
+        out.append(torch.where(ok[..., None], rows, torch.zeros(
+            (), dtype=dtype, device=rows.device)))
+    return shd.Act(out, "btd", shd.PARTIAL)
+
+
+def _cross_entropy_tp(ax, logits, targets: list, masks: list) -> list:
+    """Mean token cross-entropy in float32 (``layers.cross_entropy_loss``)
+    of vocab-split logits, never gathered: each rank's max (gathered, the
+    largest taken), its shard's sum of exponentials and, on the rank
+    that owns the target, the target's logit, the last two summed over
+    the model axis in one all-reduce."""
+    if logits.layout != "v":
+        logits = ax.whole(logits)
+        return [cross_entropy_loss(x, t, m)
+                for x, t, m in zip(logits.xs, targets, masks)]
+    l32 = [x.to(torch.float32) for x in logits.xs]
+    with torch.no_grad():
+        maxes = ax.comm.all_gather([x.amax(-1)[None] for x in l32])
+    maxes = [m.amax(0) for m in maxes]
+    parts = []
+    for x, t, mx, c in zip(l32, targets, maxes, ax.comm.ranks):
+        n = x.shape[-1]
+        loc = t.long() - c * n
+        ok = (loc >= 0) & (loc < n)
+        sumexp = torch.exp(x - mx[..., None]).sum(-1)
+        gold = torch.gather(x, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
+        gold = torch.where(ok, gold, torch.zeros((), dtype=gold.dtype,
+                                                 device=gold.device))
+        parts.append(torch.stack([sumexp, gold], -1))
+    out = []
+    for tot, mx, mask in zip(ax.reduce(parts), maxes, masks):
+        nll = (torch.log(tot[..., 0]) + mx) - tot[..., 1]
+        if mask is None:
+            out.append(nll.mean())
+            continue
+        mask = mask.to(torch.float32)
+        out.append((nll * mask).sum() / torch.clamp(mask.sum(), min=1.0))
+    return out
+
+
+def loss_fn_tp(params: list, cfg: ModelConfig, batches: list,
+               tp: shd.TensorParallel, remat: bool = True) -> list:
+    """Per-rank losses of the dense model over the local ranks of a
+    tensor-parallel mesh (``params``: each rank's tree of blocks,
+    ``batches``: each rank's, the model ranks of one data rank sharing
+    theirs).  With ``remat`` each layer is one checkpoint around all
+    ranks, so its model-axis calls (and fsdp gathers) run again in the
+    backward, as the reference's remat repeats its collectives.  Every
+    rank's loss is the same bits across its model ranks; each rank takes
+    the backward of its own (``sharding.py``)."""
+    _check_dense(cfg)
+    ax = tp.axis
+    nr = len(params)
+    top_paths = [k for k in ("embed", "lm_head", "final_norm")
+                 if k in params[0]]
+    top = _leaf_acts(tp, [(k,) for k in top_paths],
+                     [tp.layout.leaves[k] for k in top_paths],
+                     [[p[k] for k in top_paths] for p in params], 0)
+    dtype = dtype_of(cfg)
+    x = shd.act_btd(_embed_tp(ax, top["embed"],
+                              [b["tokens"] for b in batches], dtype), ax)
+    b, s = batches[0]["tokens"].shape
+    positions = torch.arange(s, device=x.xs[0].device).expand(b, s)
+    slices = [layer_slices(p) for p in params]
+    paths = slices[0][0]
+    lls = [T.get(tp.layout.leaves["layers"], path) for path in paths]
+    for i in range(cfg.n_layers):
+        leaves = [leaf for _, per_layer in slices for leaf in per_layer[i]]
+        out = run_layer(_tp_layer_forward, remat, cfg, tp, paths, lls,
+                        positions, nr, *x.xs, *leaves)
+        x = shd.Act(out, "btd", x.layout)
+    h = attn._norm_tp(ax, x, top["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        e = top["embed"]
+        head = shd.Act([w.T for w in e.xs], "dv", e.layout)
+    else:
+        head = top["lm_head"]
+    head = head.map(lambda w: w.to(dtype))
+    logits = shd.act_btv(shd.project(ax, h, head, "btd,dv->btv"), ax)
+    return _cross_entropy_tp(ax, logits, [b_["targets"] for b_ in batches],
+                             [b_.get("mask") for b_ in batches])
 
 
 # ---------------------------------------------------------------------------

@@ -96,21 +96,48 @@ def init_tree_state(params: dict) -> TreeAdamState:
                          v=T.map_leaves(zeros, params), step=0)
 
 
+#: elements of one slice of an in-place update (512 MB of float32): the
+#: step's float32 temporaries stay this small whatever the leaf
+IN_PLACE_CHUNK = 1 << 27
+
+
 def update_tree(cfg: AdamWConfig, state: TreeAdamState, grads: dict,
-                params: dict):
-    """One AdamW step on whole trees (the ``single`` mode).  Returns
-    ``(new_params, new_state, grad_norm)``."""
-    gnorm = global_norm(grads)
+                params: dict, gnorm: torch.Tensor | None = None,
+                in_place: bool = False):
+    """One AdamW step on whole trees (the ``single`` mode), or on one
+    rank's blocks with the global ``gnorm`` given (fsdp_auto).  Returns
+    ``(new_params, new_state, grad_norm)``.  ``in_place``: the new values
+    are written into the leaves of ``params``, ``state.m`` and
+    ``state.v``, a slice of dim 0 at a time (``IN_PLACE_CHUNK``
+    elements): the same values, the float32 temporaries of a slice only,
+    where a full-width rank cannot hold a stacked leaf's twice."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = clip_scale_from_norm(cfg, gnorm)
     step = state.step + 1
     dev = gnorm.device
     lr = lr_at(cfg, step, dev)
     bc1, bc2 = bias_corrections(cfg, step, dev)
+    paths = [path for path, _ in T.flatten(params)]
+    if in_place:
+        for path, g in zip(paths, T.leaves(grads)):
+            leaves = [T.get(t, path) for t in (params, state.m, state.v)]
+            rows = max(1, IN_PLACE_CHUNK // max(1, g[0].numel())) \
+                if g.ndim else 1
+            for lo in range(0, g.shape[0] if g.ndim else 1, rows):
+                part = (slice(lo, lo + rows),) if g.ndim else ()
+                out = adamw_update(cfg, leaves[0][part],
+                                   g[part].to(torch.float32) * scale,
+                                   leaves[1][part], leaves[2][part], lr=lr,
+                                   bc1=bc1, bc2=bc2)
+                for dst, val in zip(leaves, out):
+                    dst[part] = val
+        return params, TreeAdamState(m=state.m, v=state.v, step=step), gnorm
     new_p, new_m, new_v = {}, {}, {}
-    for (path, p), g, m, v in zip(T.flatten(params), T.leaves(grads),
-                                  T.leaves(state.m), T.leaves(state.v)):
+    for path, g in zip(paths, T.leaves(grads)):
         g = g.to(torch.float32) * scale
-        out = adamw_update(cfg, p, g, m, v, lr=lr, bc1=bc1, bc2=bc2)
+        out = adamw_update(cfg, T.get(params, path), g, T.get(state.m, path),
+                           T.get(state.v, path), lr=lr, bc1=bc1, bc2=bc2)
         for tree, val in zip((new_p, new_m, new_v), out):
             T.assign(tree, path, val)
     return new_p, TreeAdamState(m=new_m, v=new_v, step=step), gnorm

@@ -375,7 +375,8 @@ class SyncCall(NamedTuple):
 
 
 def sync_schedule(shapes: Sequence[tuple], dtypes: Sequence[torch.dtype],
-                  world: int, sync: GradSyncConfig) -> list[SyncCall]:
+                  world: int, sync: GradSyncConfig,
+                  model_axis: bool = False) -> list[SyncCall]:
     """The collective calls one rank makes in one :func:`zero1_step`
     over ``world`` ranks, for leaves of ``shapes`` and parameter
     ``dtypes`` (flatten order), in the step's order: each zero leaf's
@@ -388,7 +389,10 @@ def sync_schedule(shapes: Sequence[tuple], dtypes: Sequence[torch.dtype],
     :func:`padded_rows`, :func:`grad_buckets`, :func:`bucket_width`,
     :func:`bucket_dtype`, ``GradSyncConfig.native_sums``);
     ``roofline/analysis.sync_counts`` counts these calls' bytes on
-    their plans."""
+    their plans.  With a ``model_axis`` (tensor parallelism: ``shapes``
+    are one rank's blocks) the grad norm's fold carries two sums, the
+    model-split leaves' and the replicated ones' (its model-axis fold is
+    the model axis's call)."""
     flags = zero_flags(shapes, world, sync)
     zero = [i for i, f in enumerate(flags) if f]
     zshapes = [shapes[i] for i in zero]
@@ -408,7 +412,7 @@ def sync_schedule(shapes: Sequence[tuple], dtypes: Sequence[torch.dtype],
     for bucket in buckets or ():
         calls.append(SyncCall("reduce_scatter", rs,
                               world * bucket_width(bucket, zshapes), rs_dt))
-    calls.append(SyncCall("fold", None, 1, f32))  # the grad norm
+    calls.append(SyncCall("fold", None, 2 if model_axis else 1, f32))
     if buckets is None:
         calls += [SyncCall("allgather", ag, padded_rows(shapes[i][0], world)
                            // world * _row_numel(shapes[i]), dtypes[i])
@@ -560,7 +564,8 @@ def _bucketed_allgather(shards: list, zero_idx: list, items: list, comm,
 
 def zero1_step(loss_and_grad: Callable, params: list, opt: list,
                batches: list, *, comm, opt_cfg: adamw.AdamWConfig,
-               sync: GradSyncConfig):
+               sync: GradSyncConfig, model_comm=None,
+               model_split: Sequence[bool] | None = None):
     """One ZeRO-1 training step over the local ranks.
 
     ``params`` / ``opt`` / ``batches`` are per-local-rank lists (parameter
@@ -573,6 +578,17 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     do not fit side by side, so the step rebinds the leaves of the
     parameter and moment trees it was given, leaf by leaf, and drops each
     gradient as soon as it is reduced.
+
+    With tensor parallelism (``model_comm``, the model axis's, and
+    ``model_split``, per leaf in flatten order whether its blocks are
+    split over that axis) each rank's trees hold its blocks, and every
+    model column syncs its blocks over its data-axis group:
+    :func:`is_zero_leaf`, :func:`padded_rows` and the sync read the
+    LOCAL block shapes (``embed``'s dim 0 is V / M rows on a rank).
+    AdamW is elementwise, so the numbers are those of the global split.
+    The grad norm is the global one: the split leaves' squares summed
+    over the model axis too, the replicated ones (the same bits on every
+    model rank) counted once.
     """
     world = comm.p
     losses, trees = loss_and_grad(params, batches)
@@ -632,20 +648,24 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     # --- global grad norm: shards partition the reduced grad exactly, so
     # one all-reduce of the summed shard sq-norms plus the (replicated)
     # tiny-leaf sq-norms gives it ---
-    shard_sq, tiny_sq = [], []
-    for gr in g_red:
-        dev = gr[0].device
-        s = torch.zeros((), dtype=f32, device=dev)
-        t = torch.zeros((), dtype=f32, device=dev)
-        for g, flag in zip(gr, flags):
-            if flag:
-                s = s + torch.sum(torch.square(g))
-            else:
-                t = t + torch.sum(torch.square(g))
-        shard_sq.append(s)
-        tiny_sq.append(t)
-    shard_sq = comm.fold_sum(shard_sq)
-    gnorms = [torch.sqrt(s + t) for s, t in zip(shard_sq, tiny_sq)]
+    if model_comm is None:
+        shard_sq, tiny_sq = [], []
+        for gr in g_red:
+            dev = gr[0].device
+            s = torch.zeros((), dtype=f32, device=dev)
+            t = torch.zeros((), dtype=f32, device=dev)
+            for g, flag in zip(gr, flags):
+                if flag:
+                    s = s + torch.sum(torch.square(g))
+                else:
+                    t = t + torch.sum(torch.square(g))
+            shard_sq.append(s)
+            tiny_sq.append(t)
+        shard_sq = comm.fold_sum(shard_sq)
+        gnorms = [torch.sqrt(s + t) for s, t in zip(shard_sq, tiny_sq)]
+    else:
+        gnorms = mesh_grad_norms(g_red, flags, model_split, comm,
+                                 model_comm)
 
     # --- AdamW on shards, then allgather each updated leaf (bucketed:
     # every leaf's shard first, then the pipelined allgather) ---
@@ -690,6 +710,32 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     metrics = {"loss": mloss[0] / world, "grad_norm": gnorms[0], "lr": lr}
     new_opt = [Zero1State(m=o.m, v=o.v, step=step, ef=o.ef) for o in opt]
     return params, new_opt, metrics
+
+
+def mesh_grad_norms(grads: list, over_data: Sequence[bool],
+                    over_model: Sequence[bool], comm, model_comm) -> list:
+    """Every local rank's global grad norm on a ``D x M`` mesh from its
+    gradient blocks (``grads``: per rank, per leaf): each leaf's squares
+    summed over the axes it is split over (``over_data`` / ``over_model``,
+    per leaf) and counted once over the others.  The data-split leaves'
+    two sums (model-split or not) fold over the data axis in one call,
+    the model-split total over the model axis in another: every rank
+    gets the same bits."""
+    f32 = torch.float32
+    split_d, rest = [], []
+    for g in grads:
+        dev = g[0].device
+        acc = [torch.zeros((), dtype=f32, device=dev) for _ in range(4)]
+        for x, d, m in zip(g, over_data, over_model):
+            k = (0 if d else 2) + (0 if m else 1)
+            acc[k] = acc[k] + torch.sum(torch.square(x.to(f32)))
+        split_d.append(torch.stack(acc[:2]))
+        rest.append(acc[2:])
+    split_d = comm.fold_sum(split_d)
+    split_m = model_comm.fold_sum([a[0] + r[0]
+                                   for a, r in zip(split_d, rest)])
+    return [torch.sqrt(s + a[1] + r[1])
+            for s, a, r in zip(split_m, split_d, rest)]
 
 
 def init_zero1_state(params: dict, world: int, sync: GradSyncConfig

@@ -2,5 +2,6 @@
 (``analytic``), the sync's bytes counted from the plans and the terms in
 seconds (``analysis``), and the table (``report``)."""
 from .analysis import (CollectiveStats, Roofline, SyncCount,  # noqa: F401
-                       analyze, model_flops, sync_counts)
+                       analyze, combined, model_flops, sync_counts,
+                       tp_counts)
 from .analytic import CellSpec, analytic_cell  # noqa: F401

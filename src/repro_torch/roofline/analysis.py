@@ -21,7 +21,13 @@ term from the plans themselves: :func:`sync_counts` counts, from the
 out for a ZeRO-1 step, without running anything, the exchanges, bytes
 and native calls of one step's gradient and parameter sync.  Its ``bytes``, ``exchanges`` and
 ``natives`` are what ``comm.bytes``, ``comm.exchanges`` and
-``comm.natives`` add over that step.
+``comm.natives`` add over that step.  :func:`tp_counts` does the same
+for a tensor-parallel or fsdp_auto step on a ``D x M`` mesh, on both
+axes: the data-axis sync laid out on each rank's blocks, and the
+model-axis calls of the hooks (and fsdp_auto's data-axis gathers),
+counted by running the model's own forward and backward on ``meta``
+tensors of the blocks' shapes (no data, no device), remat's recompute
+included.
 
 The port's rule for where a rank runs (the reference's meshes had one
 chip per rank):
@@ -45,6 +51,8 @@ carries ``mfu``: (model FLOPs / peak) / measured seconds.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import torch
 
 from .. import tree as T
 from ..core.plan import plan
@@ -196,6 +204,25 @@ class SyncCount:
         return self.bytes + self.native_bytes
 
 
+def combined(*counts: SyncCount) -> SyncCount:
+    """Several :class:`SyncCount` (a step's axes) as one: every field
+    summed."""
+    stats = CollectiveStats()
+    for c in counts:
+        for src, dst in ((c.stats.ops, stats.ops),
+                         (c.stats.bytes_by_op, stats.bytes_by_op),
+                         (c.stats.raw_bytes_by_op, stats.raw_bytes_by_op),
+                         (c.stats.raw_bytes_by_dtype,
+                          stats.raw_bytes_by_dtype)):
+            for k, v in src.items():
+                dst[k] = dst.get(k, 0) + v
+    return SyncCount(exchanges=sum(c.exchanges for c in counts),
+                     natives=sum(c.natives for c in counts),
+                     bytes=sum(c.bytes for c in counts),
+                     native_bytes=sum(c.native_bytes for c in counts),
+                     stats=stats)
+
+
 def _dt(dtype) -> str:
     return _DTYPE_NAMES[str(dtype).removeprefix("torch.")]
 
@@ -324,6 +351,127 @@ def sync_counts(cfg, sync, world: int, *, ranks: int = 1) -> SyncCount:
         else:
             tally.allgather(plan(c.spec, p=world), c.numel, size, name)
     return tally.count(ranks)
+
+
+class _Recorder:
+    """A mesh axis's communicator that notes every native call (op, one
+    rank's elements, dtype) and passes it on."""
+
+    def __init__(self, comm):
+        self._comm, self.calls = comm, []
+        self.p, self.ranks = comm.p, comm.ranks
+
+    def _note(self, op, xs):
+        self.calls.append((op, xs[0].numel(), xs[0].dtype))
+
+    def all_reduce_sum(self, xs):
+        self._note("all_reduce", xs)
+        return self._comm.all_reduce_sum(xs)
+
+    def all_gather(self, xs):
+        self._note("allgather", xs)
+        return self._comm.all_gather(xs)
+
+    def reduce_scatter_sum(self, xs):
+        self._note("native_rs", xs)
+        return self._comm.reduce_scatter_sum(xs)
+
+    def fold_sum(self, xs):
+        self._note("fold", xs)
+        return self._comm.fold_sum(xs)
+
+
+def model_calls(cfg, layout, *, batch: int, seq: int,
+                remat: bool = True) -> dict:
+    """The native calls one tensor-parallel step's forward and backward
+    make on each axis (``"data"``: fsdp_auto's gathers of the leaves
+    split over it and their reduce-scatters; ``"model"``: the hooks'),
+    as ``(op, elements a rank, dtype)`` lists: ``models.transformer.
+    loss_fn_tp`` run on a ``LocalMesh`` of ``layout.mesh``'s shape with
+    ``meta`` tensors of every rank's blocks and batch (``batch`` global
+    rows of ``seq`` tokens), then one backward of the ranks' losses."""
+    from ..comm import LocalMesh
+    from ..models import sharding as shd
+    from ..models.transformer import loss_fn_tp
+    d, m = layout.mesh.axis_sizes
+    mesh = LocalMesh((d, m), layout.mesh.axis_names)
+    rec = {a: _Recorder(mesh.axis(a)) for a in layout.mesh.axis_names}
+    tp = shd.TensorParallel(axis=shd.ModelAxis(rec["model"], layout.recipe),
+                            data=rec["data"], layout=layout)
+    meta = torch.device("meta")
+    params = [T.unflatten((path, torch.empty(
+        ll.block, dtype=leaf_dtype(cfg, path), device=meta,
+        requires_grad=True)) for path, ll in T.flatten(layout.leaves))
+        for _ in range(d * m)]
+    tok = torch.empty((batch // d, seq), dtype=torch.long, device=meta)
+    batches = [{"tokens": tok, "targets": tok} for _ in range(d * m)]
+    losses = loss_fn_tp(params, cfg, batches, tp, remat)
+    total = losses[0]
+    for loss in losses[1:]:
+        total = total + loss
+    torch.autograd.grad(total, [x for p in params for x in T.leaves(p)])
+    return {a: r.calls for a, r in rec.items()}
+
+
+def tp_counts(cfg, layout, *, mode: str, batch: int, seq: int, sync=None,
+              ranks: int = 1) -> dict:
+    """One tensor-parallel step's calls on each axis of ``layout``'s mesh
+    (``models.sharding.TPLayout``) as ``{"data": SyncCount, "model":
+    SyncCount}``, what ``comm.bytes`` / ``exchanges`` / ``natives`` of
+    each axis's communicator add over the step, for a process holding
+    ``ranks`` ranks.  Each has :func:`model_calls`'s, and ``mode``'s own:
+    zero1's data-axis sync of every rank's blocks (``sync_schedule`` on
+    their shapes, the grad norm's fold of two sums, on the plans of
+    ``sync``) and the norm's model-axis fold; fsdp_auto's all-reduce of
+    every leaf not split over the data axes (its gradient, in the
+    parameter's dtype), the norm's folds on both axes and the loss's."""
+    d, m = layout.mesh.axis_sizes
+    tally = {"data": _Tally(d), "model": _Tally(m)}
+    calls = model_calls(cfg, layout, batch=batch, seq=seq)
+    leaves = T.flatten(layout.leaves)
+    f32 = torch.float32
+    if mode == "zero1":
+        shapes = [ll.block for _, ll in leaves]
+        dtypes = [leaf_dtype(cfg, path) for path, _ in leaves]
+        for c in sync_schedule(shapes, dtypes, d, sync, model_axis=True):
+            calls["data"].append(
+                (c.op, c.numel, c.dtype) if c.spec is None else
+                (c.op, c.numel, c.dtype, c.spec))
+        calls["model"].append(("fold", 1, f32))
+    elif mode == "fsdp_auto":
+        for path, ll in leaves:
+            if ll.data is None:
+                n = 1
+                for x in ll.block:
+                    n *= x
+                calls["data"].append(("all_reduce", n,
+                                      leaf_dtype(cfg, path)))
+        calls["data"] += [("fold", 2, f32), ("fold", 1, f32)]
+        calls["model"].append(("fold", 1, f32))
+    else:
+        raise ValueError(f"mode {mode!r} has no tensor-parallel step")
+    for axis, t in tally.items():
+        for call in calls[axis]:
+            op, numel, dtype = call[:3]
+            size, name = dtype.itemsize, _dt(dtype)
+            if op == "fold":
+                t.fold(numel * size, name)
+            elif op == "all_reduce":
+                t.all_reduce(numel * size, name)
+            elif op == "native_rs":
+                t.native("reduce-scatter", (t.p - 1) * numel * size / t.p,
+                         {name: numel * size})
+            elif op == "allgather" and len(call) == 3:
+                t.native("all-gather", (t.p - 1) * numel * size,
+                         {name: numel * size})
+            elif op == "reduce_scatter":
+                group = (call[3].wire_group
+                         if call[3].wire_dtype == "int8" else None)
+                t.reduce_scatter(plan(call[3], p=t.p), numel, size, name,
+                                 group)
+            else:
+                t.allgather(plan(call[3], p=t.p), numel, size, name)
+    return {axis: t.count(ranks) for axis, t in tally.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
 """Train-step builders of the port."""
-from .steps import BuiltStep, build_single, build_zero1  # noqa: F401
+from .steps import (BuiltStep, build_fsdp_auto, build_single,  # noqa: F401
+                    build_zero1)

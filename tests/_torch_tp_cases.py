@@ -1,0 +1,181 @@
+"""Shared by ``test_torch_tp.py`` and ``test_torch_fsdp.py``: the runs of
+``_torch_tp_ref.py`` on the port's side, the reference worker's spawn,
+and the holds both files make.
+
+Every run starts from the launcher's seed-0 parameters (scaled-down
+qwen3-1.7b, and qwen1.5-110b for its QKV bias), carried to the reference
+with ``repro_torch.convert``, so the launcher's own CLI runs are held
+against the reference's runs too.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import tree as T
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.launch import bootstrap
+from repro_torch.models import build, value_and_grad, value_and_grad_ranks
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+STEPS, SEQ, BATCH = 4, 16, 4
+ARCHS = ("qwen3-1.7b", "qwen1.5-110b")
+#: run -> the port's ``build_session`` kwargs (the runs of
+#: ``_torch_tp_ref.RUNS`` and two layouts held by their gradients only)
+RUNS = {
+    "zero1_2x2": dict(arch="qwen3-1.7b", mode="zero1", dp=2, mp=2),
+    "zero1_1x4_sp": dict(arch="qwen3-1.7b", mode="zero1", dp=1, mp=4,
+                         sequence_parallel=True),
+    "zero1_1x4_gqa": dict(arch="qwen3-1.7b", mode="zero1", dp=1, mp=4,
+                          expand_gqa=True),
+    "zero1_2x2_int8": dict(arch="qwen3-1.7b", mode="zero1", dp=2, mp=2,
+                           wire_dtype="int8"),
+    "zero1_2x2_bias": dict(arch="qwen1.5-110b", mode="zero1", dp=2, mp=2),
+    "fsdp_2x2_tp_fsdp": dict(arch="qwen1.5-110b", mode="fsdp_auto", dp=2,
+                             mp=2),
+    "fsdp_1x4_tp_fsdp": dict(arch="qwen1.5-110b", mode="fsdp_auto", dp=1,
+                             mp=4, sequence_parallel=True),
+}
+
+
+def init_numpy(arch: str) -> dict:
+    """The launcher's seed-0 initial parameters of ``arch`` scaled down,
+    as the reference's numpy tree."""
+    sess = bootstrap.build_session(arch=arch, scale_down=True, device="cpu",
+                                   steps=1, seq_len=SEQ, global_batch=1,
+                                   init_state=False)
+    return params_to_numpy(sess.model.init(torch.Generator().manual_seed(0),
+                                           torch.device("cpu")))
+
+
+def reference(tmp, runs) -> dict:
+    """Spawn ``_torch_tp_ref.py`` on the launcher's initial parameters for
+    ``runs``; its npz as a dict."""
+    inits = {}
+    for arch in ARCHS:
+        for path, leaf in T.flatten(init_numpy(arch)):
+            inits[f"{arch}/" + "/".join(map(str, path))] = leaf
+    np.savez(tmp / "in.npz", **inits)
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "..", "src"), env.get("PYTHONPATH", "")])
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "_torch_tp_ref.py"),
+         str(tmp / "in.npz"), str(tmp / "ref.npz"), ",".join(runs)],
+        capture_output=True, text=True, env=env, timeout=400)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return dict(np.load(tmp / "ref.npz"))
+
+
+def tree(z: dict, prefix: str) -> dict:
+    return T.unflatten((tuple(k[len(prefix):].split("/")), v)
+                       for k, v in z.items() if k.startswith(prefix))
+
+
+def session(run: str, steps: int = STEPS, **kw):
+    """The port's session of ``run`` (no state yet)."""
+    return bootstrap.build_session(
+        scale_down=True, steps=steps, seq_len=SEQ, global_batch=BATCH,
+        device="cpu", init_state=False, **{**RUNS[run], **kw})
+
+
+def replicas_agree(sess) -> None:
+    """Every leaf not split over the model axis is the same bits on
+    every model rank of a data rank."""
+    lls = T.flatten(sess.tp.layout.leaves)
+    by_data: dict = {}
+    for tree_, d in zip(sess.params, sess.comm.ranks):
+        by_data.setdefault(d, []).append(tree_)
+    for trees in by_data.values():
+        for path, ll in lls:
+            if ll.model is None:
+                first = T.get(trees[0], path)
+                for t in trees[1:]:
+                    assert T.same_bits(first, T.get(t, path)), path
+
+
+def train(run: str, init: dict, steps: int = STEPS):
+    """``run`` on the port from ``init`` (numpy, whole): ``(sess, losses,
+    grad norms)``, the replicas held after every step."""
+    sess = session(run, steps)
+    sess.params = bootstrap.shard_params(sess,
+                                         params_from_numpy(init, sess.cfg))
+    sess.opt = sess.built.init_opt(sess.params)
+    losses, gnorms = [], []
+    for s in range(steps):
+        m = bootstrap.run_step(sess, s)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        replicas_agree(sess)
+    return sess, losses, gnorms
+
+
+#: parameters' ``atol``: ``test_torch_zero1.py``'s 1e-9 covers its
+#: near-zero elements; here one embedding element (of 8,192, at
+#: |5.1e-5|, a row the batch uses, whose vocab-parallel gradient sums its
+#: shards in another order) ends 1.6-2.4e-9 apart in the qwen1.5-110b
+#: runs: 5e-9 is a three-thousandth of the first step's learning rate.
+ATOL = 5e-9
+#: ``bk``'s own ``atol``: its gradient sums the keys' gradients over the
+#: positions, which nearly cancel (a query's softmax ignores a shift
+#: common to its scores; only RoPE's rotation breaks it), so its smallest
+#: elements sit at the float32 noise of that sum and AdamW's first
+#: updates (about +-lr) take their sign from it.  Measured: 2.4-6.0e-8
+#: against the reference, 1.8e-8 between the port's TP and unsharded
+#: runs of the same step.
+BK_ATOL = 1e-7
+
+
+def assert_run_matches(z: dict, run: str, atol: float = ATOL,
+                       loss_tol: float = 1e-5,
+                       gnorm_tol: float | None = 1e-5) -> None:
+    """The port's ``run`` against the reference's: losses within
+    ``loss_tol`` and grad norms within ``gnorm_tol`` (``None``: not
+    held), the parameters after the last step (whole) within
+    ``rtol=1e-5`` and ``atol``."""
+    arch = RUNS[run]["arch"]
+    sess, losses, gnorms = train(run, tree(z, f"{arch}/init/"))
+    np.testing.assert_allclose(losses, z[f"{run}/losses"], rtol=0,
+                               atol=loss_tol)
+    if gnorm_tol is not None:
+        np.testing.assert_allclose(gnorms, z[f"{run}/gnorms"], rtol=0,
+                                   atol=gnorm_tol)
+    got = bootstrap.whole_params(sess, sess.params)
+    want = tree(z, f"{run}/final/")
+    for path, a in T.flatten(got):
+        np.testing.assert_allclose(
+            a.float().numpy(), T.get(want, path), rtol=1e-5,
+            atol=max(atol, BK_ATOL) if path[-1] == "bk" else atol,
+            err_msg=".".join(path))
+
+
+def assert_grads_match(run: str) -> None:
+    """One backward of the tensor-parallel model from the launcher's
+    seed-0 parameters against the unsharded model's per data rank: every
+    rank's block of every leaf within ``rtol=1e-4`` / ``atol=1e-6`` (a
+    leaf split over the data axes: the blocks of the data ranks' summed
+    gradients)."""
+    sess = session(run)
+    full = params_from_numpy(init_numpy(RUNS[run]["arch"]), sess.cfg)
+    params = bootstrap.shard_params(sess, full)
+    batches = bootstrap.place_batch(sess, sess.pipe.batch_at(0))
+    _, grads = value_and_grad_ranks(sess.model.loss_ranks)(params, batches)
+    vg = value_and_grad(build(sess.cfg).loss)
+    per_data = {}
+    for b, d in zip(batches, sess.comm.ranks):
+        per_data.setdefault(d, vg(full, b)[1])
+    summed = T.unflatten(
+        (path, sum(T.get(g, path) for g in per_data.values()))
+        for path, _ in T.flatten(full))
+    want = bootstrap.shard_params(sess, summed)
+    wloc = [bootstrap.shard_params(sess, per_data[d])[j]
+            for j, d in enumerate(sess.comm.ranks)]
+    for j, g in enumerate(grads):
+        for path, x in T.flatten(g):
+            ll = T.get(sess.tp.layout.leaves, path)
+            w = T.get(want[j] if ll.data is not None else wloc[j], path)
+            torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-6,
+                                       msg=".".join(path))

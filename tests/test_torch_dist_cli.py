@@ -9,9 +9,12 @@
   the launchers keep their in-process worlds;
 * in torchrun's environment (set here, no process group made): a mesh
   or a serving width that differs from the world exits with a message
-  before any process group is made; tensor parallelism, ``fsdp_auto``
-  and the elastic drill over processes are refused citing ROADMAP.md
-  queue 1 item 11.2; a ``cuda`` world without a card is refused.
+  before any process group is made; tensor parallelism and
+  ``fsdp_auto`` of a family other than the dense one, and the elastic
+  drill over processes, are refused citing ROADMAP.md queue 1 item 11.2;
+  a ``cuda`` world without a card is refused;
+* ``--mesh 1x2 --mode fsdp_auto`` under torchrun (a second spawn)
+  trains tensor parallel over gloo, on the in-process run's losses.
 """
 import math
 import os
@@ -71,6 +74,23 @@ def test_train_cli_under_torchrun_over_gloo():
     assert all(math.isfinite(x) for x in losses)
 
 
+def test_tensor_parallel_fsdp_auto_under_torchrun_over_gloo():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "1"
+    argv = [*TRAIN, "--mesh", "1x2", "--mode", "fsdp_auto"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *argv],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    losses = [float(x) for x in
+              re.findall(r"step +\d+  loss (\S+)", proc.stdout)]
+    run = train.main(argv)
+    assert losses == [float(f"{x:.4f}") for x in run.losses]
+
+
 def test_in_process_world_under_plain_pytest(capsys):
     assert not mesh.is_process_world()
     run = train.main(TRAIN + ["--mesh", "2x1", "--steps", "1"])
@@ -103,8 +123,9 @@ def test_serve_width_that_differs_from_the_world_is_refused(torchrun_env,
                     "--max-new", "2", *argv])
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "1x2"],
-                                  ["--mesh", "2x1", "--mode", "fsdp_auto"]])
+@pytest.mark.parametrize("argv", [
+    ["--arch", "hymba-1.5b", "--mesh", "1x2"],
+    ["--arch", "xlstm-125m", "--mesh", "2x1", "--mode", "fsdp_auto"]])
 def test_tensor_parallelism_and_fsdp_refused_citing_11_2(torchrun_env, argv):
     with pytest.raises(SystemExit, match="item 11.2"):
         train.main(TRAIN + argv)

@@ -23,6 +23,11 @@ in-process run of the same argv (virtual ranks of a ``LocalComm`` or a
   within ``test_torch_ep_zero1.py``'s tolerances of the reference's
   ``build_zero1`` (losses and grad norm 1e-5; params ``rtol=1e-5,
   atol=1e-9``).
+* qwen3-1.7b tensor parallel on a 2x2 ``DistMesh`` (``--mesh 2x2``:
+  ZeRO-1 over data, TP over model), 3 steps: every rank's losses, grad
+  norms, params and moments against the in-process 2x2 ``LocalMesh``
+  run.  The model axis sums with gloo's own all-reduce and
+  reduce-scatter; with two ranks a sum has one order, so bitwise.
 * ``moe_ffn_ep`` over a ``DistComm`` of 4 processes, each the backward
   of its own loss: outputs, aux losses and every rank's grads bitwise
   ``value_and_grad_ranks`` on a ``LocalComm(4)`` (one backward of the
@@ -122,7 +127,7 @@ def world(tmp_path_factory):
         stderr=subprocess.STDOUT, text=True) for r in range(4)]
     # the in-process runs of the same argv, meanwhile
     local = {}
-    for name in (*W.ZERO1_RUNS, "ep"):
+    for name in (*W.ZERO1_RUNS, "ep", "tp"):
         train.main(W.ARGV[name], on_step=_record(local, name))
     local["moe"] = W.moe_loss_and_grads(LocalComm(4), range(4))
     local["ar"] = W.all_reduce_grad(LocalComm(4), range(4))
@@ -195,6 +200,14 @@ def test_ep_over_processes_is_bitwise_in_process(world):
         for key in keys:
             np.testing.assert_array_equal(outs[g][key], local[key][g],
                                           err_msg=f"rank {g} {key}")
+
+
+def test_tp_over_processes_is_bitwise_in_process(world):
+    local, outs, _, _ = world
+    for g in range(4):
+        assert outs[g]["tp/loss"].tolist() == local["tp/loss"]
+        assert outs[g]["tp/gnorm"].tolist() == local["tp/gnorm"]
+        _state_equal("tp", local, outs[g], "tp", g)
 
 
 def test_ep_over_processes_matches_reference(world):

@@ -212,11 +212,14 @@ def test_train_cli_on_step_sees_each_step():
 
 @pytest.mark.parametrize("extra", [["--ckpt-every", "0"],
                                    ["--fail-at-step", "-1"],
-                                   ["--mesh", "2x2"], ["--mode", "fsdp_auto"],
+                                   ["--arch", "hymba-1.5b", "--mesh", "1x3"],
+                                   ["--arch", "xlstm-125m", "--mode",
+                                    "fsdp_auto"],
                                    ["--grad-sync", "ring", "--bucket-bytes",
                                     "1000"], ["--bucket-bytes", "0"]])
 def test_train_cli_refuses_unported_flags(extra):
-    """Unported features, the checkpoint flags' bounds (a positive
+    """Unported features (tensor parallelism and fsdp_auto of a family
+    other than the dense one), the checkpoint flags' bounds (a positive
     interval, a step >= 0) and the sync's own refusals (bucketing is
     circulant only and takes a positive size) exit with a message."""
     from repro_torch.launch import train
@@ -224,6 +227,21 @@ def test_train_cli_refuses_unported_flags(extra):
         train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
                     "--mesh", "3x1", "--steps", "1", "--seq-len", "8",
                     "--global-batch", "3", *extra])
+
+
+@pytest.mark.parametrize("extra", [["--mesh", "1x3"],
+                                   ["--mode", "fsdp_auto"]])
+def test_train_cli_runs_tensor_parallel_and_fsdp_auto(extra):
+    """``--mesh 1x3`` (tensor parallel over three virtual model ranks)
+    and ``--mode fsdp_auto`` (on the 3x1 mesh) train, on the losses of
+    the 3x1 zero1 run of the same flags."""
+    from repro_torch.launch import train
+    argv = ["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
+            "--mesh", "3x1", "--steps", "2", "--seq-len", "8",
+            "--global-batch", "3"]
+    want = train.main(argv).losses
+    got = train.main(argv + extra).losses
+    assert max(abs(a - b) for a, b in zip(got, want)) < 1e-5
 
 
 def test_elastic_cli_shrinks_on_cpu(capsys):

@@ -351,3 +351,73 @@ def test_report_fit_mark_and_measured_columns(tmp_path, capsys):
             json.dump(r, f)
     report.main(["--dir", str(tmp_path)])
     assert capsys.readouterr().out.strip() == report.render(rows)
+
+
+#: the tensor-parallel steps of ``test_tp_counts_equal_comm_counters``
+TP_STEPS = {
+    "zero1": [dict(dp=2, mp=2), dict(dp=2, mp=2, wire_dtype="int8"),
+              dict(dp=2, mp=2, bucket_bytes=30_000),
+              dict(dp=1, mp=4, sequence_parallel=True)],
+    "fsdp_auto": [dict(dp=2, mp=2), dict(dp=2, mp=2, arch="qwen1.5-110b"),
+                  dict(dp=1, mp=4, arch="qwen1.5-110b",
+                       sequence_parallel=True)],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(TP_STEPS))
+def test_tp_counts_equal_comm_counters(mode):
+    """One tensor-parallel step (zero1 on a ``D x M`` mesh: exact, int8 +
+    EF, bucketed, sequence-parallel; fsdp_auto, ``tp`` and ``tp_fsdp``):
+    ``tp_counts`` equals ``comm.bytes``, ``comm.exchanges`` and
+    ``comm.natives`` of the data axis and of the model axis, exactly."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for kw in TP_STEPS[mode]:
+            kw = {"arch": "qwen3-1.7b", **kw}
+            sess = bootstrap.build_session(
+                scale_down=True, steps=2, seq_len=8, global_batch=4,
+                device="cpu", mode=mode, **kw)
+            comms = {"data": sess.comm, "model": sess.tp.axis.comm}
+            before = {a: (c.bytes, c.exchanges, c.natives)
+                      for a, c in comms.items()}
+            bootstrap.run_step(sess, 0)
+            pc = analysis.tp_counts(sess.cfg, sess.tp.layout, mode=mode,
+                                    batch=4, seq=8, sync=sess.sync,
+                                    ranks=len(sess.comm.ranks))
+            for axis, c in comms.items():
+                got = tuple(x - y for x, y in zip(
+                    (c.bytes, c.exchanges, c.natives), before[axis]))
+                want = pc[axis]
+                assert (want.bytes, want.exchanges, want.natives) == got, \
+                    (axis, kw)
+                assert sum(want.stats.ops.values()) == \
+                    want.exchanges + want.natives
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_tp_counts_full_width_per_layer():
+    """qwen3-1.7b at full width (4 of its 28 layers) on 2x2, seq 256: the
+    model axis makes one
+    all-reduce for the embedding, per layer two in the forward (after
+    ``wo`` and ``w_down``), one more in remat's recompute (which stops at
+    the last tensor the backward needs, before ``w_down``'s sum) and four
+    in the backward (the copies of the two normed inputs and of the two
+    qk-norm gains), one for the head's input, the loss's allgather of
+    maxima and all-reduce, and the grad norm's fold: 5 + 7 L.  The data
+    axis syncs every block: 2 ceil(log2 2) exchanges a zero leaf.  (At
+    28 layers: 201 model-axis calls, phase 14 (a) of ``chip_smoke.py``.)"""
+    import dataclasses
+    from repro_torch.models import ShardingRecipe
+    from repro_torch.models import sharding as shd
+    cfg = dataclasses.replace(port_config("qwen3-1.7b"), n_layers=4)
+    lay = shd.tp_layout(cfg, ShardingRecipe(tp_size=2), (2, 2))
+    pc = analysis.tp_counts(cfg, lay, mode="zero1", batch=2, seq=256,
+                            sync=GradSyncConfig())
+    assert pc["model"].natives == 5 + 7 * cfg.n_layers
+    assert pc["model"].stats.ops == {"all-reduce": 3 + 7 * cfg.n_layers,
+                                     "all-gather": 2}
+    # 12 zero leaves (4 layers of q / k norm gains, 512 elements each,
+    # stay whole: folded) and the grad norm's and the loss's folds
+    assert pc["data"].exchanges == 2 * 12 and pc["data"].natives == 2 + 2
