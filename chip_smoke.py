@@ -186,7 +186,8 @@ Phases (any failure exits non-zero; none is caught):
    ``comm.exchanges``, which must be equal, and no measured time below
    its bound; one JSON record a path in ``build/roofline`` and the
    rendered table (``repro_torch.roofline.report``).  Tensor-parallel
-   paths (phase 14 (a), and under ``--cards 4`` (c), (d)) are
+   paths (phases 14 (a), 15 (a), and under ``--cards 4`` 14 (c), (d),
+   15 (d), (e)) are
    ``CellSpec(tp=M)`` with both axes' counts from ``tp_counts`` (the
    plans' data-axis sync of the blocks, the model's model-axis calls
    from a run on ``meta`` tensors), equal to ``comm.bytes`` /
@@ -213,6 +214,26 @@ Phases (any failure exits non-zero; none is caught):
    they came out bitwise is printed); (d) qwen1.5-110b fsdp_auto on a
    2x2 ``DistMesh`` at 12 layers: step seconds, peak a card.
 
+15. tensor parallelism and fsdp_auto of the MoE and VLM families: (a)
+   phi-3.5-MoE (global dispatch) at ``--mesh 2x2 --global-batch 2
+   --steps 3``, full width, 2 of 32 layers, bf16, 4 virtual ranks on one
+   card: ``fused_round`` launched 3 steps x 4 ranks x the blocks' zero
+   leaves x 1 round, the warm step, the peak, a profiled warm step's
+   idle share, step 0 bitwise with ``--fused-kernel off``; at 1 layer in
+   float32, 2 steps, ``--mesh 1x2`` held against mode ``single`` at
+   global batch 1 (phase 14's bounds; the 2x1 path's two whole float32
+   replicas do not fit the card); (b)
+   the same at ``--moe-dispatch rowwise``, 2 steps, with its hold; (c)
+   ``--mode fsdp_auto`` of grok-1-314b and llama-3.2-vision-90b at their
+   scale-down configs (float32) on 2x2 against mode ``single`` at the
+   same global batch, no kernel launched.  Under ``--cards 4``, on a 2x2
+   ``DistMesh`` over NCCL, fsdp_auto ``tp_fsdp`` at full width: (d)
+   grok-1-314b at 3 of 64 layers, (e) llama-3.2-vision-90b at 20 of 100
+   (4 groups), each with the 12-bytes-a-parameter reckoning printed
+   first: per-rank step seconds, the peak a card, rank 0's idle share;
+   at the scale-down config every rank's blocks against the in-process
+   run within rtol 1e-5 / atol 1e-5.
+
 Phase 2 also holds ``permute_rows`` against its plain version bitwise
 (random permutations at p = 2..8, f32/bf16/i32, ragged and one-column
 rows, a misaligned base, every alltoall shape of phases 3 and 6) and
@@ -226,7 +247,8 @@ port's kernels that the step made; otherwise its device time is printed
 as not measured.
 
 ``python3 chip_smoke.py --cards 4`` runs phase 1 on every card, phase
-12 (b)-(g), phase 14 (c), (d) and phase 13 for 12 (c), 14 (c), (d).
+12 (b)-(g), phase 14 (c), (d), phase 15 (d), (e) and phase 13 for 12
+(c), 14 (c), (d), 15 (d), (e).
 
 ``python3 chip_smoke.py --against SRC`` runs nothing of the above: it
 compares this tree's kernels with those of the ``repro_torch`` under
@@ -1860,11 +1882,11 @@ def moe_layer_check(pe: int) -> None:
     from repro_torch.core.plan import final_slot_order
     from repro_torch.models.dispatch import (expert_owners, moe_ffn_ep,
                                              moe_ffn_global)
-    from repro_torch.models.moe import init_moe
+    from repro_torch.models.moe import moe_draws
     cfg = dataclasses.replace(get_config(EP_ARCH), dtype="float32",
                               moe_dispatch="ep")
     gen = torch.Generator(device="cuda").manual_seed(6 + pe)
-    params = init_moe(gen, cfg, torch.float32, "cuda")
+    params = dict(moe_draws(gen, cfg, torch.float32, "cuda"))
     for v in params.values():
         v.requires_grad_(True)
     shape = (1, 2048, cfg.d_model)
@@ -3808,9 +3830,10 @@ def tp_steps(sess) -> dict:
             (("data", sess.comm), ("model", sess.tp.axis.comm))}
 
 
-def tp_zero_leaves(argv) -> int:
+def tp_zero_leaves(argv, n_layers: int | None = None) -> int:
     """Zero leaves of one rank's blocks in ``argv``'s tensor-parallel
-    zero1 session (the sync's per-leaf reduce-scatters a rank)."""
+    zero1 session (the sync's per-leaf reduce-scatters a rank), its depth
+    cut to ``n_layers``."""
     from repro_torch.launch import bootstrap
     from repro_torch.launch import train as trainer
     from repro_torch.models import ShardingRecipe
@@ -3818,7 +3841,8 @@ def tp_zero_leaves(argv) -> int:
     from repro_torch.optim.zero1 import GradSyncConfig, zero_flags
     args = trainer._parser().parse_args(argv)
     d, m = (int(x) for x in args.mesh.split("x"))
-    cfg = bootstrap.resolve_cfg(args.arch, scale_down=args.scale_down)
+    cfg = bootstrap.resolve_cfg(args.arch, scale_down=args.scale_down,
+                                n_layers=n_layers)
     lay = shd.tp_layout(cfg, ShardingRecipe(tp_size=m), (d, m))
     return sum(zero_flags(lay.local_shapes(), d, GradSyncConfig()))
 
@@ -4029,6 +4053,241 @@ def hold_run(argv) -> dict:
     run = trainer.main(argv, on_step=on_step)
     keep["losses"] = run.losses
     return keep
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: tensor parallelism and fsdp_auto of the MoE and VLM families
+# ---------------------------------------------------------------------------
+
+#: (a): phi-3.5-MoE, global dispatch, on 2x2 (ZeRO-1 over data, each model
+#: rank its 8 of the 16 experts), full width at ``P15A_LAYERS`` layers
+P15A_ARGV = argv_with(MAIN_ARGV, arch=EP_ARCH, mesh="2x2", global_batch=2,
+                      steps=3)
+P15A_LAYERS = 2
+#: (b): the same at --moe-dispatch rowwise, 2 steps
+P15B_ARGV = argv_with(P15A_ARGV, moe_dispatch="rowwise", steps=2)
+#: (a)'s and (b)'s float32 holds, 1x2 against mode single at 1 layer:
+#: the 2x1 path's two whole float32 replicas with their moments do not fit
+#: 80 GB (at 1 layer the stacked leaves' one row pads to D = 2, so ZeRO-1
+#: halves nothing: it ran out of memory on an 80 GB H100)
+P15_HOLD_LAYERS = 1
+P15_HOLD_MESH = dict(mesh="1x2", global_batch=1, steps=2)
+#: (d), (e): the depth of each arch on four cards, the most layers (the
+#: VLM's in groups of 5) whose measured peak leaves 10 GiB of the card
+#: free: grok-1 peaks at 54.80 GiB a card at 3 layers and 71.55 at 4; the
+#: VLM at 56.10 at 15 and 68.05 at 20 (NVIDIA H100 80GB HBM3, 700 W).
+#: (c) and their holds run each at its scale-down config (float32), 2x2,
+#: 2 steps
+P15_BIG = {"grok-1-314b": 3, "llama-3.2-vision-90b": 20}
+
+
+def p15_small_argv(arch: str) -> list:
+    return argv_with(MAIN_ARGV, arch=arch, scale_down=True, mesh="2x2",
+                     mode="fsdp_auto", global_batch=4, seq_len=64, steps=2)
+
+
+def p15_big_argv(arch: str) -> list:
+    """(d), (e): fsdp_auto ``tp_fsdp`` on 2x2 at full width, bf16."""
+    return argv_with(MAIN_ARGV, arch=arch, mesh="2x2", mode="fsdp_auto",
+                     global_batch=2, steps=3)
+
+
+def p15_reckoning(arch: str, layers: int, cards: int) -> str:
+    """The 12-bytes-a-parameter reckoning of ``arch`` at ``layers``
+    layers over ``cards`` cards (``ModelConfig.param_count``'s
+    embedding, head and per-layer terms)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    emb = 2 * cfg.vocab_size * cfg.d_model
+    layer = (cfg.param_count() - emb) / cfg.n_layers
+    n = dataclasses.replace(cfg, n_layers=layers).param_count()
+    return (f"12 B a parameter (bf16 leaf and gradient, float32 m and v) x "
+            f"({emb / 1e9:.2f} B embed + lm_head + {layers} x "
+            f"{layer / 1e9:.3f} B) / {cards} card(s) = "
+            f"{12 * n / cards / 1e9:.1f} GB a card, activations and a "
+            f"layer's gathered weights apart; reduced: depth "
+            f"{cfg.n_layers} -> {layers}")
+
+
+def p15_tp_run(label: str, argv, layers: int, smi: str) -> dict:
+    """(a) or (b): ``argv`` at ``layers`` layers with a profiled warm step,
+    then step 0 with ``--fused-kernel off``; the launch counts exact, on
+    and off bitwise."""
+    from repro_torch.core import ceil_log2
+    n_zero = tp_zero_leaves(argv, layers)
+    print(f"phase 15 ({label}): {' '.join(argv)}: phi-3.5-MoE full width, "
+          f"bf16, 4 virtual ranks on one card (each model rank its 8 of 16 "
+          f"experts' slots, {n_zero} zero leaves a rank); reduced: depth 32 "
+          f"-> {layers}", flush=True)
+    with cut_depth(layers):
+        run = tp_main(argv, f"phase 15 ({label})", profile=True)
+        off = tp_main(argv_with(argv, steps=1, fused_kernel="off"),
+                      f"phase 15 ({label}), kernels off")
+    want = {name: 0 for name in counters()}
+    steps = len(run["losses"])
+    want["fused_round"] = steps * 4 * n_zero * ceil_log2(2)
+    check(run["counts"] == want, f"phase 15 ({label}): launches "
+          f"{run['counts']}, expected {want} (= {steps} steps x 4 ranks x "
+          f"{n_zero} zero leaves x 1 round)")
+    print_tp_run(f"phase 15 ({label})", run, smi)
+    print(f"phase 15 ({label}): fused_round launches "
+          f"{run['counts']['fused_round']} = {steps} steps x 4 ranks x "
+          f"{n_zero} zero leaves of the blocks x 1 round; warm step "
+          f"{run['warm_ms']:.1f} ms")
+    check(not any(off["counts"].values()), f"phase 15 ({label}) off: "
+          f"{off['counts']}")
+    check(off["losses"][0] == run["losses"][0] and off["gnorm"][0] ==
+          run["gnorm"][0] and off["digest"] == run["digest"],
+          f"phase 15 ({label}): kernels on and off differ in step 0's loss "
+          f"or grad norm or the params after it")
+    print(f"phase 15 ({label}): --fused-kernel off gives a bitwise-equal "
+          f"step-0 loss and grad norm and bitwise-equal params (every "
+          f"rank's blocks) after step 0")
+    run["counts"] = {k: run["counts"][k] + off["counts"][k]
+                     for k in run["counts"]}
+    return run
+
+
+def p15_hold(label: str, argv, against: dict, what: str,
+             fsdp: bool = False) -> None:
+    """``argv`` (a model axis, float32) held against the same argv with
+    ``against``'s flags, 2 steps: losses within ``P14_HOLD["loss"]``
+    relative, the whole params within its rtol / atol; ``fsdp``: no
+    kernel launched."""
+    tp = tp_main(argv, f"phase 15 ({label}) hold", keep_whole=True)
+    ref = hold_run(argv_with(argv, **against))
+    loss_held(tp["losses"], ref["losses"], f"phase 15 ({label}) hold",
+              P14_HOLD["loss"])
+    worst = held(tp["whole"], ref["whole"], f"phase 15 ({label}) hold",
+                 P14_HOLD["rtol"], P14_HOLD["atol"])
+    check(not fsdp or not any(tp["counts"].values()),
+          f"phase 15 ({label}): fsdp_auto launched {tp['counts']}")
+    print(f"phase 15 ({label}): {what}, float32, 2 steps: losses "
+          f"{tp['losses']} vs {ref['losses']} (within {P14_HOLD['loss']} "
+          f"relative), params within rtol {P14_HOLD['rtol']} / atol "
+          f"{P14_HOLD['atol']} (the largest {worst:.3f} of the bound)")
+    del tp, ref
+    free_cuda()
+
+
+def phase_tp_families(smi: str) -> dict:
+    """Phase 15 (a)-(c) on one card."""
+    t15 = time.perf_counter()
+    a = p15_tp_run("a", P15A_ARGV, P15A_LAYERS, smi)
+    measured_tp("15a", EP_ARCH, P15A_ARGV, a, local=True,
+                layers=P15A_LAYERS)
+    del a["digest"]
+    single = {"mesh": "1x1", "mode": "single"}
+    with cut_depth(P15_HOLD_LAYERS), f32_configs():
+        p15_hold("a", argv_with(P15A_ARGV, **P15_HOLD_MESH), single,
+                 f"1x2 vs single (no model axis) at {P15_HOLD_LAYERS} "
+                 f"layer, global batch 1")
+    b = p15_tp_run("b", P15B_ARGV, P15A_LAYERS, smi)
+    with cut_depth(P15_HOLD_LAYERS), f32_configs():
+        p15_hold("b", argv_with(P15B_ARGV, **P15_HOLD_MESH), single,
+                 f"rowwise 1x2 vs single at {P15_HOLD_LAYERS} layer, "
+                 f"global batch 1")
+    for arch in P15_BIG:
+        p15_hold("c", p15_small_argv(arch), single,
+                 f"{arch} scaled down, fsdp_auto tp_fsdp 2x2 vs single at "
+                 f"global batch 4, no kernel launched", fsdp=True)
+    print(f"phase 15 in {time.perf_counter() - t15:.1f} s ({smi})")
+    return {"15a": a["counts"], "15b": b["counts"]}
+
+
+def p15_big_rank(spec, dev) -> dict:
+    """15 (d) or (e)'s rank: ``spec["arch"]`` fsdp_auto ``tp_fsdp`` on a
+    2x2 ``DistMesh``, full width at ``spec["layers"]`` layers, with a
+    profiled warm step; then the scale-down config's 2 steps, this rank's
+    blocks written for the parent's hold."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import train as trainer
+    with cut_depth(spec["layers"]):
+        on = tp_main(p15_big_argv(spec["arch"]), f"15 ({spec['label']})",
+                     dev=dev, profile=True)
+    keep = {}
+
+    def on_step(step, sess, metrics):
+        keep["params"] = T.map_leaves(lambda x: x.detach().cpu(),
+                                      sess.params[0])
+
+    run = trainer.main(p15_small_argv(spec["arch"]), on_step=on_step)
+    torch.save(keep["params"],
+               P12_DIR / f"{spec['label']}.params.{dev.index}.pt")
+    return {"on": on, "hold_losses": run.losses}
+
+
+def phase_tp_families_on_cards(smi: str) -> dict:
+    """Phase 15 (d) and (e) on four cards, one rank a card over NCCL."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import train as trainer
+    t0 = time.perf_counter()
+    out = {}
+    for part, (arch, layers) in zip("de", P15_BIG.items()):
+        label = "15" + part
+        print(f"phase 15 ({part}): {' '.join(p15_big_argv(arch))} on a 2x2 "
+              f"DistMesh, one rank a card over NCCL: {arch} full width, "
+              f"fsdp_auto tp_fsdp; " + p15_reckoning(arch, layers, 4),
+              flush=True)
+        res = torchrun(4, "15big", label, arch=arch, layers=layers,
+                       alloc_conf=P14D_ALLOC_CONF)
+        on = [x["on"] for x in res]
+        for r, x in enumerate(on):
+            check(not any(x["counts"].values()), f"({label}) rank {r}: "
+                  f"{x['counts']}")
+            check(x["losses"] == on[0]["losses"], f"({label}) rank {r}'s "
+                  f"losses {x['losses']} vs rank 0's {on[0]['losses']}")
+            check(x["steps"] == on[0]["steps"], f"({label}) ranks counted "
+                  f"different calls")
+            print(f"phase 15 ({part}) rank {r}: step seconds "
+                  f"{[round(t, 4) for t in x['step_seconds']]}, warm step "
+                  f"{x['warm_ms']:.1f} ms, peak {x['peak'] / 2**30:.2f} "
+                  f"GiB, a step: data axis {x['steps'][0]['data']}, model "
+                  f"axis {x['steps'][0]['model']} ({smi})")
+        world_s = [max(x["step_seconds"][i] for x in on)
+                   for i in range(len(on[0]["step_seconds"]))]
+        steps_s = [round(t, 4) for t in world_s]
+        peaks = [round(x["peak"] / 2**30, 2) for x in on]
+        print(f"phase 15 ({part}): losses {on[0]['losses']}, grad norms "
+              f"{on[0]['gnorm']}; the world's step {steps_s} s; peak a "
+              f"card {peaks} GiB")
+        MEASURED[label] = dict(
+            arch=arch, kind="train", seq=2048, batch=2, ranks=4, local=False,
+            mode="fsdp_auto", sync={}, tp=(2, 2), layers=layers,
+            measured_s=min(world_s[1:]), steps=on[0]["steps"],
+            peak=max(x["peak"] for x in on))
+        # the hold: the scale-down config's 2 steps in process (4 virtual
+        # ranks on card 0)
+        keep = {}
+
+        def on_step(step, sess, metrics):
+            keep["params"] = [T.map_leaves(lambda x: x.detach().cpu(), p)
+                              for p in sess.params]
+
+        run = trainer.main(p15_small_argv(arch), on_step=on_step)
+        loss_held(res[0]["hold_losses"], run.losses, f"({label}) hold", 1e-5)
+        worst, bitwise = 0.0, run.losses == res[0]["hold_losses"]
+        for r in range(4):
+            path = P12_DIR / f"{label}.params.{r}.pt"
+            got = torch.load(path)
+            worst = max(worst, held(got, keep["params"][r],
+                                    f"({label}) hold rank {r}", 1e-5, 1e-5))
+            bitwise = bitwise and all(
+                same_bits(a, b) for a, b in zip(
+                    T.leaves(got), T.leaves(keep["params"][r])))
+            path.unlink()
+        print(f"phase 15 ({part}): {arch} scaled down, 2 steps: 4 processes "
+              f"over NCCL vs 4 virtual ranks on one card: losses "
+              f"{res[0]['hold_losses']} vs {run.losses}; every rank's blocks "
+              f"within rtol 1e-5 / atol 1e-5 (the largest {worst:.3f} of "
+              f"the bound); bitwise: {bitwise}")
+        out[label] = {k: sum(x["counts"][k] for x in on) for k in counters()}
+        free_cuda()
+    print(f"phase 15 (d), (e) in {time.perf_counter() - t0:.1f} s ({smi})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4732,7 +4991,8 @@ def phase_tp_on_cards(smi: str) -> dict:
 P12_PHASES = {"a": p12_launcher_one_card, "b": p12_collectives,
               "c": p12_main_path, "d": p12_wire, "e": p12_ep,
               "f2": p12_serve_ep2, "f4": p12_serve_4, "g": p12_checkpoint,
-              "14c": p14_tp_rank, "14d": p14_fsdp_rank}
+              "14c": p14_tp_rank, "14d": p14_fsdp_rank,
+              "15big": p15_big_rank}
 
 
 def phase_launcher_one_card(smi: str) -> dict:
@@ -5033,8 +5293,8 @@ def phase_multi_card(smi: str, parts: str = "bcdefg") -> dict:
 
 def cards_main() -> int:
     """``python3 chip_smoke.py --cards 4``: phase 1 for every card, then
-    phase 12 (b)-(g), phase 14 (c), (d), phase 13, the kernels line and
-    the verdict."""
+    phase 12 (b)-(g), phase 14 (c), (d), phase 15 (d), (e), phase 13, the
+    kernels line and the verdict."""
     import torch
     check(torch.cuda.device_count() >= P12_CARDS,
           f"--cards {P12_CARDS} needs {P12_CARDS} cards, this machine shows "
@@ -5052,6 +5312,7 @@ def cards_main() -> int:
     print(f"NCCL {torch.cuda.nccl.version()}", flush=True)
     by_path = phase_multi_card(smi)
     by_path.update(phase_tp_on_cards(smi))
+    by_path.update(phase_tp_families_on_cards(smi))
     phase_roofline(smi, mesh="h100x4")
     names = {"fused_round": ("src/repro_torch/csrc/fused_round.cu",
                              "src/repro/kernels/fused_round.py:109"),
@@ -5133,6 +5394,7 @@ def main() -> int:
     families = phase_families(smi)
     launcher = phase_launcher_one_card(smi)
     tensor_parallel = phase_tensor_parallel(smi)
+    tensor_parallel.update(phase_tp_families(smi))
     phase_roofline(smi)
     print("phase 12 (b)-(g), one rank per card over NCCL (the collectives "
           "on the links, the main path at p = 4, the int8 wire with EF at "

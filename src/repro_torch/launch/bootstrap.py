@@ -8,8 +8,9 @@ The zero1 mode runs its ``dp`` ranks as virtual ranks of a
 (``moe_dispatch="ep"``) it runs a ``dp × mp`` ``LocalMesh`` fully
 manual, as the reference does: every rank holds whole replicas, zero1
 syncs over the data axis and the MoE dispatch exchanges over the model
-axis.  A dense config on ``mp > 1`` (or in mode ``fsdp_auto``) runs
-tensor parallel over the model axis (``models/sharding.py``): the
+axis.  A dense, MoE (global or rowwise dispatch) or VLM config on ``mp
+> 1`` (or in mode ``fsdp_auto``) runs tensor parallel over the model
+axis (``models/sharding.py``): the
 recipe is ``ShardingRecipe(data_axes=("data",), model_axis="model",
 tp_size=mp)``, in mode ``tp`` for zero1 and, for fsdp_auto, by the
 reference's rule for training the largest archs (``FSDP_ARCHS``,
@@ -54,6 +55,7 @@ from ..data import for_model
 from ..models import (ShardingRecipe, build, is_ep, leaf_dtype,
                       param_shapes)
 from ..models import sharding as shd
+from ..models.transformer import TP_FAMILIES
 from ..optim.adamw import AdamWConfig, TreeAdamState
 from ..optim.zero1 import (GradSyncConfig, Zero1State, resize_zero1_state,
                            zero_flags)
@@ -150,11 +152,11 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
     """Build a runnable :class:`Session` for a ``dp × mp`` mesh; zero1
     runs its ``dp`` ranks on a ``LocalComm``.  ``mp > 1`` runs the
     ``dp × mp`` ranks on a ``LocalMesh``: an expert-parallel MoE config
-    (``moe_dispatch="ep"``) exchanges over the model axis, a dense one is
-    tensor parallel over it, as is mode ``fsdp_auto`` on any mesh
-    (``sequence_parallel`` and ``expand_gqa``: the recipe's fields; any
-    other family raises ``NotImplementedError``, ROADMAP.md queue 1 item
-    11.2).  ``grad_sync`` is the sync's impl (circulant, ring, xla or
+    (``moe_dispatch="ep"``) exchanges over the model axis, a dense, MoE
+    or VLM one is tensor parallel over it, as is mode ``fsdp_auto`` on
+    any mesh (``sequence_parallel`` and ``expand_gqa``: the recipe's
+    fields; the hybrid, xLSTM and encoder-decoder families raise
+    ``NotImplementedError``, ROADMAP.md queue 1 item 11.2).  ``grad_sync`` is the sync's impl (circulant, ring, xla or
     allreduce) and ``bucket_bytes`` its bucket size (circulant; on an
     expert-parallel mesh the buckets run over the data axis).
     ``wire_dtype="int8"`` puts the gradient reduce-scatter on the int8
@@ -175,12 +177,11 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                                   f"not {mode!r}")
     tensor_parallel = mode == "fsdp_auto" or (mode == "zero1" and mp != 1
                                               and not ep)
-    if tensor_parallel and (cfg.family != "dense" or cfg.is_moe):
+    if tensor_parallel and cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"mesh {dp}x{mp} in mode {mode}: tensor parallelism runs the "
-            f"dense family only; {cfg.name} ({cfg.family}) waits for "
-            f"ROADMAP.md queue 1 item 11.2 (use {dp}x1 in mode zero1, or a "
-            f"MoE arch with --moe-dispatch ep)")
+            f"families {TP_FAMILIES}; {cfg.name} ({cfg.family}) waits for "
+            f"ROADMAP.md queue 1 item 11.2 (use {dp}x1 in mode zero1)")
     procs = meshlib.is_process_world()
     if procs:
         dev = join_world(dp * mp, device, f"mesh {dp}x{mp}")
@@ -210,7 +211,8 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
             expand_gqa=expand_gqa)
         tp = shd.TensorParallel(
             axis=shd.ModelAxis(mesh.axis("model"), recipe), data=comm,
-            layout=shd.tp_layout(cfg, recipe, (dp, mp)))
+            layout=shd.tp_layout(cfg, recipe, (dp, mp)),
+            pooled=mode == "fsdp_auto")
     model = build(cfg, ep_comm=ep_comm, use_fused_kernel=use_fused_kernel,
                   tp=tp)
     if mode == "fsdp_auto":

@@ -49,19 +49,25 @@ saves one every ``--ckpt-every`` steps (in the background; restorable at
 any world size); ``--fail-at-step N`` injects a crash at step N (the
 restart drill: rerun with the same ``--ckpt-dir`` to resume on the same
 trajectory).  Each step's time feeds the straggler watchdog, whose
-verdict ends the step's log line.  ``--mesh DxM`` with M > 1 and a dense
-arch trains tensor parallel over the model axis (zero1 over D, TP over
-M), and ``--mode fsdp_auto`` trains the reference's pure-GSPMD mode
-(blocks over the model axis, and for qwen1.5-110b, grok-1 and
-llama-3.2-vision also over the data axis, gathered a layer at a time)::
+verdict ends the step's log line.  ``--mesh DxM`` with M > 1 and a dense,
+MoE (``--moe-dispatch global`` or ``rowwise``: each model rank runs its
+experts' slots) or VLM arch trains tensor parallel over the model axis
+(zero1 over D, TP over M), and ``--mode fsdp_auto`` trains the
+reference's pure-GSPMD mode (blocks over the model axis, and for
+qwen1.5-110b, grok-1 and llama-3.2-vision also over the data axis,
+gathered a layer at a time; the MoE's global dispatch pools every data
+rank's tokens, as the reference's global batch does)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --scale-down --device cpu --mesh 2x2 --steps 3 --seq-len 16 \\
         --global-batch 4 [--mode fsdp_auto]
+    # or --arch phi3.5-moe-42b-a6.6b [--moe-dispatch rowwise],
+    # grok-1-314b --mode fsdp_auto, llama-3.2-vision-90b
 
-A model axis on another family, and ``--ckpt-dir`` with either (their
-checkpoints would need resharding across meshes), exit with a message
-citing ROADMAP.md queue 1 item 11.2.
+A model axis on the hybrid, xLSTM or encoder-decoder family, and
+``--ckpt-dir`` with either (their checkpoints would need resharding
+across meshes), exit with a message citing ROADMAP.md queue 1 item
+11.2.
 
 Under torchrun every process trains its rank; rank 0 prints the log
 lines (the loss and grad norm are the global ones, folded in rank order:

@@ -15,7 +15,9 @@ reference's layout: ``wq`` (d, H, dh), ``wk``/``wv`` (d, Hkv, dh),
 sharding.py``): every local rank of a mesh at once, each with its blocks
 of the leaves, the reference's hooks (``act_bthd``) where its
 ``self_attention`` has them, and :func:`_maybe_expand_gqa` (the
-reference's §Perf B) where kv heads do not divide the model axis.
+reference's §Perf B) where kv heads do not divide the model axis;
+:func:`cross_attention_tp` and :func:`project_memory_tp` are those of
+cross attention (the VLM's image layers).
 """
 from __future__ import annotations
 
@@ -186,15 +188,14 @@ def _kv_for_heads(kv: torch.Tensor, lo: int, hq: int, g: int):
     return kv.index_select(2, torch.tensor(idx, device=kv.device))
 
 
-def _core_tp(tp, cfg: ModelConfig, q, k, v, causal: bool, window: int):
-    """Attention of every rank by the layouts the hooks left: local query
-    heads over local kv heads; local query heads over whole kv, each rank
-    taking the kv heads its own query heads map to; or whole heads on
-    every rank."""
+def _core_tp(tp, cfg: ModelConfig, q, k, v, attend):
+    """``attend(q, k, v)`` of every rank by the layouts the hooks left:
+    local query heads over local kv heads; local query heads over whole
+    kv, each rank taking the kv heads its own query heads map to; or
+    whole heads on every rank."""
     if q.layout != "h":
         q, k, v = tp.whole(q), tp.whole(k), tp.whole(v)
-        return q, [_attend(a, b, c, causal, window)
-                   for a, b, c in zip(q.xs, k.xs, v.xs)]
+        return q, [attend(a, b, c) for a, b, c in zip(q.xs, k.xs, v.xs)]
     if k.layout == "h" and v.layout == "h":
         ks, vs = k.xs, v.xs
     else:
@@ -205,8 +206,7 @@ def _core_tp(tp, cfg: ModelConfig, q, k, v, causal: bool, window: int):
         for kk, vv, c in zip(tp.entering(k), tp.entering(v), tp.comm.ranks):
             ks.append(_kv_for_heads(kk, c * hq, hq, g))
             vs.append(_kv_for_heads(vv, c * hq, hq, g))
-    return q, [_attend(a, b, c, causal, window)
-               for a, b, c in zip(q.xs, ks, vs)]
+    return q, [attend(a, b, c) for a, b, c in zip(q.xs, ks, vs)]
 
 
 def _norm_tp(tp, x, gamma, eps: float):
@@ -259,7 +259,8 @@ def self_attention_tp(tp, p: dict, cfg: ModelConfig, x, positions, *,
     q = shd.act_bthd(q, tp)
     k_c = shd.act_bthd(k_c, tp)
     v_c = shd.act_bthd(v_c, tp)
-    q, outs = _core_tp(tp, cfg, q, k_c, v_c, causal, window)
+    q, outs = _core_tp(tp, cfg, q, k_c, v_c,
+                       lambda a, b, c: _attend(a, b, c, causal, window))
     out = shd.act_bthd(shd.Act(outs, "bthk", q.layout), tp)
     return shd.project(tp, out, p["wo"], "bthk,hkd->btd"), (k, v)
 
@@ -277,6 +278,30 @@ def project_memory(p: dict, cfg: ModelConfig, memory):
     """Cross-attention ``(k, v)`` of an encoder output or image
     embeddings, projected once (no RoPE)."""
     return _project_kv(p, cfg, memory, None)
+
+
+def project_memory_tp(tp, p: dict, cfg: ModelConfig, memory):
+    """:func:`project_memory` of every local rank of a tensor-parallel
+    mesh (``memory`` an ``Act``, whole on every model rank): each rank
+    projects the heads of its ``wk`` / ``wv`` blocks, no RoPE.  Returns
+    the ``(k, v)`` Acts."""
+    return (_project_tp(tp, p, cfg, memory, None, "wk", "bk", "k_norm"),
+            _project_tp(tp, p, cfg, memory, None, "wv", "bv", None))
+
+
+def cross_attention_tp(tp, p: dict, cfg: ModelConfig, x, memory_kv):
+    """:func:`cross_attention` of every local rank: queries of the normed
+    stream ``x`` (an ``Act``) over the ``(k, v)`` Acts of
+    :func:`project_memory_tp`, no RoPE and no mask, each rank its own
+    heads where ``wq`` is split on them.  Returns the output
+    projection's ``Act`` (partial sums where ``wo``'s heads are split;
+    the caller's ``act_btd`` sums them)."""
+    q = _project_tp(tp, p, cfg, x, None, "wq", "bq", "q_norm")
+    k, v = memory_kv
+    zero = torch.zeros((), dtype=torch.float32, device=q.xs[0].device)
+    q, outs = _core_tp(tp, cfg, q, k, v, lambda a, b, c: sdpa(a, b, c, zero))
+    return shd.project(tp, shd.Act(outs, "bthk", q.layout), p["wo"],
+                       "bthk,hkd->btd")
 
 
 def decode_self_attention(p: dict, cfg: ModelConfig, x, cache: KVCache,

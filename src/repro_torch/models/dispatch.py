@@ -11,6 +11,9 @@ behind the ``cfg.moe_dispatch`` modes the port runs:
             flat dispatch, so one stable sort, one prefix sum and one
             scatter serve every sequence, and the expert FFN runs on a
             ``(B, E, C, d)`` buffer;
+  global, rowwise over a model axis (tensor parallelism, the
+            reference's constraints of the buffer on the model axis):
+            :func:`moe_ffn_global_tp`, :func:`moe_ffn_rowwise_tp`;
   ep        expert parallelism over the ranks of a communicator (the
             reference's manual mesh axis ``cfg.ep_axis``): each rank's
             ``(E, C, d)`` dispatch buffer goes to the expert owners with
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 
 from ..core.plan import plan
 from ..core.spec import CollectiveSpec
+from . import sharding as shd
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -94,7 +98,10 @@ def dispatch_tables(cfg, expert_idx: torch.Tensor, gate: torch.Tensor,
     flat_e = expert_idx.reshape(-1).long()
     sort_idx = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_idx]
-    counts = torch.bincount(flat_e, minlength=e)
+    # counted by a scatter-add, not ``bincount``: the roofline runs the
+    # step on ``meta`` tensors, which ``bincount`` refuses
+    counts = flat_e.new_zeros(e).scatter_add_(0, flat_e,
+                                              torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(n * k, device=dev) - starts[sorted_e]
     slot = torch.where(pos_in_e < cap, sorted_e * cap + pos_in_e,
@@ -184,6 +191,126 @@ def moe_ffn_rowwise(p: dict, cfg, x: torch.Tensor):
     y = expert_ffn(p, h.reshape(b, e, cap, d))             # (B, E, C, d)
     out = combine(y.reshape(b * e, cap, d), slot_token, slot_gate, b * s)
     return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# global and rowwise over a model axis (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+def _tp_tokens(ax, x, data):
+    """The tokens whole on every model rank (``x`` an ``Act`` ``"btd"``),
+    gathered over the data axis too when ``data`` is given (the pool of
+    every data rank's rows): each rank's ``(B, S, d)``."""
+    xs = ax.whole(x).xs
+    if data is not None and data.p > 1:
+        xs = list(shd._Gather.apply(data, 0, *xs))
+    return xs
+
+
+def _experts_a_rank(p: dict) -> int:
+    """Every rank's expert count: the expert leaves must be split on
+    ``e`` over the model axis (the reference's ``moe.w_*``)."""
+    for key in ("w_gate", "w_up", "w_down"):
+        if p[key].layout != "e":
+            raise NotImplementedError(
+                f"moe.{key} is not split on its experts over the model "
+                f"axis (layout {p[key].layout!r}): the experts must divide "
+                f"the model axis")
+    return p["w_gate"].xs[0].shape[0]
+
+
+def _expert_ffn_tp(ax, p: dict, h, lead: str):
+    """:func:`expert_ffn` on every rank's expert block (``h`` an ``Act``
+    split on ``e``; ``lead`` the letters before ``ecd``)."""
+    gate = shd.project(ax, h, p["w_gate"], f"{lead}ecd,edf->{lead}ecf")
+    up = shd.project(ax, h, p["w_up"], f"{lead}ecd,edf->{lead}ecf")
+    hid = shd.Act([F.silu(g) * u for g, u in zip(gate.xs, up.xs)],
+                  gate.dims, gate.layout)
+    return shd.project(ax, hid, p["w_down"], f"{lead}ecf,efd->{lead}ecd")
+
+
+def moe_ffn_global_tp(ax, p: dict, cfg, x, data=None):
+    """:func:`moe_ffn_global` over a model axis (``ax``, a
+    ``sharding.ModelAxis``; ``p`` maps each leaf to its per-rank blocks,
+    ``x`` is the normed stream, an ``Act`` ``"btd"``), the reference's
+    ``(E, C, d)`` buffer over the model axis.  The router, the tables and
+    the aux loss run on every model rank on the tokens whole, so routing
+    and drops are the unsharded pool's; each rank fills and runs the
+    slots of its own experts only and combines them into partial sums
+    (returned as an ``Act``: the caller's ``act_btd`` sums them).  With
+    ``data`` (fsdp_auto, whose data axis is GSPMD's in the reference) the
+    pool is every data rank's rows: gathered over the data axis, each
+    data rank runs its block of every expert's slots, and the combined
+    rows go back by a reduce-scatter over it.  The tokens and the gates
+    enter the rank-local slots through :meth:`ModelAxis.copy`, whose
+    backward sums the ranks' partial cotangents; the aux loss, the same
+    on every rank, takes one copy's.  Returns ``(Act, per-rank aux)``."""
+    xs = _tp_tokens(ax, x, data)
+    b, s, d = xs[0].shape
+    n, e = b * s, cfg.n_experts
+    cap = capacity(cfg, n)
+    router = ax.whole(p["router"]).xs
+    e_n = _experts_a_rank(p)
+    routed = [route(w, cfg, xx.reshape(n, d)) for w, xx in zip(router, xs)]
+    auxs = [aux_loss(cfg, probs, idx) for _, idx, probs in routed]
+    xin = ax.copy(xs)
+    gates = ax.copy([g for g, _, _ in routed])
+    c_n = cap if data is None else -(-cap // data.p)
+    hs, tabs = [], []
+    for r, (xx, g, (_, idx, _)) in enumerate(zip(xin, gates, routed)):
+        st, sg, _ = dispatch_tables(cfg, idx, g, cap)
+        e_lo = ax.comm.ranks[r] * e_n
+        c_lo = 0 if data is None else min(cap, data.ranks[r] * c_n)
+        c_w = min(c_n, cap - c_lo)
+        st = st.view(e, cap)[e_lo:e_lo + e_n, c_lo:c_lo + c_w].reshape(-1)
+        sg = sg.view(e, cap)[e_lo:e_lo + e_n, c_lo:c_lo + c_w].reshape(-1)
+        tabs.append((st, sg))
+        hs.append(gather_tokens(xx.reshape(n, d), st, e_n, c_w))
+    y = _expert_ffn_tp(ax, p, shd.Act(hs, "ecd", "e"), "")
+    outs = [combine(yy, st, sg, n).reshape(b, s, d)
+            for yy, (st, sg) in zip(y.xs, tabs)]
+    if data is not None and data.p > 1:
+        outs = list(shd._Scatter.apply(data, 0, *outs))
+    return shd.Act(outs, "btd", shd.PARTIAL), auxs
+
+
+def moe_ffn_rowwise_tp(ax, p: dict, cfg, x):
+    """:func:`moe_ffn_rowwise` over a model axis, as
+    :func:`moe_ffn_global_tp` (the reference's ``(B, E, C, d)`` buffer
+    over the batch and model axes): every rank routes its sequences
+    whole, fills and runs its own experts' slots of each sequence and
+    combines them into partial sums.  A sequence is its own pool, so the
+    data axis never couples.  Returns ``(Act, per-rank aux)``."""
+    xs = ax.whole(x).xs
+    b, s, d = xs[0].shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = capacity(cfg, s)
+    router = ax.whole(p["router"]).xs
+    e_n = _experts_a_rank(p)
+    routed = [route(w, cfg, xx) for w, xx in zip(router, xs)]
+    auxs = []
+    for _, idx, probs in routed:
+        frac, mean_probs = load_stats(cfg, probs, idx)
+        auxs.append(torch.mean(e * torch.sum(frac * mean_probs, dim=-1))
+                    * cfg.router_aux_coef)
+    xin = ax.copy(xs)
+    gates = ax.copy([g for g, _, _ in routed])
+    offset = e * torch.arange(b, device=xs[0].device).reshape(b, 1, 1)
+    hs, tabs = [], []
+    for r, (xx, g, (_, idx, _)) in enumerate(zip(xin, gates, routed)):
+        st, sg, _ = dispatch_tables(cfg, (idx + offset).reshape(b * s, k),
+                                    g.reshape(b * s, k), cap,
+                                    n_experts=b * e)
+        e_lo = ax.comm.ranks[r] * e_n
+        st = st.view(b, e, cap)[:, e_lo:e_lo + e_n].reshape(-1)
+        sg = sg.view(b, e, cap)[:, e_lo:e_lo + e_n].reshape(-1)
+        tabs.append((st, sg))
+        hs.append(gather_tokens(xx.reshape(b * s, d), st, b * e_n,
+                                cap).reshape(b, e_n, cap, d))
+    y = _expert_ffn_tp(ax, p, shd.Act(hs, "becd", "e"), "b")
+    outs = [combine(yy.reshape(b * e_n, cap, d), st, sg, b * s)
+            .reshape(b, s, d) for yy, (st, sg) in zip(y.xs, tabs)]
+    return shd.Act(outs, "btd", shd.PARTIAL), auxs
 
 
 # ---------------------------------------------------------------------------

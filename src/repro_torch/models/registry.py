@@ -45,8 +45,8 @@ def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
 
 class ModelApi(NamedTuple):
     """What training and serving need from a model.  ``loss_ranks`` is set
-    for a model whose ranks are coupled (expert-parallel MoE, or a dense
-    model with tensor parallelism): it maps
+    for a model whose ranks are coupled (expert-parallel MoE, or a model
+    with tensor parallelism): it maps
     per-rank parameter trees and batches to per-rank losses in one
     forward over all of them; ``loss`` and ``forward_logits`` then raise.
     ``forward_logits`` and ``prefill`` take the family's extras as
@@ -81,18 +81,18 @@ def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
     config exchanges over ``ep_comm`` (the model axis's communicator;
     ``use_fused_kernel`` picks its alltoall backend, ``None`` = the
     ``permute_rows`` kernel when the buffer lies on a card).  With ``tp``
-    (a ``sharding.TensorParallel``) the dense model runs tensor
-    parallel: ``loss_ranks`` over each rank's blocks, ``init`` drawing
-    each leaf whole and giving every local rank its blocks; any other
-    family raises ``NotImplementedError`` (ROADMAP.md queue 1 item
-    11.2)."""
+    (a ``sharding.TensorParallel``) a dense, MoE (global or rowwise
+    dispatch) or VLM model runs tensor parallel: ``loss_ranks`` over
+    each rank's blocks, ``init`` drawing each leaf whole and giving every
+    local rank its blocks; any other family raises
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 11.2)."""
     mod = family_module(cfg)
 
     def init(gen, device=None):
         return mod.init_params(cfg, gen, device)
 
     if tp is not None:
-        transformer._check_dense(cfg)
+        transformer.check_tp(cfg)
         return _build_tp(cfg, remat, tp)
     if not is_ep(cfg):
         return ModelApi(
@@ -138,13 +138,13 @@ def _build_tp(cfg: ModelConfig, remat: bool, tp) -> ModelApi:
         raise ValueError("a tensor-parallel model's ranks are coupled: use "
                          "loss_ranks over all local ranks")
 
+    mod = family_module(cfg)
     return ModelApi(
-        cfg=cfg, init=lambda gen, device=None: transformer.init_params(
+        cfg=cfg, init=lambda gen, device=None: mod.init_params(
             cfg, gen, device, split=tp.blocks),
         loss=coupled, forward_logits=coupled, prefill=coupled,
         decode_step=coupled,
-        loss_ranks=lambda ps, bs: transformer.loss_fn_tp(ps, cfg, bs, tp,
-                                                         remat))
+        loss_ranks=lambda ps, bs: mod.loss_fn_tp(ps, cfg, bs, tp, remat))
 
 
 def value_and_grad(loss: Callable) -> Callable:

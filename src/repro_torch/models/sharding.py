@@ -275,7 +275,9 @@ def project(tp: ModelAxis, x: Act, w: Act, eq: str) -> Act:
     """``einsum(eq, x, w)`` per rank, by the layouts: a weight split on an
     output dim takes ``x`` whole as it enters (:meth:`ModelAxis.entering`)
     and gives that dim's blocks; one split on a contracted dim takes
-    ``x``'s blocks of it and gives partial sums; a replicated weight runs
+    ``x``'s blocks of it and gives partial sums; one split on a dim ``x``
+    and the output carry too (the experts) takes ``x``'s blocks of it and
+    gives the output's; a replicated weight runs
     on ``x`` as it is laid out where that dim survives the product (the
     weight through :meth:`ModelAxis.copy`), else on ``x`` whole."""
     ins, out = eq.split("->")
@@ -298,6 +300,10 @@ def project(tp: ModelAxis, x: Act, w: Act, eq: str) -> Act:
         return run(tp.entering(x), w.xs, lw)
     if lw in xl and lw not in out:
         return run(tp.split(x, lw).xs, w.xs, PARTIAL)
+    if lw in xl and lw in out:
+        # a batch dim both carry (the experts of "ecd,edf->ecf"): each
+        # rank runs its own block
+        return run(tp.split(x, lw).xs, w.xs, lw)
     return run(tp.whole(x).xs, tp.whole(w).xs, None)
 
 
@@ -333,13 +339,23 @@ def act_btv(x: Act, tp: ModelAxis) -> Act:
 # Where each leaf lives: the sanitized specs of a D x M mesh
 # ---------------------------------------------------------------------------
 
-#: each dense-family leaf's per-layer dims, by name (the letters of
-#: :func:`project`'s einsums)
+#: each leaf's per-layer dims (the letters of :func:`project`'s einsums)
+#: by qualified name (``parent.name``, as ``registry._rules`` reads it),
+#: else by name: the dense, MoE (``e`` the experts) and VLM families
 LEAF_DIMS = {"embed": "vd", "lm_head": "dv", "final_norm": "d",
              "norm1": "d", "norm2": "d", "wq": "dhk", "wk": "dhk",
              "wv": "dhk", "wo": "hkd", "bq": "hk", "bk": "hk", "bv": "hk",
              "q_norm": "k", "k_norm": "k", "w_gate": "df", "w_up": "df",
-             "w_down": "fd"}
+             "w_down": "fd", "moe.w_gate": "edf", "moe.w_up": "edf",
+             "moe.w_down": "efd", "router": "de", "gate_attn": "",
+             "gate_ffn": ""}
+
+
+def leaf_dims(path) -> str | None:
+    """The per-layer dims of the leaf at ``path`` (``None``: it has no
+    tensor-parallel layout)."""
+    qual = ".".join(path[-2:])
+    return LEAF_DIMS.get(qual, LEAF_DIMS.get(path[-1]))
 
 
 class LeafLayout(NamedTuple):
@@ -355,7 +371,7 @@ class LeafLayout(NamedTuple):
 
 
 class TPLayout(NamedTuple):
-    """A dense model's leaves on a ``(D, M)`` mesh: ``leaves`` a tree of
+    """A model's leaves on a ``(D, M)`` mesh: ``leaves`` a tree of
     :class:`LeafLayout` matching the parameters'."""
     mesh: AbstractMesh
     recipe: ShardingRecipe
@@ -369,7 +385,7 @@ class TPLayout(NamedTuple):
 def tp_layout(cfg, recipe: ShardingRecipe, shape) -> TPLayout:
     """The sanitized specs (``make_param_specs`` under ``recipe``, then
     ``sanitize_specs`` on a ``("data", "model")`` mesh of ``shape``) of
-    ``cfg``'s dense parameters, with each leaf's blocks."""
+    ``cfg``'s parameters, with each leaf's blocks."""
     from ..launch.mesh import sanitize_specs
     from .registry import make_param_specs, param_shapes
     mesh = AbstractMesh(tuple(shape), tuple(recipe.data_axes)
@@ -380,12 +396,12 @@ def tp_layout(cfg, recipe: ShardingRecipe, shape) -> TPLayout:
     data = set(recipe.data_axes)
     out = []
     for (path, spec), (_, shp) in zip(T.flatten(specs), T.flatten(shapes)):
-        dims = LEAF_DIMS.get(path[-1])
+        dims = leaf_dims(path)
         if dims is None:
             raise NotImplementedError(
                 f"{cfg.name}: leaf {'.'.join(path)} has no tensor-parallel "
-                f"layout (ROADMAP.md queue 1 item 11.2: the dense family "
-                f"only)")
+                f"layout (ROADMAP.md queue 1 item 11.2: the dense, MoE and "
+                f"VLM families only)")
         lead = len(shp) - len(dims)
         entries = tuple(spec) + (None,) * (len(shp) - len(spec))
         dsplit = [i for i, e in enumerate(entries)
@@ -420,10 +436,14 @@ class TensorParallel(NamedTuple):
     (:class:`ModelAxis`), the data axis's communicator (its
     coordinates place each rank's blocks; it gathers the leaves split
     over the data axes, fsdp_auto's ``tp_fsdp``) and the leaves'
-    :class:`TPLayout`."""
+    :class:`TPLayout`.  ``pooled`` is fsdp_auto's: its data axis is
+    GSPMD's in the reference, so a computation over the whole batch
+    (the MoE's global token pool) spans every data rank's rows; zero1's
+    data axis is manual, each data rank its own pool."""
     axis: Any
     data: Any
     layout: Any
+    pooled: bool = False
 
     def coords(self) -> list:
         """Every local rank's mesh coordinates (axis name to index)."""

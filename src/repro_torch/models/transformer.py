@@ -30,13 +30,15 @@ at one offset or at a per-row offset, writing its k/v (and Mamba state)
 into the cache in place.  Their expert-parallel forms
 (:func:`prefill_ep`, :func:`decode_step_ep`) run every local rank of a
 communicator on the same tokens, each layer's MoE exchange across them.
-The dense family's tensor-parallel form (:func:`loss_fn_tp`) runs every
-local rank of a ``D x M`` mesh together, each rank with its blocks of
-the leaves (``models/sharding.py``): attention and FFN through the
-reference's hooks, the embedding a vocab-parallel lookup, the head
-vocab-sharded logits and the loss a vocab-parallel cross-entropy; under
-fsdp_auto each layer's leaves split over the data axis are gathered just
-before the layer runs (again in its recompute) and freed after.
+The dense and MoE families' tensor-parallel form (:func:`loss_fn_tp`)
+runs every local rank of a ``D x M`` mesh together, each rank with its
+blocks of the leaves (``models/sharding.py``): attention and FFN through
+the reference's hooks (the MoE's global or rowwise dispatch with each
+rank's experts, ``dispatch.moe_ffn_global_tp``), the embedding a
+vocab-parallel lookup, the head vocab-sharded logits and the loss a
+vocab-parallel cross-entropy; under fsdp_auto each layer's leaves split
+over the data axis are gathered just before the layer runs (again in
+its recompute) and freed after.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ from . import ssm
 from .config import ModelConfig
 from .layers import (cross_entropy_loss, dtype_of, ffn, init_leaf,
                      layer_slices, rmsnorm, run_layer)
-from .moe import init_moe, moe_ffn, moe_ffn_ep, moe_shapes
+from .moe import moe_draws, moe_ffn, moe_ffn_ep, moe_ffn_tp, moe_shapes
 
 FAMILIES = ("dense", "moe", "hybrid")
 
@@ -94,6 +96,21 @@ def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
     return torch.float32 if path[-1] == "router" else dtype_of(cfg)
 
 
+def _draws(cfg: ModelConfig, gen: torch.Generator, device):
+    """``(path, leaf)`` in the order :func:`init_params` draws them from
+    ``gen``: every leaf by :func:`layers.init_leaf`, then the MoE
+    subtree."""
+    dtype = dtype_of(cfg)
+    for path, shape in T.flatten(param_shapes(cfg)):
+        if path[:2] != ("layers", "moe"):
+            yield path, init_leaf(gen, path[-1], shape,
+                                  int(path[0] == "layers"), dtype, device)
+    if cfg.is_moe:
+        for name, leaf in moe_draws(gen, cfg, dtype, device,
+                                    n_layers=cfg.n_layers):
+            yield ("layers", "moe", name), leaf
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
                 split=None) -> dict | list:
     """Random parameters from ``gen`` (on ``gen``'s device), each leaf by
@@ -101,31 +118,25 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
     fan-in of the per-layer shape).  With ``split(path, leaf)``, a list
     of per-rank blocks of a whole leaf, it returns one tree per rank:
     each leaf is drawn whole, as the unsharded model draws it from the
-    same generator, cut into its blocks and freed (the dense family
-    only)."""
-    dtype = dtype_of(cfg)
-    if split is not None:
-        _check_dense(cfg)
-        trees = None
-        for path, shape in T.flatten(param_shapes(cfg)):
-            blocks = split(path, init_leaf(gen, path[-1], shape,
-                                           int(path[0] == "layers"), dtype,
-                                           device))
-            trees = trees or [{} for _ in blocks]
-            for tree, b in zip(trees, blocks):
-                T.assign(tree, path, b)
-        return trees
-    out: dict = {}
-    for path, shape in T.flatten(param_shapes(cfg)):
-        if path[:2] == ("layers", "moe"):
-            continue  # init_moe below
-        T.assign(out, path, init_leaf(gen, path[-1], shape,
-                                      int(path[0] == "layers"), dtype,
-                                      device))
-    if cfg.is_moe:
-        out["layers"]["moe"] = init_moe(gen, cfg, dtype, device,
-                                        n_layers=cfg.n_layers)
-    return out
+    same generator, cut into its blocks and freed (the families of
+    :func:`check_tp`)."""
+    if split is None:
+        return T.unflatten(_draws(cfg, gen, device))
+    check_tp(cfg)
+    return split_draws(_draws(cfg, gen, device), split)
+
+
+def split_draws(draws, split) -> list:
+    """One tree per rank from ``(path, whole leaf)`` draws, each leaf cut
+    into its blocks by ``split(path, leaf)`` and freed."""
+    trees = None
+    for path, leaf in draws:
+        blocks = split(path, leaf)
+        del leaf
+        trees = trees or [{} for _ in blocks]
+        for tree, b in zip(trees, blocks):
+            T.assign(tree, path, b)
+    return trees
 
 
 def _window(cfg: ModelConfig, i: int) -> int:
@@ -281,23 +292,37 @@ def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism: the dense family over the local ranks of a D x M mesh
+# Tensor parallelism: the dense and MoE families over the local ranks of a
+# D x M mesh
 # ---------------------------------------------------------------------------
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe:
+#: the families a model axis (without ``moe_dispatch="ep"``) and
+#: fsdp_auto run
+TP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_tp(cfg: ModelConfig) -> None:
+    """Refuse a config tensor parallelism does not run: a family outside
+    :data:`TP_FAMILIES`, or the expert-parallel MoE (its own path)."""
+    if cfg.is_moe and cfg.moe_dispatch == "ep":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_dispatch='ep' runs its own expert-parallel "
+            f"path, not tensor parallelism or fsdp_auto")
+    if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism (a model axis without "
-            f"moe_dispatch='ep') and fsdp_auto run the dense family only; "
-            f"family {cfg.family!r} waits for ROADMAP.md queue 1 item 11.2")
+            f"moe_dispatch='ep') and fsdp_auto run the families "
+            f"{TP_FAMILIES}; family {cfg.family!r} waits for ROADMAP.md "
+            f"queue 1 item 11.2")
 
 
 def _leaf_acts(tp: shd.TensorParallel, paths, lls, per_rank,
                lead: int) -> dict:
     """Each leaf's per-rank blocks as a ``sharding.Act`` (``per_rank``:
-    every rank's leaves in ``paths`` order), the blocks split over the
-    data axes gathered first (the allgather whose backward is the
-    reduce-scatter: the data ranks' gradients summed)."""
+    every rank's leaves in ``paths`` order; ``lead``: the stacked dims
+    the blocks have lost), the blocks split over the data axes gathered
+    first (the allgather whose backward is the reduce-scatter: the data
+    ranks' gradients summed)."""
     out = []
     for j, (path, ll) in enumerate(zip(paths, lls)):
         xs = [leaves[j] for leaves in per_rank]
@@ -329,25 +354,40 @@ def _ffn_tp(ax, p: dict, h):
     return shd.project(ax, hid, p["w_down"], "btf,fd->btd")
 
 
-def _tp_layer_forward(cfg: ModelConfig, tp: shd.TensorParallel, paths,
-                      lls,
-                      positions, nr: int, *args):
-    """One dense layer for all local ranks: ``args`` is the ranks'
-    streams, then each rank's layer leaves in ``paths`` order."""
-    xs, leaves = args[:nr], args[nr:]
-    n = len(paths)
-    lp = _leaf_acts(tp, paths, lls,
-                    [leaves[r * n:(r + 1) * n] for r in range(nr)], 1)
+def _dense_layer_tp(cfg: ModelConfig, tp: shd.TensorParallel, lp: dict, x,
+                    positions):
+    """One decoder layer of every rank on the stream ``x`` (an ``Act``)
+    and the layer's leaves ``lp`` (``Act`` s): ``(x, per-rank aux losses
+    or None)``; the FFN is the MoE's for that family."""
     ax = tp.axis
-    x = shd.Act(xs, "btd", _stream(tp))
     h = attn._norm_tp(ax, x, lp["norm1"], cfg.norm_eps)
     a, _ = attn.self_attention_tp(ax, lp["attn"], cfg, h, positions,
                                   window=cfg.sliding_window)
     x = _add(x, shd.act_btd(a, ax))
+    if cfg.is_moe:
+        h = attn._norm_tp(ax, x, lp["norm2"], cfg.norm_eps)
+        y, auxs = moe_ffn_tp(ax, lp["moe"], cfg, h,
+                             tp.data if tp.pooled else None)
+        return _add(x, shd.act_btd(y, ax)), auxs
     if cfg.d_ff > 0:
         h = attn._norm_tp(ax, x, lp["norm2"], cfg.norm_eps)
         x = _add(x, shd.act_btd(_ffn_tp(ax, lp["ffn"], h), ax))
-    return tuple(x.xs)
+    return x, None
+
+
+def _tp_layer_forward(cfg: ModelConfig, tp: shd.TensorParallel, paths,
+                      lls,
+                      positions, nr: int, *args):
+    """One layer for all local ranks: ``args`` is the ranks' streams,
+    then each rank's layer leaves in ``paths`` order.  Returns the
+    streams, then (MoE) the ranks' aux losses."""
+    xs, leaves = args[:nr], args[nr:]
+    n = len(paths)
+    lp = _leaf_acts(tp, paths, lls,
+                    [leaves[r * n:(r + 1) * n] for r in range(nr)], 1)
+    x, auxs = _dense_layer_tp(cfg, tp, lp, shd.Act(xs, "btd", _stream(tp)),
+                              positions)
+    return (*x.xs, *(auxs or ()))
 
 
 def _embed_tp(ax, e, tokens: list, dtype):
@@ -405,47 +445,75 @@ def _cross_entropy_tp(ax, logits, targets: list, masks: list) -> list:
     return out
 
 
-def loss_fn_tp(params: list, cfg: ModelConfig, batches: list,
-               tp: shd.TensorParallel, remat: bool = True) -> list:
-    """Per-rank losses of the dense model over the local ranks of a
-    tensor-parallel mesh (``params``: each rank's tree of blocks,
-    ``batches``: each rank's, the model ranks of one data rank sharing
-    theirs).  With ``remat`` each layer is one checkpoint around all
-    ranks, so its model-axis calls (and fsdp gathers) run again in the
-    backward, as the reference's remat repeats its collectives.  Every
-    rank's loss is the same bits across its model ranks; each rank takes
-    the backward of its own (``sharding.py``)."""
-    _check_dense(cfg)
-    ax = tp.axis
-    nr = len(params)
+def _top_tp(tp: shd.TensorParallel, params: list) -> dict:
+    """The top-level leaves (embedding, head, final norm) as ``Act`` s."""
     top_paths = [k for k in ("embed", "lm_head", "final_norm")
                  if k in params[0]]
-    top = _leaf_acts(tp, [(k,) for k in top_paths],
-                     [tp.layout.leaves[k] for k in top_paths],
-                     [[p[k] for k in top_paths] for p in params], 0)
-    dtype = dtype_of(cfg)
+    return _leaf_acts(tp, [(k,) for k in top_paths],
+                      [tp.layout.leaves[k] for k in top_paths],
+                      [[p[k] for k in top_paths] for p in params], 0)
+
+
+def _embed_stream_tp(cfg: ModelConfig, tp: shd.TensorParallel, top: dict,
+                     batches: list):
+    """The embedded stream (an ``Act`` laid out as ``act_btd`` says) and
+    the positions."""
+    ax = tp.axis
     x = shd.act_btd(_embed_tp(ax, top["embed"],
-                              [b["tokens"] for b in batches], dtype), ax)
+                              [b["tokens"] for b in batches],
+                              dtype_of(cfg)), ax)
     b, s = batches[0]["tokens"].shape
-    positions = torch.arange(s, device=x.xs[0].device).expand(b, s)
-    slices = [layer_slices(p) for p in params]
-    paths = slices[0][0]
-    lls = [T.get(tp.layout.leaves["layers"], path) for path in paths]
-    for i in range(cfg.n_layers):
-        leaves = [leaf for _, per_layer in slices for leaf in per_layer[i]]
-        out = run_layer(_tp_layer_forward, remat, cfg, tp, paths, lls,
-                        positions, nr, *x.xs, *leaves)
-        x = shd.Act(out, "btd", x.layout)
+    return x, torch.arange(s, device=x.xs[0].device).expand(b, s)
+
+
+def _loss_head_tp(cfg: ModelConfig, tp: shd.TensorParallel, top: dict, x,
+                  batches: list) -> list:
+    """Final norm, the vocab-split head and the vocab-parallel
+    cross-entropy of every rank."""
+    ax = tp.axis
     h = attn._norm_tp(ax, x, top["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         e = top["embed"]
         head = shd.Act([w.T for w in e.xs], "dv", e.layout)
     else:
         head = top["lm_head"]
-    head = head.map(lambda w: w.to(dtype))
+    head = head.map(lambda w: w.to(dtype_of(cfg)))
     logits = shd.act_btv(shd.project(ax, h, head, "btd,dv->btv"), ax)
     return _cross_entropy_tp(ax, logits, [b_["targets"] for b_ in batches],
                              [b_.get("mask") for b_ in batches])
+
+
+def loss_fn_tp(params: list, cfg: ModelConfig, batches: list,
+               tp: shd.TensorParallel, remat: bool = True) -> list:
+    """Per-rank losses of the dense or MoE model over the local ranks of
+    a tensor-parallel mesh (``params``: each rank's tree of blocks,
+    ``batches``: each rank's, the model ranks of one data rank sharing
+    theirs), plus the summed aux losses for MoE as :func:`loss_fn` adds
+    them.  With ``remat`` each layer is one checkpoint around all ranks,
+    so its model-axis calls (and fsdp gathers) run again in the
+    backward, as the reference's remat repeats its collectives.  Every
+    rank's loss is the same bits across its model ranks; each rank takes
+    the backward of its own (``sharding.py``)."""
+    check_tp(cfg)
+    _check_family(cfg)
+    nr = len(params)
+    top = _top_tp(tp, params)
+    x, positions = _embed_stream_tp(cfg, tp, top, batches)
+    slices = [layer_slices(p) for p in params]
+    paths = slices[0][0]
+    lls = [T.get(tp.layout.leaves["layers"], path) for path in paths]
+    auxs = [torch.zeros((), dtype=torch.float32, device=x.xs[0].device)
+            for _ in range(nr)]
+    for i in range(cfg.n_layers):
+        leaves = [leaf for _, per_layer in slices for leaf in per_layer[i]]
+        out = run_layer(_tp_layer_forward, remat, cfg, tp, paths, lls,
+                        positions, nr, *x.xs, *leaves)
+        x = shd.Act(out[:nr], "btd", x.layout)
+        if cfg.is_moe:
+            auxs = [a + b for a, b in zip(auxs, out[nr:])]
+    losses = _loss_head_tp(cfg, tp, top, x, batches)
+    return [loss + a for loss, a in zip(losses, auxs)] if cfg.is_moe \
+        else losses
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,10 @@ groups, each group one recomputed unit with ``remat`` (the reference's
 ``jax.checkpoint`` around its scan body).  The cache holds every self
 layer's k/v, ``(G, 4, B, max_len, Hkv, dh)``, and each cross layer's
 projected image ``img_k``/``img_v`` ``(G, B, T_img, Hkv, dh)``.
+The tensor-parallel form (:func:`loss_fn_tp`) runs every local rank of
+a ``D x M`` mesh together, as the dense family's does: the self layers
+are the dense TP layer, a cross layer projects the image K/V on each
+rank's heads and gates the summed attention and FFN outputs.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import torch.nn.functional as F
 
 from .. import tree as T
 from . import attention as attn
+from . import sharding as shd
+from . import transformer as tfm
 from .config import ModelConfig
 from .layers import (cross_entropy_loss, dtype_of, ffn, init_leaf,
                      layer_slices, rmsnorm, run_layer)
@@ -57,16 +63,21 @@ def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
     return dtype_of(cfg)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
+                split=None) -> dict | list:
     """Random parameters from ``gen``, each leaf by the reference's
     initializer for its name (:func:`layers.init_leaf`; fan-in of the
-    per-layer shape)."""
+    per-layer shape).  With ``split(path, leaf)``, one tree of blocks per
+    rank (``transformer.split_draws``)."""
     dtype = dtype_of(cfg)
     lead = {"self_layers": 2, "cross_layers": 1}
-    return T.unflatten(
-        (path, init_leaf(gen, path[-1], shape, lead.get(path[0], 0), dtype,
-                         device))
-        for path, shape in T.flatten(param_shapes(cfg)))
+    draws = ((path, init_leaf(gen, path[-1], shape, lead.get(path[0], 0),
+                              dtype, device))
+             for path, shape in T.flatten(param_shapes(cfg)))
+    if split is None:
+        return T.unflatten(draws)
+    tfm.check_tp(cfg)
+    return tfm.split_draws(draws, split)
 
 
 def _self_layer(cfg, lp, x, positions):
@@ -138,6 +149,80 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
     logits = forward_logits(params, cfg, batch["tokens"], remat,
                             image_embeds=batch["image_embeds"])
     return cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the local ranks of a D x M mesh
+# ---------------------------------------------------------------------------
+
+def _gated(ax, gate, a):
+    """``tanh(gate) * a`` of every rank (``gate`` a replicated scalar
+    ``Act``)."""
+    return shd.Act([torch.tanh(g) * x for g, x in zip(ax.like(gate, a),
+                                                       a.xs)],
+                   a.dims, a.layout)
+
+
+def _group_tp(cfg, tp, paths, lls, positions, nr: int, *args):
+    """One group for all local ranks: ``args`` is the ranks' streams, their
+    image embeddings, then every rank's self leaves ``(4, ...)`` and
+    every rank's cross leaves, in ``paths`` = ``(self, cross)`` order.
+    Returns the ranks' streams."""
+    ax = tp.axis
+    xs, imgs, leaves = args[:nr], args[nr:2 * nr], args[2 * nr:]
+    groups = []
+    for part, (ps, ls) in enumerate(zip(paths, lls)):
+        n = len(ps)
+        lo = 0 if part == 0 else nr * len(paths[0])
+        groups.append(tfm._leaf_acts(
+            tp, ps, ls, [leaves[lo + r * n:lo + (r + 1) * n]
+                         for r in range(nr)], 1))
+    sp, cp = groups
+    x = shd.Act(xs, "btd", tfm._stream(tp))
+    for i in range(SELF_PER_GROUP):
+        lp = T.unflatten((path, shd.Act([t[i] for t in a.xs], a.dims,
+                                        a.layout))
+                         for path, a in T.flatten(sp))
+        x, _ = tfm._dense_layer_tp(cfg, tp, lp, x, positions)
+    mem = attn.project_memory_tp(ax, cp["xattn"], cfg,
+                                 shd.Act(imgs, "btd"))
+    h = attn._norm_tp(ax, x, cp["norm1"], cfg.norm_eps)
+    a = shd.act_btd(attn.cross_attention_tp(ax, cp["xattn"], cfg, h, mem),
+                    ax)
+    x = tfm._add(x, _gated(ax, cp["gate_attn"], a))
+    h = attn._norm_tp(ax, x, cp["norm2"], cfg.norm_eps)
+    y = shd.act_btd(tfm._ffn_tp(ax, cp["ffn"], h), ax)
+    return tuple(tfm._add(x, _gated(ax, cp["gate_ffn"], y)).xs)
+
+
+def loss_fn_tp(params: list, cfg: ModelConfig, batches: list, tp,
+               remat: bool = True) -> list:
+    """Per-rank losses of the VLM over the local ranks of a
+    tensor-parallel mesh (``transformer.loss_fn_tp``'s contract): the
+    self layers are the dense TP layer, each cross layer projects the
+    image K/V on every rank's heads, and its attention and FFN outputs
+    are summed over the model axis before their ``tanh`` gates (the
+    reference's ``_cross_layer``).  Each data rank's image embeddings
+    are shared by its model ranks.  With ``remat`` each group is one
+    checkpoint around all ranks (the reference checkpoints
+    ``group_body``)."""
+    tfm.check_tp(cfg)
+    nr = len(params)
+    top = tfm._top_tp(tp, params)
+    x, positions = tfm._embed_stream_tp(cfg, tp, top, batches)
+    imgs = [b["image_embeds"].to(dtype_of(cfg)) for b in batches]
+    parts = ("self_layers", "cross_layers")
+    slices = [[layer_slices(p, part) for p in params] for part in parts]
+    paths = tuple(sl[0][0] for sl in slices)
+    lls = tuple([T.get(tp.layout.leaves[part], path) for path in ps]
+                for part, ps in zip(parts, paths))
+    for g in range(_n_groups(cfg)):
+        leaves = [leaf for sl in slices for _, per_group in sl
+                  for leaf in per_group[g]]
+        out = run_layer(_group_tp, remat, cfg, tp, paths, lls, positions,
+                        nr, *x.xs, *imgs, *leaves)
+        x = shd.Act(out, "btd", x.layout)
+    return tfm._loss_head_tp(cfg, tp, top, x, batches)
 
 
 @torch.no_grad()

@@ -108,9 +108,10 @@ def update_tree(cfg: AdamWConfig, state: TreeAdamState, grads: dict,
     rank's blocks with the global ``gnorm`` given (fsdp_auto).  Returns
     ``(new_params, new_state, grad_norm)``.  ``in_place``: the new values
     are written into the leaves of ``params``, ``state.m`` and
-    ``state.v``, a slice of dim 0 at a time (``IN_PLACE_CHUNK``
-    elements): the same values, the float32 temporaries of a slice only,
-    where a full-width rank cannot hold a stacked leaf's twice."""
+    ``state.v`` (contiguous), ``IN_PLACE_CHUNK`` elements of the
+    flattened leaf at a time: the same values, the float32 temporaries
+    of a slice only, where a full-width rank cannot hold a stacked leaf's
+    twice."""
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = clip_scale_from_norm(cfg, gnorm)
@@ -121,11 +122,14 @@ def update_tree(cfg: AdamWConfig, state: TreeAdamState, grads: dict,
     paths = [path for path, _ in T.flatten(params)]
     if in_place:
         for path, g in zip(paths, T.leaves(grads)):
-            leaves = [T.get(t, path) for t in (params, state.m, state.v)]
-            rows = max(1, IN_PLACE_CHUNK // max(1, g[0].numel())) \
-                if g.ndim else 1
-            for lo in range(0, g.shape[0] if g.ndim else 1, rows):
-                part = (slice(lo, lo + rows),) if g.ndim else ()
+            # flat views (the blocks and moments are contiguous): a slice
+            # is IN_PLACE_CHUNK elements even where one row of a stacked
+            # leaf is more (grok-1's expert blocks: 4e8 elements a layer)
+            leaves = [T.get(t, path).view(-1)
+                      for t in (params, state.m, state.v)]
+            g = g.reshape(-1)
+            for lo in range(0, g.numel(), IN_PLACE_CHUNK):
+                part = slice(lo, lo + IN_PLACE_CHUNK)
                 out = adamw_update(cfg, leaves[0][part],
                                    g[part].to(torch.float32) * scale,
                                    leaves[1][part], leaves[2][part], lr=lr,

@@ -382,30 +382,37 @@ class _Recorder:
 
 
 def model_calls(cfg, layout, *, batch: int, seq: int,
-                remat: bool = True) -> dict:
+                remat: bool = True, pooled: bool = False) -> dict:
     """The native calls one tensor-parallel step's forward and backward
     make on each axis (``"data"``: fsdp_auto's gathers of the leaves
-    split over it and their reduce-scatters; ``"model"``: the hooks'),
-    as ``(op, elements a rank, dtype)`` lists: ``models.transformer.
-    loss_fn_tp`` run on a ``LocalMesh`` of ``layout.mesh``'s shape with
-    ``meta`` tensors of every rank's blocks and batch (``batch`` global
-    rows of ``seq`` tokens), then one backward of the ranks' losses."""
+    split over it and their reduce-scatters, and with ``pooled`` the MoE
+    pool's; ``"model"``: the hooks'), as ``(op, elements a rank, dtype)``
+    lists: the family's ``loss_fn_tp`` run on a ``LocalMesh`` of
+    ``layout.mesh``'s shape with ``meta`` tensors of every rank's blocks
+    and batch (``batch`` global rows of ``seq`` tokens, and the VLM's
+    image embeddings), then one backward of the ranks' losses."""
     from ..comm import LocalMesh
     from ..models import sharding as shd
-    from ..models.transformer import loss_fn_tp
+    from ..models.layers import dtype_of
+    from ..models.registry import family_module
     d, m = layout.mesh.axis_sizes
     mesh = LocalMesh((d, m), layout.mesh.axis_names)
     rec = {a: _Recorder(mesh.axis(a)) for a in layout.mesh.axis_names}
     tp = shd.TensorParallel(axis=shd.ModelAxis(rec["model"], layout.recipe),
-                            data=rec["data"], layout=layout)
+                            data=rec["data"], layout=layout, pooled=pooled)
     meta = torch.device("meta")
     params = [T.unflatten((path, torch.empty(
         ll.block, dtype=leaf_dtype(cfg, path), device=meta,
         requires_grad=True)) for path, ll in T.flatten(layout.leaves))
         for _ in range(d * m)]
     tok = torch.empty((batch // d, seq), dtype=torch.long, device=meta)
-    batches = [{"tokens": tok, "targets": tok} for _ in range(d * m)]
-    losses = loss_fn_tp(params, cfg, batches, tp, remat)
+    one = {"tokens": tok, "targets": tok}
+    if cfg.family == "vlm":
+        one["image_embeds"] = torch.empty(
+            (batch // d, cfg.n_image_tokens, cfg.d_model),
+            dtype=dtype_of(cfg), device=meta)
+    losses = family_module(cfg).loss_fn_tp(params, cfg, [one] * (d * m),
+                                           tp, remat)
     total = losses[0]
     for loss in losses[1:]:
         total = total + loss
@@ -427,7 +434,8 @@ def tp_counts(cfg, layout, *, mode: str, batch: int, seq: int, sync=None,
     parameter's dtype), the norm's folds on both axes and the loss's."""
     d, m = layout.mesh.axis_sizes
     tally = {"data": _Tally(d), "model": _Tally(m)}
-    calls = model_calls(cfg, layout, batch=batch, seq=seq)
+    calls = model_calls(cfg, layout, batch=batch, seq=seq,
+                        pooled=mode == "fsdp_auto")
     leaves = T.flatten(layout.leaves)
     f32 = torch.float32
     if mode == "zero1":

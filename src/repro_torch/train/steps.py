@@ -27,8 +27,9 @@ An expert-parallel MoE model (``moe_dispatch="ep"``) couples its ranks
 through the alltoall: zero1 then takes ONE backward of the sum of all
 ranks' losses (``value_and_grad_ranks``), as the reference's gradient
 inside ``shard_map`` transposes the exchanges, and syncs each model
-column over its data-axis group.  A tensor-parallel dense model
-(``transformer.loss_fn_tp``) couples its model ranks the same way, but
+column over its data-axis group.  A tensor-parallel model (the dense
+and MoE families' ``transformer.loss_fn_tp``, the VLM's
+``vlm.loss_fn_tp``) couples its model ranks the same way, but
 every rank takes the backward of its own loss copy (``models/
 sharding.py``): the sum of all local ranks' losses, each term reaching
 only its own rank's leaves but through the model-axis calls.

@@ -7,7 +7,9 @@ Three worlds, one after the other (a rank past a world's size exits):
 
 * 4 ranks: ``ARGV["ep"]``, phi-3.5-MoE expert parallel on a 2x2
   ``DistMesh``; ``ARGV["tp"]``, qwen3-1.7b tensor parallel on a 2x2
-  ``DistMesh`` (ZeRO-1 over data, TP over model); then ``moe_ffn_ep``
+  ``DistMesh`` (ZeRO-1 over data, TP over model); ``ARGV["tp_moe"]``,
+  grok-1-314b fsdp_auto on it (the global dispatch's pool gathered over
+  the data axis); then ``moe_ffn_ep``
   over a ``DistComm`` of the 4 ranks,
   each rank the backward of its own loss
   (:func:`moe_loss_and_grads`), and the backward of ``all_reduce_sum``
@@ -58,7 +60,11 @@ ARGV = {"exact": qwen(),
                "cpu", "--mode", "zero1", "--mesh", "2x2", "--moe-dispatch",
                "ep", "--steps", "3", "--seq-len", "16", "--global-batch",
                "2", "--log-every", "1"],
-        "tp": qwen(mesh="2x2", batch=4)}
+        "tp": qwen(mesh="2x2", batch=4),
+        "tp_moe": ["--arch", "grok-1-314b", "--scale-down", "--device",
+                   "cpu", "--mode", "fsdp_auto", "--mesh", "2x2", "--steps",
+                   "3", "--seq-len", "16", "--global-batch", "4",
+                   "--log-every", "1"]}
 ZERO1_RUNS = ("exact", "int8", "bucket", "ring", "xla")
 
 
@@ -173,6 +179,7 @@ def main(rank: int, ports: str, tmp: str) -> None:
     join(rank, 4, p4)
     train.main(ARGV["ep"], on_step=record(out, "ep"))
     train.main(ARGV["tp"], on_step=record(out, "tp"))
+    train.main(ARGV["tp_moe"], on_step=record(out, "tp_moe"))
     [(o, a, g)] = moe_loss_and_grads(DistComm(), [rank])
     out["moe/out"], out["moe/aux"] = o.numpy(), a.numpy()
     for k, v in g["p"].items():

@@ -1,9 +1,11 @@
-"""Shared by ``test_torch_tp.py`` and ``test_torch_fsdp.py``: the runs of
+"""Shared by ``test_torch_tp.py``, ``test_torch_fsdp.py``,
+``test_torch_tp_moe.py`` and ``test_torch_tp_vlm.py``: the runs of
 ``_torch_tp_ref.py`` on the port's side, the reference worker's spawn,
 and the holds both files make.
 
 Every run starts from the launcher's seed-0 parameters (scaled-down
-qwen3-1.7b, and qwen1.5-110b for its QKV bias), carried to the reference
+qwen3-1.7b, qwen1.5-110b for its QKV bias, phi-3.5-MoE, grok-1-314b and
+llama-3.2-vision-90b), carried to the reference
 with ``repro_torch.convert``, so the launcher's own CLI runs are held
 against the reference's runs too.
 """
@@ -21,7 +23,7 @@ from repro_torch.models import build, value_and_grad, value_and_grad_ranks
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS, SEQ, BATCH = 4, 16, 4
-ARCHS = ("qwen3-1.7b", "qwen1.5-110b")
+MOE, GROK, VLM = "phi3.5-moe-42b-a6.6b", "grok-1-314b", "llama-3.2-vision-90b"
 #: run -> the port's ``build_session`` kwargs (the runs of
 #: ``_torch_tp_ref.RUNS`` and two layouts held by their gradients only)
 RUNS = {
@@ -37,6 +39,18 @@ RUNS = {
                              mp=2),
     "fsdp_1x4_tp_fsdp": dict(arch="qwen1.5-110b", mode="fsdp_auto", dp=1,
                              mp=4, sequence_parallel=True),
+    "moe_zero1_2x2": dict(arch=MOE, mode="zero1", dp=2, mp=2),
+    "moe_zero1_1x4_sp": dict(arch=MOE, mode="zero1", dp=1, mp=4,
+                             sequence_parallel=True),
+    "moe_zero1_2x2_rowwise": dict(arch=MOE, mode="zero1", dp=2, mp=2,
+                                  moe_dispatch="rowwise"),
+    "grok_fsdp_2x2": dict(arch=GROK, mode="fsdp_auto", dp=2, mp=2),
+    "grok_fsdp_1x4_sp": dict(arch=GROK, mode="fsdp_auto", dp=1, mp=4,
+                             sequence_parallel=True),
+    "vlm_zero1_2x2": dict(arch=VLM, mode="zero1", dp=2, mp=2),
+    "vlm_zero1_1x4_sp": dict(arch=VLM, mode="zero1", dp=1, mp=4,
+                             sequence_parallel=True),
+    "vlm_fsdp_2x2": dict(arch=VLM, mode="fsdp_auto", dp=2, mp=2),
 }
 
 
@@ -54,7 +68,7 @@ def reference(tmp, runs) -> dict:
     """Spawn ``_torch_tp_ref.py`` on the launcher's initial parameters for
     ``runs``; its npz as a dict."""
     inits = {}
-    for arch in ARCHS:
+    for arch in sorted({RUNS[r]["arch"] for r in runs}):
         for path, leaf in T.flatten(init_numpy(arch)):
             inits[f"{arch}/" + "/".join(map(str, path))] = leaf
     np.savez(tmp / "in.npz", **inits)
@@ -127,6 +141,14 @@ ATOL = 5e-9
 #: against the reference, 1.8e-8 between the port's TP and unsharded
 #: runs of the same step.
 BK_ATOL = 1e-7
+#: the VLM's fsdp_auto run's ``atol`` (its zero1 run holds ``ATOL``): one
+#: ``self_layers.ffn.w_up`` element (of 32,768) ends 1.36e-7 from the
+#: reference's.  Its step-0 gradient is -4.7e-8, near AdamW's eps (1e-8),
+#: so its first update takes its size from that gradient's float32 noise:
+#: the port's unsharded ``single`` run of the same global batch ends
+#: 8.1e-8 from the reference's there too, and the fsdp_auto run 5.4e-8
+#: from it.  2e-7 is a seventy-fifth of the first step's learning rate.
+VLM_FSDP_ATOL = 2e-7
 
 
 def assert_run_matches(z: dict, run: str, atol: float = ATOL,
@@ -157,25 +179,52 @@ def assert_grads_match(run: str) -> None:
     seed-0 parameters against the unsharded model's per data rank: every
     rank's block of every leaf within ``rtol=1e-4`` / ``atol=1e-6`` (a
     leaf split over the data axes: the blocks of the data ranks' summed
-    gradients)."""
+    gradients).  Where the data ranks pool their tokens (fsdp_auto's
+    global MoE dispatch) no data rank's gradient is its batch's alone:
+    the yardstick is then D times the unsharded model's gradient on the
+    global batch (each rank's loss holds the pool's aux loss, the step
+    divides by D), and a leaf not split over the data axes is held
+    summed over them."""
     sess = session(run)
     full = params_from_numpy(init_numpy(RUNS[run]["arch"]), sess.cfg)
     params = bootstrap.shard_params(sess, full)
     batches = bootstrap.place_batch(sess, sess.pipe.batch_at(0))
     _, grads = value_and_grad_ranks(sess.model.loss_ranks)(params, batches)
     vg = value_and_grad(build(sess.cfg).loss)
+    pooled = (sess.tp.pooled and sess.cfg.is_moe
+              and sess.cfg.moe_dispatch == "global")
     per_data = {}
+    if pooled:
+        whole = {k: torch.from_numpy(v)
+                 for k, v in sess.pipe.batch_at(0).items()}
+        g = vg(full, whole)[1]
+        per_data = {d: T.map_leaves(lambda x: x * sess.comm.p, g)
+                    for d in set(sess.comm.ranks)}
     for b, d in zip(batches, sess.comm.ranks):
-        per_data.setdefault(d, vg(full, b)[1])
-    summed = T.unflatten(
-        (path, sum(T.get(g, path) for g in per_data.values()))
-        for path, _ in T.flatten(full))
+        if d not in per_data:
+            per_data[d] = vg(full, b)[1]
+    if pooled:
+        summed = per_data[0]
+        by_data: dict = {}
+        for j, d in enumerate(sess.comm.ranks):
+            m = sess.tp.axis.comm.ranks[j]
+            by_data[m] = by_data.get(m, []) + [j]
+        grads = [T.unflatten(
+            (path, x if T.get(sess.tp.layout.leaves, path).data is not None
+             else sum(T.get(grads[i], path) for i in by_data[
+                 sess.tp.axis.comm.ranks[j]]))
+            for path, x in T.flatten(g)) for j, g in enumerate(grads)]
+    else:
+        summed = T.unflatten(
+            (path, sum(T.get(g, path) for g in per_data.values()))
+            for path, _ in T.flatten(full))
     want = bootstrap.shard_params(sess, summed)
     wloc = [bootstrap.shard_params(sess, per_data[d])[j]
             for j, d in enumerate(sess.comm.ranks)]
     for j, g in enumerate(grads):
         for path, x in T.flatten(g):
             ll = T.get(sess.tp.layout.leaves, path)
-            w = T.get(want[j] if ll.data is not None else wloc[j], path)
+            w = T.get(want[j] if ll.data is not None or pooled else wloc[j],
+                      path)
             torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-6,
                                        msg=".".join(path))

@@ -1,5 +1,6 @@
 """Subprocess worker: the reference's tensor-parallel training for the
-port's parity tests (``test_torch_tp.py``, ``test_torch_fsdp.py``).
+port's parity tests (``test_torch_tp.py``, ``test_torch_fsdp.py``,
+``test_torch_tp_moe.py``, ``test_torch_tp_vlm.py``).
 
 The reference's own step builders, ``repro.train.steps.build("zero1" |
 "fsdp_auto", ...)`` with a ``ShardingRecipe``, run on a plain
@@ -9,7 +10,10 @@ axis ``repro.compat.make_mesh`` builds, not the step).  fsdp_auto's
 parameters are placed by the model's sanitized ``param_specs``, its
 batch by ``P("data")``.  Scaled-down qwen3-1.7b and qwen1.5-110b (its
 QKV bias; fsdp_auto trains it ``tp_fsdp``, as the reference's dry run
-does), seq 16, global batch 4, the launcher's AdamW defaults, the
+does), phi-3.5-MoE (global and rowwise dispatch), grok-1-314b and
+llama-3.2-vision-90b (both ``tp_fsdp`` under fsdp_auto; the VLM's batch
+holds its image embeddings), seq 16, global batch 4, the launcher's
+AdamW defaults, the
 circulant sync on the jnp backend, 4 steps from the initial parameters
 in ``<in.npz>`` (``<arch>/<path>``: the port's launcher's seed-0
 draw).  Writes ``<out.npz>``: ``<arch>/init/<path>``, and
@@ -44,7 +48,8 @@ from repro.optim.zero1 import GradSyncConfig  # noqa: E402
 from repro.train.steps import build as build_step  # noqa: E402
 
 STEPS, SEQ, BATCH = 4, 16, 4
-#: run -> (arch, mode, mesh shape, recipe kwargs, GradSyncConfig kwargs)
+#: run -> (arch, mode, mesh shape, recipe kwargs, GradSyncConfig kwargs
+#: [, config overrides])
 RUNS = {
     "zero1_2x2": ("qwen3-1.7b", "zero1", (2, 2), {}, {}),
     "zero1_1x4_gqa": ("qwen3-1.7b", "zero1", (1, 4),
@@ -55,6 +60,19 @@ RUNS = {
                          dict(mode="tp_fsdp"), {}),
     "fsdp_1x4_tp_fsdp": ("qwen1.5-110b", "fsdp_auto", (1, 4),
                          dict(mode="tp_fsdp", sequence_parallel=True), {}),
+    # the MoE family (``test_torch_tp_moe.py``): global dispatch, then
+    # rowwise (the config's ``moe_dispatch``, a sixth entry)
+    "moe_zero1_2x2": ("phi3.5-moe-42b-a6.6b", "zero1", (2, 2), {}, {}),
+    "moe_zero1_1x4_sp": ("phi3.5-moe-42b-a6.6b", "zero1", (1, 4),
+                         dict(sequence_parallel=True), {}),
+    "moe_zero1_2x2_rowwise": ("phi3.5-moe-42b-a6.6b", "zero1", (2, 2), {},
+                              {}, dict(moe_dispatch="rowwise")),
+    "grok_fsdp_2x2": ("grok-1-314b", "fsdp_auto", (2, 2),
+                      dict(mode="tp_fsdp"), {}),
+    # the VLM family (``test_torch_tp_vlm.py``)
+    "vlm_zero1_2x2": ("llama-3.2-vision-90b", "zero1", (2, 2), {}, {}),
+    "vlm_fsdp_2x2": ("llama-3.2-vision-90b", "fsdp_auto", (2, 2),
+                     dict(mode="tp_fsdp"), {}),
 }
 
 
@@ -68,8 +86,8 @@ def _flat(prefix, tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def train(arch, mode, shape, recipe_kw, sync_kw, init):
-    cfg = get_config(arch).scaled_down()
+def train(arch, mode, shape, recipe_kw, sync_kw, init, cfg_kw=None):
+    cfg = get_config(arch).scaled_down(**(cfg_kw or {}))
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape),
                 ("data", "model"))
     recipe = ShardingRecipe(data_axes=("data",), model_axis="model",
@@ -118,9 +136,9 @@ def main(src, dst, names):
     for arch in sorted({r[0] for r in runs.values()}):
         inits[arch] = _load(src, arch)
         out.update(_flat(f"{arch}/init/", inits[arch]))
-    for name, (arch, mode, shape, rkw, skw) in runs.items():
+    for name, (arch, mode, shape, rkw, skw, *ckw) in runs.items():
         losses, gnorms, final = train(arch, mode, shape, rkw, skw,
-                                      inits[arch])
+                                      inits[arch], *ckw)
         out[f"{name}/losses"] = np.asarray(losses, np.float64)
         out[f"{name}/gnorms"] = np.asarray(gnorms, np.float64)
         out.update(_flat(f"{name}/final/", final))

@@ -27,7 +27,9 @@ in-process run of the same argv (virtual ranks of a ``LocalComm`` or a
   ZeRO-1 over data, TP over model), 3 steps: every rank's losses, grad
   norms, params and moments against the in-process 2x2 ``LocalMesh``
   run.  The model axis sums with gloo's own all-reduce and
-  reduce-scatter; with two ranks a sum has one order, so bitwise.
+  reduce-scatter; with two ranks a sum has one order, so bitwise.  The
+  same for grok-1-314b (MoE) in ``--mode fsdp_auto`` on 2x2, whose
+  global dispatch pools the data ranks' tokens over gloo.
 * ``moe_ffn_ep`` over a ``DistComm`` of 4 processes, each the backward
   of its own loss: outputs, aux losses and every rank's grads bitwise
   ``value_and_grad_ranks`` on a ``LocalComm(4)`` (one backward of the
@@ -127,7 +129,7 @@ def world(tmp_path_factory):
         stderr=subprocess.STDOUT, text=True) for r in range(4)]
     # the in-process runs of the same argv, meanwhile
     local = {}
-    for name in (*W.ZERO1_RUNS, "ep", "tp"):
+    for name in (*W.ZERO1_RUNS, "ep", "tp", "tp_moe"):
         train.main(W.ARGV[name], on_step=_record(local, name))
     local["moe"] = W.moe_loss_and_grads(LocalComm(4), range(4))
     local["ar"] = W.all_reduce_grad(LocalComm(4), range(4))
@@ -208,6 +210,17 @@ def test_tp_over_processes_is_bitwise_in_process(world):
         assert outs[g]["tp/loss"].tolist() == local["tp/loss"]
         assert outs[g]["tp/gnorm"].tolist() == local["tp/gnorm"]
         _state_equal("tp", local, outs[g], "tp", g)
+
+
+def test_tp_moe_over_processes_is_bitwise_in_process(world):
+    """grok-1-314b fsdp_auto on a 2x2 ``DistMesh``: the global dispatch's
+    pool gathered over the data axis with gloo's allgather, its rows
+    back by gloo's reduce-scatter; two ranks' sums have one order."""
+    local, outs, _, _ = world
+    for g in range(4):
+        assert outs[g]["tp_moe/loss"].tolist() == local["tp_moe/loss"]
+        assert outs[g]["tp_moe/gnorm"].tolist() == local["tp_moe/gnorm"]
+        _state_equal("tp_moe", local, outs[g], "tp_moe", g)
 
 
 def test_ep_over_processes_matches_reference(world):

@@ -124,6 +124,35 @@ def test_analytic_card_cells_and_helpers_equal_reference():
                     getattr(ref_analytic, name)(ref, s), (arch, name, s)
 
 
+#: phase 15's cells (chip_smoke.py phase 13 rows 15a, 15d, 15e): arch,
+#: layers, the global batch, seq, and (n_chips, tp, dp_world)
+CARD_TP = {"15a": ("phi3.5-moe-42b-a6.6b", 2, 2, 2048, (4, 2, 2)),
+           "15d": ("grok-1-314b", 3, 2, 2048, (4, 2, 2)),
+           "15e": ("llama-3.2-vision-90b", 20, 2, 2048, (4, 2, 2))}
+
+
+@pytest.mark.parametrize("label", sorted(CARD_TP))
+def test_analytic_tp_card_cells_equal_reference(label):
+    """Phase 15's tensor-parallel cells at their cut depths: FLOPs and HBM
+    bytes a chip, and the roofline's terms, bound and ``mfu`` at a
+    measured time, the reference's (its constants the H100's)."""
+    import dataclasses
+    arch, layers, batch, seq, (n, tp, dp) = CARD_TP[label]
+    ref = dataclasses.replace(get_config(arch), n_layers=layers)
+    port = dataclasses.replace(port_config(arch), n_layers=layers)
+    kw = dict(kind="train", seq=seq, batch=batch, n_chips=n, tp=tp,
+              dp_world=dp)
+    cell, rcell = analytic.CellSpec(**kw), ref_analytic.CellSpec(**kw)
+    assert analytic.cell_flops_per_chip(port, cell) == \
+        ref_analytic.cell_flops_per_chip(ref, rcell)
+    assert analytic.cell_hbm_bytes_per_chip(port, cell) == \
+        ref_analytic.cell_hbm_bytes_per_chip(ref, rcell)
+    rl = analysis.analyze(port, cell, measured_s=1.0)
+    assert rl.t_bound == max(rl.t_compute, rl.t_memory, rl.t_collective)
+    assert rl.mfu == analysis.model_flops(
+        port, batch * seq / n, True) / analysis.PEAK_FLOPS
+
+
 @pytest.fixture()
 def h100_reference(monkeypatch):
     """The reference's roofline module with the H100's constants."""
@@ -393,6 +422,55 @@ def test_tp_counts_equal_comm_counters(mode):
                     (axis, kw)
                 assert sum(want.stats.ops.values()) == \
                     want.exchanges + want.natives
+    finally:
+        torch.set_num_threads(n)
+
+
+#: the MoE and VLM families' tensor-parallel steps (scaled down; grok-1
+#: and the VLM train ``tp_fsdp`` under fsdp_auto, grok-1's global
+#: dispatch pooling both data ranks' tokens)
+TP_FAMILY_STEPS = {
+    "moe_zero1_2x2": ("zero1", dict(arch="phi3.5-moe-42b-a6.6b", dp=2,
+                                    mp=2)),
+    "moe_zero1_1x4_sp": ("zero1", dict(arch="phi3.5-moe-42b-a6.6b", dp=1,
+                                       mp=4, sequence_parallel=True)),
+    "moe_rowwise_2x2": ("zero1", dict(arch="phi3.5-moe-42b-a6.6b", dp=2,
+                                      mp=2, moe_dispatch="rowwise")),
+    "grok_fsdp_2x2": ("fsdp_auto", dict(arch="grok-1-314b", dp=2, mp=2)),
+    "vlm_zero1_2x2": ("zero1", dict(arch="llama-3.2-vision-90b", dp=2,
+                                    mp=2)),
+    "vlm_fsdp_1x2_sp": ("fsdp_auto", dict(arch="llama-3.2-vision-90b",
+                                          dp=1, mp=2,
+                                          sequence_parallel=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TP_FAMILY_STEPS))
+def test_tp_counts_of_moe_and_vlm_equal_comm_counters(name):
+    """``tp_counts`` of the MoE (global, rowwise, pooled over the data
+    axis under fsdp_auto) and VLM steps equals ``comm.bytes``,
+    ``comm.exchanges`` and ``comm.natives`` of both axes over one step,
+    exactly: the model run on ``meta`` tensors makes the calls the step
+    makes."""
+    mode, kw = TP_FAMILY_STEPS[name]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        sess = bootstrap.build_session(scale_down=True, steps=2, seq_len=8,
+                                       global_batch=4, device="cpu",
+                                       mode=mode, **kw)
+        comms = {"data": sess.comm, "model": sess.tp.axis.comm}
+        before = {a: (c.bytes, c.exchanges, c.natives)
+                  for a, c in comms.items()}
+        bootstrap.run_step(sess, 0)
+        pc = analysis.tp_counts(sess.cfg, sess.tp.layout, mode=mode,
+                                batch=4, seq=8, sync=sess.sync,
+                                ranks=len(sess.comm.ranks))
+        for axis, c in comms.items():
+            got = tuple(x - y for x, y in zip(
+                (c.bytes, c.exchanges, c.natives), before[axis]))
+            want = pc[axis]
+            assert (want.bytes, want.exchanges, want.natives) == got, axis
     finally:
         torch.set_num_threads(n)
 

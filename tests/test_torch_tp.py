@@ -30,8 +30,10 @@ reference's own int8 gate against the exact run (losses 0.05).  Every leaf not s
 every model rank after every step.  One backward of each layout holds
 every rank's gradient blocks against the unsharded model's gradients
 within ``rtol=1e-4`` / ``atol=1e-6``.  The launcher's CLI (``--mesh
-2x2``) prints the reference's losses within 1e-5, and a hybrid arch on a
-model axis is still refused, citing ROADMAP item 11.2.
+2x2``) prints the reference's losses within 1e-5, and the hybrid, xLSTM
+and encoder-decoder archs on a model axis are still refused, citing
+ROADMAP item 11.2 (the MoE and VLM families: ``test_torch_tp_moe.py``,
+``test_torch_tp_vlm.py``).
 """
 import pytest
 
@@ -86,7 +88,11 @@ def test_cli_mesh_2x2_prints_reference_losses(ref, capsys,
     assert printed == [round(x, 4) for x in out.losses]
 
 
-def test_model_axis_refused_for_other_families():
+@pytest.mark.parametrize("arch", ("hymba-1.5b", "xlstm-125m",
+                                  "whisper-small"))
+def test_model_axis_refused_for_other_families(arch):
+    """The hybrid, xLSTM and encoder-decoder families wait for item 11.2
+    (the dense, MoE and VLM families run on a model axis)."""
     with pytest.raises(SystemExit, match="item 11.2"):
-        train.build(["--arch", "hymba-1.5b", "--scale-down", "--device",
-                     "cpu", "--mesh", "1x2"])
+        train.build(["--arch", arch, "--scale-down", "--device", "cpu",
+                     "--mesh", "1x2"])
