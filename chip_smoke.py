@@ -39,15 +39,15 @@ Phases (any failure exits non-zero; none is caught):
    unprofiled and one profiled warm step (``torch.profiler``, device
    activity only: device busy and idle share of that step, time by
    kernel);
-5. the int8 wire through the launcher's own argv, full width and 28
-   layers: (a) phase 4's command with ``--wire-dtype int8
+5. the int8 wire through the launcher's own argv, full width: (a) phase
+   4's command (28 layers) with ``--wire-dtype int8
    --no-error-feedback`` (exact launch counts of ``quantize`` and
    ``fused_round_dq``, none of ``fused_round``; sync bytes per step
    beside phase 4's; one step each with the kernels on and off, bitwise
-   equal on every rank; a warm step profiled as phase 4's, in a process
-   of its own, ``chip_smoke.py --profile-wire-step``), and (b) ``--mesh
-   2x1 --global-batch 2 --wire-dtype int8`` with error feedback on
-   (exact launch counts, finite losses);
+   equal on every rank; the kernel-on session's warm step profiled as
+   phase 4's), and (b) ``--mesh 2x1 --global-batch 2 --wire-dtype
+   int8`` with error feedback on, at 7 of 28 layers (exact launch
+   counts, finite losses);
 6. the expert-parallel MoE path (phi-3.5-MoE) through the launcher's
    session builder: (a) full width, 1 layer, ``--mesh 1x2 --mode zero1
    --moe-dispatch ep``, seq 2048 (a 2x2 mesh's four whole replicas with
@@ -55,8 +55,8 @@ Phases (any failure exits non-zero; none is caught):
    launch counts set to 0 just before and read just after, exact
    exchange and ``permute_rows`` launch counts, step 0 bitwise equal
    with the kernels on and off on every rank, peak memory, warm step
-   times and a profiled warm step in a process of its own
-   (``chip_smoke.py --profile-ep-step``); (b) scaled down on a 2x2 mesh
+   times and the kernel-on session's warm step profiled; (b) scaled
+   down on a 2x2 mesh
    (zero1's ``fused_round`` and the dispatch's ``permute_rows`` in one
    step), the same checks; (c) one full-width float32 MoE layer alone,
    forward and backward, at pe = 4 (a non-identity final-slot order) and
@@ -88,20 +88,22 @@ Phases (any failure exits non-zero; none is caught):
    results within the reference's float32 tolerance of a float64 sum,
    timed interleaved; each at 1M elements bitwise the same function on
    the CPU; (b) broadcast at p = 3, 8 and hierarchical RS / AR on a 2x4
-   ``LocalMesh``, bitwise the CPU's, exchanges exact; (c) phase 4's
-   argv plus ``--bucket-bytes 25000000`` and ``2147483648``, each a
-   4-step session built from that argv with the launch counts set to 0
-   just before: ``fused_round`` launches, exchanges and sync bytes
-   exact (``plan_grad_buckets``), step 0's loss and the params after it
-   bitwise phase 4's, warm step ms and peak memory, and a warm step
-   profiled in a process of its own (``chip_smoke.py
-   --profile-bucket-step B``); (d) phase 5 (a)'s argv plus
-   ``--bucket-bytes 25000000``: ``quantize`` / ``fused_round_dq``
-   launches exact, params after step 1 within one update of phase 5
-   (a)'s; (e) ``--grad-sync ring`` and ``xla``, 2 steps: step-0 loss
-   bitwise phase 4's, params within one update, exchanges exact, warm
-   step; (f) ``--grad-sync allreduce`` on a 2x1 mesh through the
-   launcher (three ranks' full moments do not fit one card).
+   ``LocalMesh``, bitwise the CPU's, exchanges exact; (c)-(f) at 4 of
+   28 layers (every width), each held against one step of phase 4's
+   argv and of phase 5 (a)'s at that depth: (c) phase 4's argv plus
+   ``--bucket-bytes 25000000`` and ``2147483648``, each a 2-step
+   session built from that argv with the launch counts set to 0 just
+   before: ``fused_round`` launches, exchanges and sync bytes exact
+   (``plan_grad_buckets``), step 0's loss and the params after it
+   bitwise the per-leaf sync's, warm step ms and peak memory; (d) phase
+   5 (a)'s argv plus ``--bucket-bytes 25000000``: ``quantize`` /
+   ``fused_round_dq`` launches exact, first moments within the wire
+   tolerance of the per-leaf sync's, grad norm of phase 5 (a)'s, on and
+   off bitwise; (e) ``--grad-sync ring`` and ``xla``, 2 steps: step-0
+   loss bitwise the per-leaf sync's, params within one update,
+   exchanges exact, warm step; (f) ``--grad-sync allreduce`` on a 2x1
+   mesh through the launcher (at 28 layers three ranks' full moments do
+   not fit one card).
 
 9. the plan verifier as pre-flight, per-sequence MoE dispatch and the
    elastic drill: (a) ``verify.run((2, 3, 5, 8, 16))`` clean, a plan with
@@ -134,13 +136,13 @@ Phases (any failure exits non-zero; none is caught):
    gap and smallest top-2 margin printed; (c) 16 requests from seed 0
    (prompts 256-2048 in steps of 64, max_new 16-128) through
    ``Scheduler`` with ``max_batch=8, kv_block_size=16``: in float32 (every
-   width, 7 of 28 layers) each
+   width, 2 of 28 layers) each
    request's tokens against a one-shot B=1 ``generate`` of it alone (a
    split passes only where the one-shot's top-2 margin at the first
    differing token is below the logits gap there; both printed), in
    bf16 timed (decode-boundary p50 / p99, tokens/s, decode steps and
    prefills, peak memory); (d) ``build_serve_session(replicas=3)`` at
-   (a)'s shapes, 7 of 28 layers: the broadcast fan-out's 14 leaves x 2
+   (a)'s shapes, 2 of 28 layers: the broadcast fan-out's 14 leaves x 2
    exchanges, bytes and seconds, every replica's weights bitwise the
    source's,
    each replica's rows bitwise a single engine's on the same rows; (e)
@@ -153,9 +155,9 @@ Phases (any failure exits non-zero; none is caught):
 
 11. the other architecture families: (a) ``python -m
    repro_torch.launch.train`` with phase 4's argv for ``hymba-1.5b``
-   (seq 2048: past its 1024-token window), ``xlstm-125m`` (seq 512) and
-   ``whisper-small`` (1500 encoder frames, 448 decoder tokens), full
-   width and depth, 2 steps over 3 virtual ranks: ``fused_round``
+   (seq 2048: past its 1024-token window; 8 of 32 layers),
+   ``xlstm-125m`` (seq 128) and ``whisper-small`` (1500 encoder frames,
+   448 decoder tokens), full width, 2 steps over 3 virtual ranks: ``fused_round``
    launches, sync bytes and exchanges exact, step seconds and peak
    memory, then step 0 again with ``--fused-kernel off``: loss, grad norm
    and the params after it bitwise; and hymba with ``--wire-dtype int8
@@ -163,11 +165,12 @@ Phases (any failure exits non-zero; none is caught):
    launches exact; (b) in phase 2, ``fused_round``, ``quantize`` and
    ``fused_round_dq`` bitwise their plain versions at every zero-leaf
    round shape of the three (p = 3), the shapes printed; (c) greedy bf16
-   serving of hymba (4 x 2048, 64 new), xlstm (8 x 2048, 128 new) and
-   whisper (8 x 320 frames and prompt, 128 new) through ``python -m
-   repro_torch.launch.serve``'s argv, and of llama-3.2-vision-90b (depth
-   100 -> 5: one group; 4096 image tokens) and qwen1.5-110b (depth 80 ->
-   2; QKV bias), every width, 2 x 2048, 32 new, through the session
+   serving of whisper (8 x 320 frames and prompt, 128 new) through
+   ``python -m repro_torch.launch.serve``'s argv, and of hymba (depth 32
+   -> 8; 4 x 2048, 64 new), xlstm (depth 12 -> 3; 8 x 2048, 128 new),
+   llama-3.2-vision-90b (depth 100 -> 5: one group; 4096 image tokens)
+   and qwen1.5-110b (depth 80 -> 2; QKV bias, 2 x 2048, 32 new), every
+   width, through the session
    builder with the launcher's inputs: time to first token, decode p50 /
    p99, tokens/s, cache or state bytes, peak memory, no kernel launched;
    and for each a float32 run at batch 2, 16 new tokens: prefill and
@@ -196,7 +199,7 @@ Phases (any failure exits non-zero; none is caught):
 14. tensor parallelism (``--mesh DxM`` with M > 1: ZeRO-1 over the data
    axis, TP over the model axis) and ``--mode fsdp_auto``: (a) phase 4's
    argv at ``--mesh 2x2 --global-batch 2 --steps 3`` (qwen3-1.7b full
-   width and depth, bf16, 4 virtual ranks on one card), the launch
+   width, 7 of 28 layers, bf16, 4 virtual ranks on one card), the launch
    counts set to 0 just before: ``fused_round`` launched 3 steps x 4
    ranks x the
    blocks' zero leaves x 1 round, the warm step, the peak, a profiled
@@ -308,6 +311,8 @@ def argv_with(argv: list, **flags) -> list:
 WIRE_A_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", no_error_feedback=True)
 WIRE_B_ARGV = argv_with(MAIN_ARGV, wire_dtype="int8", mesh=f"{P_EF}x1",
                         global_batch=P_EF)
+#: phase 5 (b)'s depth (every width kept), cut for the script's time
+P5B_LAYERS = 7
 
 #: phase 13's inputs: label -> what phases 4, 5 (a), 10 (a), 11 (a) and
 #: 12 (c) measured (see :func:`measured_train`, :func:`phase_roofline`)
@@ -428,6 +433,19 @@ def host_us(fn, calls: int) -> float:
     return dt / calls * 1e6
 
 
+#: wall seconds of each phase of the default run, in order (printed
+#: before the kernels line: the run has a time limit of 1200 s)
+SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in :data:`SECONDS`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    SECONDS[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def spread(t: tuple) -> str:
     """``median [min, max]`` of an :func:`interleaved_ms` entry."""
     return f"{t[0]:.4f} [{t[1]:.4f}, {t[2]:.4f}]"
@@ -483,18 +501,26 @@ def _rand(shape, dtype, gen, nan: bool):
     return x
 
 
-def wire_leaves(p: int, arch: str = "qwen3-1.7b"):
+def wire_leaves(p: int, arch: str = "qwen3-1.7b",
+                n_layers: int | None = None):
     """``(leaf, shape, cols, padded cols, g)`` of every zero leaf's
-    reduce-scatter at ``p`` ranks (``arch`` full width): the columns of
-    one block and, on the int8 wire, the same padded to whole groups of
+    reduce-scatter at ``p`` ranks (``arch`` full width, at ``n_layers``
+    layers, by default the depth phase 11 trains it at,
+    :data:`FAMILY_LAYERS`, or its own): the columns of one block and, on
+    the int8 wire, the same padded to whole groups of
     ``g = min(DEFAULT_GROUP, cols)``."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch import tree as T
     from repro_torch.kernels import DEFAULT_GROUP
     from repro_torch.models import param_shapes
     from repro_torch.optim.zero1 import is_zero_leaf
+    cfg = get_config(arch)
+    n_layers = n_layers or FAMILY_LAYERS.get(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     out = []
-    for path, shape in T.flatten(param_shapes(get_config(arch))):
+    for path, shape in T.flatten(param_shapes(cfg)):
         if not is_zero_leaf(shape, p, 1024):
             continue
         ld_pad = shape[0] + (-shape[0]) % p
@@ -1388,10 +1414,6 @@ PROFILED_KERNELS = {"fused_round": "fused_round_kernel",
                     "quantize": "quantize_kernel",
                     "permute_rows": "permute_rows_kernel"}
 
-#: argument that makes this script the child process profiling path (a).
-PROFILE_WIRE_STEP = "--profile-wire-step"
-#: argument that makes it the child process profiling phase 6 (a).
-PROFILE_EP_STEP = "--profile-ep-step"
 #: ``--against SRC``: only this tree's kernels against those under SRC.
 AGAINST = "--against"
 
@@ -1470,19 +1492,20 @@ def profiled_step(step, label: str, unprofiled_ms: float,
         print(f"  {ms:9.2f} ms {n:6d}x  {name[:90]}")
 
 
-def sync_bytes(p: int, wire: bool, arch: str = "qwen3-1.7b"
-               ) -> tuple[int, int]:
+def sync_bytes(p: int, wire: bool, arch: str = "qwen3-1.7b",
+               n_layers: int | None = None) -> tuple[int, int]:
     """Exact bytes one step's exchanges send at ``p`` ranks, summed over
-    the ranks: the gradient reduce-scatter's (float32 rows, or int8 wire
-    rows padded to whole groups) and the parameter allgather's (shards in
-    the parameters' dtype, never on the wire).  Tiny leaves go through an
-    all-reduce, which is not an exchange."""
+    the ranks (``n_layers``: as :func:`wire_leaves`): the gradient
+    reduce-scatter's (float32 rows, or int8 wire rows padded to whole
+    groups) and the parameter allgather's (shards in the parameters'
+    dtype, never on the wire).  Tiny leaves go through an all-reduce,
+    which is not an exchange."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import wire_width
     itemsize = getattr(torch, get_config(arch).dtype).itemsize
     rs = ag = 0
-    for _, _, cols, padded, g in wire_leaves(p, arch):
+    for _, _, cols, padded, g in wire_leaves(p, arch, n_layers):
         rs += p * (p - 1) * (wire_width(padded, g) if wire else 4 * cols)
         ag += p * (p - 1) * itemsize * cols
     return rs, ag
@@ -1624,11 +1647,10 @@ def phase_main_path():
               f"params after step 1 differ with the kernel off: {path}")
     print("main path: --fused-kernel off gives a bitwise-equal step-0 loss "
           "and grad norm and bitwise-equal params after step 1")
-    del sess
+    del sess, ref, snapshot
     gc.collect()
     torch.cuda.empty_cache()
-    ref.update(warm_ms=wall_1, peak=peak)
-    return counts, run, peak, rs_bytes, ref
+    return counts, rs_bytes
 
 
 def wire_session_a(fused: bool):
@@ -1640,30 +1662,14 @@ def wire_session_a(fused: bool):
         use_fused_kernel=fused, device="cuda")
 
 
-def profile_wire_step() -> int:
-    """The child process of phase 5 (a): a kernel-on wire session takes
-    step 0, step 1 unprofiled and step 2 profiled, as phase 4's (TF32
-    off, as phase 1 sets it)."""
-    import torch
-    from repro_torch.launch import bootstrap
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    sess = wire_session_a(True)
-    bootstrap.run_step(sess, 0)
-    wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
-    profiled_step(lambda: bootstrap.run_step(sess, 2),
-                  "warm step 2 of a wire session, path (a), in a fresh "
-                  "process", wall_1)
-    return 0
-
-
 def phase_wire_path(f32_rs_bytes: int):
     """Phase 5: the int8 wire through the launcher's own argv."""
     import torch
     from repro_torch import tree as T
     from repro_torch.launch import bootstrap
 
-    n_a, n_b = len(wire_leaves(P_MAIN)), len(wire_leaves(P_EF))
+    n_a = len(wire_leaves(P_MAIN))
+    n_b = len(wire_leaves(P_EF, n_layers=P5B_LAYERS))
     print(f"wire path (a): {' '.join(WIRE_A_ARGV)}")
     print("reduced: none (every width and all 28 layers)")
     want = {name: 0 for name in counters()}
@@ -1681,13 +1687,19 @@ def phase_wire_path(f32_rs_bytes: int):
     def one_step(fused):
         """Step 0 of a fresh session: its loss and grad norm, the launches
         it made, and rank 0's params after it (on the host), once every
-        rank's params are checked bitwise equal to rank 0's."""
+        rank's params are checked bitwise equal to rank 0's; the kernel-on
+        session then takes step 1 unprofiled and step 2 profiled."""
         sess = wire_session_a(fused)
         zero_counts()
         metrics = bootstrap.run_step(sess, 0)
         counts = read_counts()
         ranks_agree(sess.params, "wire path (a)")
         params = [(path, t.cpu()) for path, t in T.flatten(sess.params[0])]
+        if fused:
+            wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
+            profiled_step(lambda: bootstrap.run_step(sess, 2),
+                          "warm step 2 of a kernel-on wire session, path "
+                          "(a)", wall_1)
         del sess
         gc.collect()
         torch.cuda.empty_cache()
@@ -1711,30 +1723,23 @@ def phase_wire_path(f32_rs_bytes: int):
     print("wire path (a): kernels on and off give a bitwise-equal step-0 "
           "loss and grad norm and bitwise-equal params after step 1, on "
           "every rank")
-    wire_ref = {"loss": loss_on, "grad_norm": gn_on}
     del on, off
     gc.collect()
     torch.cuda.empty_cache()
-    # The profiler records a second step in one process incompletely (it
-    # lost the wire step's tail after phase 4's profile), so path (a)'s
-    # warm step is profiled in a process of its own.
-    sys.stdout.flush()
-    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            PROFILE_WIRE_STEP], timeout=600)
-    check(child.returncode == 0,
-          f"wire path (a) profile process exited {child.returncode}")
 
     print(f"wire path (b): {' '.join(WIRE_B_ARGV)}")
-    print("reduced: none (every width and all 28 layers); p = 2, not 3: "
-          "three ranks' full-leaf EF residuals do not fit one card")
+    print(f"reduced: depth 28 -> {P5B_LAYERS}, every width kept; p = 2, not "
+          f"3: at 28 layers three ranks' full-leaf EF residuals do not fit "
+          f"one card")
     want = {name: 0 for name in counters()}
     want.update(quantize=STEPS * P_EF * n_b * 2,
                 quantize_rows=STEPS * P_EF * n_b,
                 fused_round_dq=STEPS * P_EF * n_b)
-    run_b, counts_b, peak_b, _, _ = run_path(WIRE_B_ARGV, "wire path (b)",
-                                             want, P_EF, wire=True)
-    return {"a": (run_a, counts_a, peak_a), "b": (run_b, counts_b, peak_b),
-            "ref": wire_ref}
+    with cut_depth(P5B_LAYERS):
+        run_b, counts_b, peak_b, _, _ = run_path(
+            WIRE_B_ARGV, "wire path (b)", want, P_EF, wire=True,
+            sync=sync_bytes(P_EF, True, n_layers=P5B_LAYERS))
+    return {"a": (run_a, counts_a, peak_a), "b": (run_b, counts_b, peak_b)}
 
 
 # ---------------------------------------------------------------------------
@@ -1767,11 +1772,13 @@ def ep_step_counts(sess) -> dict:
             "model_exchanges": sess.cfg.n_layers * 8 * q_model}
 
 
-def run_ep_path(label: str, kw: dict):
+def run_ep_path(label: str, kw: dict, profile: bool = False):
     """Drive ``kw``'s ep session for its steps with every launch count set
     to 0 just before and read just after; check counts, exchanges and
     finite losses; then one step each with the kernels on and off from
-    the same seed, which must agree bitwise on every rank."""
+    the same seed, which must agree bitwise on every rank; with
+    ``profile``, the kernel-on session then takes step 1 unprofiled and
+    step 2 profiled."""
     import torch
     from repro_torch import tree as T
     from repro_torch.launch import bootstrap
@@ -1823,6 +1830,11 @@ def run_ep_path(label: str, kw: dict):
         c = read_counts()
         params = [[(path, t.cpu()) for path, t in T.flatten(p)]
                   for p in sess.params]
+        if fused and profile:
+            wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
+            profiled_step(lambda: bootstrap.run_step(sess, 2),
+                          f"warm step 2 of the kernel-on session, {label}",
+                          wall_1, ranks=kw["dp"] * kw["mp"])
         del sess
         gc.collect()
         torch.cuda.empty_cache()
@@ -1848,23 +1860,6 @@ def run_ep_path(label: str, kw: dict):
     gc.collect()
     torch.cuda.empty_cache()
     return losses, counts, peak, secs
-
-
-def profile_ep_step() -> int:
-    """The child process of phase 6 (a): a kernel-on session takes step
-    0, step 1 unprofiled and step 2 profiled (TF32 off)."""
-    import torch
-    from repro_torch.launch import bootstrap
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    sess = ep_session(True, **EP_MAIN)
-    bootstrap.run_step(sess, 0)
-    wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
-    profiled_step(lambda: bootstrap.run_step(sess, 2),
-                  "warm step 2 of the ep MoE session, phase 6 (a), in a "
-                  "fresh process", wall_1,
-                  ranks=EP_MAIN["dp"] * EP_MAIN["mp"])
-    return 0
 
 
 def moe_layer_check(pe: int) -> None:
@@ -1958,12 +1953,7 @@ def phase_ep_path():
                 "vocab 32064)")
     print(f"ep MoE path (a): build_session({EP_MAIN})")
     print(cfg_note)
-    run_a = run_ep_path("ep MoE path (a)", EP_MAIN)
-    sys.stdout.flush()
-    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            PROFILE_EP_STEP], timeout=600)
-    check(child.returncode == 0,
-          f"ep MoE path (a) profile process exited {child.returncode}")
+    run_a = run_ep_path("ep MoE path (a)", EP_MAIN, profile=True)
     print(f"ep MoE path (b): build_session({EP_SMALL})")
     run_b = run_ep_path("ep MoE path (b)", EP_SMALL)
     for pe in (4, 3):
@@ -2173,10 +2163,11 @@ ALGO_N, ALGO_CPU_N = 64 << 20, 1 << 20
 #: phase 8 (c): the reference launcher's example bucket size, and one
 #: above the largest leaf (every bucket holds whole leaves).
 BUCKETS = (25_000_000, 2_147_483_648)
-#: argument that makes this script the child profiling a bucketed step.
-PROFILE_BUCKET_STEP = "--profile-bucket-step"
+#: phase 8 (c)-(f): the depth of every run (every width kept; at 28 layers
+#: the phase took 141.2 s of the script's 1200 s, PERF.md §4).
+P8_LAYERS = 4
 #: phase 8 (f): the no-ZeRO baseline on two ranks (three ranks' full
-#: moments do not fit one card).
+#: moments do not fit one card at 28 layers).
 P_ALLREDUCE = 2
 ALLREDUCE_ARGV = argv_with(MAIN_ARGV, grad_sync="allreduce",
                            mesh=f"{P_ALLREDUCE}x1", global_batch=P_ALLREDUCE)
@@ -2324,9 +2315,10 @@ def phase_broadcast_hierarchical(smi: str) -> None:
           f"CPU's, exchanges x 1 / 2, y 2 / 4 ({smi})")
 
 
-def bucket_sync(p: int, bucket_bytes: int, wire: bool):
+def bucket_sync(p: int, bucket_bytes: int, wire: bool, n_layers: int):
     """``(buckets, reduce-scatter bytes, allgather bytes)`` of one step of
-    the bucketed sync at p ranks: every bucket's block sent p - 1 times
+    the bucketed sync at p ranks, qwen3-1.7b at ``n_layers`` layers:
+    every bucket's block sent p - 1 times
     per rank, float32 or on the int8 wire (padded to whole groups of
     ``min(DEFAULT_GROUP, width)``), the allgather in the parameters'
     dtype."""
@@ -2335,7 +2327,8 @@ def bucket_sync(p: int, bucket_bytes: int, wire: bool):
     from repro_torch.kernels import DEFAULT_GROUP, wire_width
     from repro_torch.optim.zero1 import plan_grad_buckets
     itemsize = getattr(torch, get_config("qwen3-1.7b").dtype).itemsize
-    shapes = [shape for _, shape, _, _, _ in wire_leaves(p)]
+    shapes = [shape for _, shape, _, _, _ in wire_leaves(p,
+                                                        n_layers=n_layers)]
     buckets = plan_grad_buckets(shapes, p, bucket_bytes)
     rs = ag = 0
     for b in buckets:
@@ -2440,45 +2433,35 @@ def warm_ms(run) -> list:
     return [round(t * 1e3, 1) for t in run.step_seconds[1:]]
 
 
-def profile_bucket_step(bucket_bytes: int) -> int:
-    """The child process of phase 8 (c): a bucketed session takes step 0,
-    step 1 unprofiled and step 2 profiled, as phase 4's (TF32 off)."""
-    import torch
-    from repro_torch.launch import bootstrap
-    from repro_torch.launch import train as trainer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _, sess = trainer.build(argv_with(MAIN_ARGV, bucket_bytes=bucket_bytes))
-    bootstrap.run_step(sess, 0)
-    wall_1 = timed_step(lambda: bootstrap.run_step(sess, 1))
-    profiled_step(lambda: bootstrap.run_step(sess, 2),
-                  f"warm step 2 of a bucketed session, --bucket-bytes "
-                  f"{bucket_bytes}, in a fresh process", wall_1)
-    return 0
+def phase_grad_syncs(smi: str) -> dict:
+    """Phase 8 (c)-(f) at :data:`P8_LAYERS` layers, 2 steps a run (1 for
+    (d)), each run's state after step 0 held against a reference's
+    (:func:`hold_step0`): first the per-leaf circulant sync (phase 4's)
+    and phase 5 (a)'s int8 wire take step 0 at that depth as the
+    references; then the bucketed main path at both bucket sizes bitwise
+    the per-leaf sync; the bucketed int8 wire with the kernels on bitwise
+    the same with them off, its moments within the wire tolerance of the
+    exact ones and its grad norm of phase 5 (a)'s; the ring and xla grad
+    syncs within the fold tolerance of the per-leaf sync; the allreduce
+    baseline at p = 2 within it of a per-leaf circulant run at p = 2.
+    Returns each workload run's launch counts."""
+    with cut_depth(P8_LAYERS):
+        return grad_syncs(smi)
 
 
-def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
-    """Phase 8 (c)-(f), 2 steps a run (1 for (d)), each run's state after
-    step 0 held against a reference's (:func:`hold_step0`): the bucketed
-    main path at both bucket sizes bitwise phase 4's per-leaf sync
-    (``ref``), the 25 MB one's warm step profiled in a process of its
-    own; the bucketed
-    int8 wire with the kernels on bitwise the same with them off, its
-    moments within the wire tolerance of phase 4's exact ones and its
-    grad norm of phase 5 (a)'s (``wire_ref``); the ring and xla grad
-    syncs within the fold tolerance of phase 4's; the allreduce baseline
-    at p = 2 within it of a per-leaf circulant run at p = 2.  Returns
-    each workload run's launch counts."""
+def grad_syncs(smi: str) -> dict:
+    """The body of :func:`phase_grad_syncs`, within its depth cut."""
     import torch
     from repro_torch.core import ceil_log2
-    n_zero, q = len(wire_leaves(P_MAIN)), ceil_log2(P_MAIN)
+    depth = P8_LAYERS
+    n_zero = len(wire_leaves(P_MAIN, n_layers=depth))
+    q = ceil_log2(P_MAIN)
     none = {name: 0 for name in counters()}
     steps = 2
     out = {}
-    print(f"grad syncs: phase 4's full-width session (every width, all 28 "
-          f"layers), warm step {ref['warm_ms']:.1f} ms, peak "
-          f"{ref['peak'] / 2**30:.2f} GiB; {steps} steps a run, 1 for the "
-          f"int8 wire ({smi})")
+    cut = f"reduced: depth 28 -> {depth}, every width kept"
+    print(f"grad syncs: phase 4's session at {depth} of 28 layers, every "
+          f"width; {steps} steps a run, 1 for the int8 wire ({smi})")
 
     def report(label, run, peak, held):
         print(f"{label}: after step 0 {held}")
@@ -2486,33 +2469,39 @@ def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
               f"sync; step 0 {run.step_seconds[0] * 1e3:.1f}), peak memory "
               f"allocated {peak / 2**30:.2f} GiB ({smi})")
 
+    label = "grad syncs' reference, phase 4's per-leaf sync"
+    _, _, _, _, ref = run_path(
+        argv_with(MAIN_ARGV, steps=1), label,
+        dict(none, fused_round=P_MAIN * n_zero * q), P_MAIN, wire=False,
+        sync=sync_bytes(P_MAIN, False, n_layers=depth),
+        exchanges=2 * q * n_zero,
+        at_step0=lambda s, m: step0_state(s, m, label))
+    label = "grad syncs' wire reference, phase 5 (a)'s int8 wire"
+    _, _, _, _, wire_ref = run_path(
+        argv_with(WIRE_A_ARGV, steps=1), label,
+        dict(none, quantize=P_MAIN * n_zero, quantize_rows=P_MAIN * n_zero,
+             fused_round_dq=P_MAIN * n_zero * q), P_MAIN, wire=True,
+        sync=sync_bytes(P_MAIN, True, n_layers=depth),
+        exchanges=2 * q * n_zero,
+        at_step0=lambda s, m: {"grad_norm": float(m["grad_norm"])})
     for bb in BUCKETS:
         t0 = time.perf_counter()
-        buckets, rs, ag = bucket_sync(P_MAIN, bb, wire=False)
+        buckets, rs, ag = bucket_sync(P_MAIN, bb, False, depth)
         nb = len(buckets)
         argv = argv_with(MAIN_ARGV, bucket_bytes=bb, steps=steps)
         label = f"bucketed --bucket-bytes {bb}"
         print(f"{label}: {' '.join(argv)}; {nb} buckets for {n_zero} zero "
-              f"leaves; reduced: none")
+              f"leaves; {cut}")
         run, counts, peak, _, held = run_path(
             argv, label, dict(none, fused_round=steps * P_MAIN * nb * q),
             P_MAIN, wire=False, sync=(rs, ag), exchanges=2 * q * nb,
             at_step0=lambda s, m: hold_step0(s, m, ref, label, "bitwise"))
         report(label, run, peak, held)
         out[f"8c-{bb}"] = counts
-        if bb == BUCKETS[0]:
-            sys.stdout.flush()
-            child = subprocess.run([sys.executable,
-                                    str(Path(__file__).resolve()),
-                                    PROFILE_BUCKET_STEP, str(bb)],
-                                   timeout=600)
-            check(child.returncode == 0,
-                  f"{label}: profile process exited {child.returncode}")
         print(f"{label}: {time.perf_counter() - t0:.1f} s")
-
     t0 = time.perf_counter()
     bb = BUCKETS[0]
-    buckets, rs, ag = bucket_sync(P_MAIN, bb, wire=True)
+    buckets, rs, ag = bucket_sync(P_MAIN, bb, True, depth)
     nb = len(buckets)
     label = f"bucketed int8 wire --bucket-bytes {bb}"
     on = {}
@@ -2522,16 +2511,16 @@ def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
         gn = float(metrics["grad_norm"])
         check(abs(gn - wire_ref["grad_norm"]) <=
               WIRE_RTOL * wire_ref["grad_norm"],
-              f"{label}: grad norm {gn} vs phase 5 (a)'s "
+              f"{label}: grad norm {gn} vs phase 5 (a)'s at this depth "
               f"{wire_ref['grad_norm']}")
         on.update(step0_state(sess, metrics, label))
-        return (f"{held}, of phase 4's; grad norm {gn!r}, phase 5 (a)'s "
-                f"{wire_ref['grad_norm']!r}")
+        return (f"{held}, of the per-leaf sync's; grad norm {gn!r}, phase "
+                f"5 (a)'s {wire_ref['grad_norm']!r}")
 
     for fused in ("on", "off"):
         argv = argv_with(WIRE_A_ARGV, bucket_bytes=bb, steps=1,
                          fused_kernel=fused)
-        print(f"{label}: {' '.join(argv)}; {nb} buckets; reduced: none")
+        print(f"{label}: {' '.join(argv)}; {nb} buckets; {cut}")
         want = dict(none) if fused == "off" else dict(
             none, quantize=P_MAIN * nb, quantize_rows=P_MAIN * nb,
             fused_round_dq=P_MAIN * nb * q)
@@ -2551,11 +2540,12 @@ def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
         t0 = time.perf_counter()
         argv = argv_with(MAIN_ARGV, grad_sync=impl, steps=steps)
         label = f"--grad-sync {impl}"
-        print(f"{label}: {' '.join(argv)}; reduced: none")
+        print(f"{label}: {' '.join(argv)}; {cut}")
         # ring: p - 1 rounds per RS (volume-optimal: the same bytes) and
         # the circulant allgather's q; xla: native calls only
         if impl == "ring":
-            ex, sync = n_zero * ((P_MAIN - 1) + q), sync_bytes(P_MAIN, False)
+            ex = n_zero * ((P_MAIN - 1) + q)
+            sync = sync_bytes(P_MAIN, False, n_layers=depth)
         else:
             ex, sync = 0, (0, 0)
         run, counts, peak, _, held = run_path(
@@ -2572,16 +2562,18 @@ def phase_grad_syncs(smi: str, ref: dict, wire_ref: dict) -> dict:
     t0 = time.perf_counter()
     label = "--grad-sync allreduce"
     circ = argv_with(ALLREDUCE_ARGV, grad_sync="circulant", steps=1)
-    n2 = len(wire_leaves(P_ALLREDUCE))
+    n2 = len(wire_leaves(P_ALLREDUCE, n_layers=depth))
     print(f"{label}: its reference {' '.join(circ)}")
     _, _, _, _, ref2 = run_path(  # one step, one round at p = 2
         circ, f"{label}'s reference", dict(none, fused_round=P_ALLREDUCE * n2),
         P_ALLREDUCE, wire=False,
+        sync=sync_bytes(P_ALLREDUCE, False, n_layers=depth),
         at_step0=lambda s, m: step0_state(s, m, label))
     del ref2["params"]  # AdamW on whole leaves or on shards: not held
     argv = argv_with(ALLREDUCE_ARGV, steps=steps)
-    print(f"{label}: {' '.join(argv)}; reduced: p = 2, not 3 (three ranks' "
-          f"full float32 moments, 3 x 13.8 GB, do not fit beside the model)")
+    print(f"{label}: {' '.join(argv)}; {cut}; p = 2, not 3 (at 28 layers "
+          f"three ranks' full float32 moments, 3 x 13.8 GB, do not fit "
+          f"beside the model)")
     run, counts, peak, _, held = run_path(
         argv, label, dict(none), P_ALLREDUCE, wire=False, sync=(0, 0),
         exchanges=0,
@@ -2938,10 +2930,10 @@ SCHED = dict(n=16, max_batch=8, block=16, prompt_len=2048, max_new=128)
 #: phase 10 (c) float32: the depth of the model the scheduler's tokens are
 #: held on against one-shot runs (every width; cut from 28 for the
 #: script's time limit, PERF.md §4).
-SCHED_F32_LAYERS = 7
+SCHED_F32_LAYERS = 2
 #: phase 10 (d): replicas of the broadcast fan-out, and their depth
 #: (every width; cut from 28 for the script's time limit, PERF.md §4).
-SERVE_REPLICAS, REPLICA_LAYERS = 3, 7
+SERVE_REPLICAS, REPLICA_LAYERS = 3, 2
 #: phase 10 (e): expert-parallel decode, phi-3.5-MoE every width.
 EP_SERVE = dict(arch=EP_ARCH, moe_dispatch="ep", ep_devices=2, n_layers=8,
                 batch=2, prompt=2048, new=32)
@@ -3371,16 +3363,24 @@ def phase_serving(smi: str) -> dict:
 #: recurrence runs one Python step a token; at 2048 the script passed its
 #: 1200-s limit on a slow host, and with phase 14 added 1024 left it at
 #: 1109.8 s (PERF.md §4).  Two steps each (one warm), for the same reason.
-FAMILY_TRAIN = {"hymba-1.5b": 2048, "xlstm-125m": 512,
+#: The script then took over 1200 s on a slower host (973.9 s on the card
+#: of PERF.md §6), so xLSTM trains at 128 tokens and hymba at
+#: :data:`FAMILY_LAYERS`.
+FAMILY_TRAIN = {"hymba-1.5b": 2048, "xlstm-125m": 128,
                 "whisper-small": 1500}
+#: phase 11 (a): arch -> its depth where cut (every width kept): hymba's
+#: Mamba scan took ~14 s a step at 32 layers over 3 virtual ranks.
+FAMILY_LAYERS = {"hymba-1.5b": 8}
 FAMILY_STEPS = 2
 #: phase 11 (a): the int8-wire run (EF off): its arch and steps.
 FAMILY_WIRE = ("hymba-1.5b", 2)
 #: phase 11 (c): arch -> (batch, prompt, new tokens, depth cut or None).
 #: The VLM and Qwen1.5 keep every width; their depth is cut to fit
-#: (89.2 B and 111.2 B parameters in full against 80 GB).
-FAMILY_SERVE = {"hymba-1.5b": (4, 2048, 64, None),
-                "xlstm-125m": (8, 2048, 128, None),
+#: (89.2 B and 111.2 B parameters in full against 80 GB).  hymba's and
+#: xLSTM's depth is cut for the script's time limit (their serving took
+#: 29.4 and 24.9 s at full depth, bf16 and float32 together).
+FAMILY_SERVE = {"hymba-1.5b": (4, 2048, 64, 8),
+                "xlstm-125m": (8, 2048, 128, 3),
                 "whisper-small": (8, 320, 128, None),
                 "llama-3.2-vision-90b": (2, 2048, 32, 5),
                 "qwen1.5-110b": (2, 2048, 32, 2)}
@@ -3405,12 +3405,13 @@ def family_train(arch: str, seq: int) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.launch import bootstrap
     cfg = get_config(arch)
+    layers = FAMILY_LAYERS.get(arch, cfg.n_layers)
     n_zero = len(wire_leaves(P_MAIN, arch))
     label = f"phase 11 (a) {arch}"
     argv = family_argv(arch, seq)
-    print(f"{label}: {cfg.family}, full width, {cfg.n_layers} layers, "
-          f"{tree_numel(arch) / 1e9:.4f} B params, {n_zero} zero leaves "
-          f"at p = {P_MAIN}; train.main({argv})")
+    print(f"{label}: {cfg.family}, full width, {layers} of {cfg.n_layers} "
+          f"layers, {tree_numel(arch, layers) / 1e9:.4f} B params, {n_zero} "
+          f"zero leaves at p = {P_MAIN}; train.main({argv})")
     want = {name: 0 for name in counters()}
     want["fused_round"] = FAMILY_STEPS * P_MAIN * n_zero * 2
 
@@ -3420,13 +3421,15 @@ def family_train(arch: str, seq: int) -> tuple:
                 "grad_norm": float(metrics["grad_norm"]),
                 "params": [t.cpu() for t in T.leaves(sess.params[0])]}
 
-    run, counts, peak, _, ref = run_path(
-        argv, label, want, P_MAIN, wire=False,
-        sync=sync_bytes(P_MAIN, False, arch), exchanges=4 * n_zero,
-        at_step0=keep)
+    with cut_depth(layers):
+        run, counts, peak, _, ref = run_path(
+            argv, label, want, P_MAIN, wire=False,
+            sync=sync_bytes(P_MAIN, False, arch), exchanges=4 * n_zero,
+            at_step0=keep)
     sess = bootstrap.build_session(
         arch=arch, steps=FAMILY_STEPS, seq_len=seq, global_batch=P_MAIN,
-        dp=P_MAIN, mode="zero1", use_fused_kernel=False, device="cuda")
+        dp=P_MAIN, mode="zero1", use_fused_kernel=False, device="cuda",
+        n_layers=layers)
     metrics = bootstrap.run_step(sess, 0)
     check(float(metrics["loss"]) == ref["loss"] == run.losses[0],
           f"{label}: step-0 loss with the kernel off {float(metrics['loss'])}"
@@ -3452,18 +3455,21 @@ def family_wire() -> tuple:
     """Phase 11 (a): the int8 wire (EF off) on ``FAMILY_WIRE``'s arch:
     ``quantize`` and ``fused_round_dq`` launches, wire bytes and
     exchanges exact, no ``fused_round``."""
+    from repro_torch.configs import get_config
     arch, steps = FAMILY_WIRE
     n_zero = len(wire_leaves(P_MAIN, arch))
     argv = family_argv(arch, FAMILY_TRAIN[arch], wire_dtype="int8",
                        no_error_feedback=True, steps=steps)
     label = f"phase 11 (a) {arch} int8 wire"
-    print(f"{label}: train.main({argv})")
+    layers = FAMILY_LAYERS.get(arch, get_config(arch).n_layers)
+    print(f"{label}: {layers} layers; train.main({argv})")
     want = {name: 0 for name in counters()}
     want["quantize"] = want["quantize_rows"] = steps * P_MAIN * n_zero
     want["fused_round_dq"] = steps * P_MAIN * n_zero * 2
-    run, counts, peak, _, _ = run_path(
-        argv, label, want, P_MAIN, wire=True,
-        sync=sync_bytes(P_MAIN, True, arch), exchanges=4 * n_zero)
+    with cut_depth(layers):
+        run, counts, peak, _, _ = run_path(
+            argv, label, want, P_MAIN, wire=True,
+            sync=sync_bytes(P_MAIN, True, arch), exchanges=4 * n_zero)
     return run, counts, peak
 
 
@@ -3614,7 +3620,7 @@ def phase_families(smi: str) -> dict:
         t0 = time.perf_counter()
         run, counts, peak = family_train(arch, seq)
         measured_train(f"11a-{arch.split('-')[0]}", arch, seq, P_MAIN, run,
-                       peak, {})
+                       peak, {}, FAMILY_LAYERS.get(arch))
         for k in total:
             total[k] += counts[k]
         print(f"phase 11 (a) {arch}: seq {seq}, step seconds "
@@ -3625,7 +3631,8 @@ def phase_families(smi: str) -> dict:
     run, counts, peak = family_wire()
     measured_train("11a-hymba-int8", FAMILY_WIRE[0],
                    FAMILY_TRAIN[FAMILY_WIRE[0]], P_MAIN, run, peak,
-                   dict(wire_dtype="int8", error_feedback=False))
+                   dict(wire_dtype="int8", error_feedback=False),
+                   FAMILY_LAYERS.get(FAMILY_WIRE[0]))
     for k in total:
         total[k] += counts[k]
     print(f"phase 11 (a) {FAMILY_WIRE[0]} int8 wire: step seconds "
@@ -3652,14 +3659,15 @@ ROOFLINE_DIR = ROOT / "build" / "roofline"
 
 
 def measured_train(label: str, arch: str, seq: int, p: int, run, peak: int,
-                   sync: dict) -> None:
+                   sync: dict, layers: int | None = None) -> None:
     """Record a ZeRO-1 run of ``p`` virtual ranks on one card (global
     batch ``p``) for phase 13: its fastest warm step (step 0 builds the
     plans and warms the allocator), the sync bytes and exchanges the
     launcher counted each step, and ``sync``, the ``GradSyncConfig``
-    keywords of its argv."""
+    keywords of its argv; ``layers``: the depth where cut."""
     MEASURED[label] = dict(
-        arch=arch, kind="train", seq=seq, batch=p, ranks=p, local=True,
+        arch=arch, layers=layers, kind="train", seq=seq, batch=p, ranks=p,
+        local=True,
         mode="zero1" + (" int8" if sync.get("wire_dtype") else ""),
         sync=sync, measured_s=min(run.step_seconds[1:]),
         sync_bytes=run.sync_bytes, exchanges=run.sync_exchanges, peak=peak)
@@ -3687,10 +3695,11 @@ def tp_roofline_counts(label: str, m: dict):
         "tp_fsdp" if m["mode"] == "fsdp_auto" and cfg.name in FSDP_ARCHS
         else "tp"))
     t0 = time.perf_counter()
-    pc = tp_counts(cfg, shd.tp_layout(cfg, recipe, (d, mm)), mode=m["mode"],
-                   batch=m["batch"], seq=m["seq"],
-                   sync=GradSyncConfig(**m["sync"]),
-                   ranks=m["ranks"] if m["local"] else 1)
+    # phase 16 counted its paths already (the same call, in a worker)
+    pc = m.get("counts") or tp_counts(
+        cfg, shd.tp_layout(cfg, recipe, (d, mm)), mode=m["mode"],
+        batch=m["batch"], seq=m["seq"], sync=GradSyncConfig(**m["sync"]),
+        ranks=m["ranks"] if m["local"] else 1)
     want = {a: [c.bytes, c.exchanges, c.natives] for a, c in pc.items()}
     for i, got in enumerate(m["steps"]):
         check(got == want, f"phase 13 ({label}): step {i} counted {got}, "
@@ -3782,6 +3791,9 @@ def phase_roofline(smi: str, mesh: str = "h100") -> None:
 #: (a): phase 4's argv on a 2x2 mesh: the circulant RS / AG over the data
 #: axis (each model column its own group), TP over the model axis
 P14A_ARGV = argv_with(MAIN_ARGV, mesh="2x2", global_batch=2, steps=3)
+#: (a)'s depth on one card (every width kept): at 28 layers (a) and its
+#: count on ``meta`` tensors for phase 13 took ~60 s of the script's time
+P14A_LAYERS = 7
 #: the depth of the float32 holds of (a) and (b), and of (c)'s hold
 P14_HOLD_LAYERS = 3
 #: (b): fsdp_auto on 2x2 (qwen3-1.7b: recipe mode ``tp``)
@@ -3910,7 +3922,8 @@ def held(got: dict, want: dict, label: str, rtol: float, atol: float
         r = float((diff / (atol + rtol * b.abs())).max())
         past += int((diff > rtol * b.abs()).sum())
         total += b.numel()
-        check(r <= 1.0, f"{label}: {'.'.join(path)} beyond rtol {rtol} / "
+        check(r <= 1.0, f"{label}: {'.'.join(map(str, path))} beyond rtol "
+              f"{rtol} / "
               f"atol {atol} ({r:.3f} of the bound)")
         worst = max(worst, r)
     print(f"{label}: {past} of {total} elements past rtol {rtol} alone, "
@@ -3935,19 +3948,21 @@ def print_tp_run(label: str, rec: dict, smi: str) -> None:
 
 
 def measured_tp(label: str, arch: str, argv, rec: dict, *, local: bool,
-                layers: int | None = None, world_s=None) -> None:
+                layers: int | None = None, world_s=None, counts=None
+                ) -> None:
     """Record a tensor-parallel run for phase 13: both axes' counts a step
     and its fastest warm step (``world_s``: the world's step, its slowest
-    rank's)."""
+    rank's); ``counts``: its ``roofline.tp_counts`` if already made."""
     from repro_torch.launch import train as trainer
     args = trainer._parser().parse_args(argv)
     d, m = (int(x) for x in args.mesh.split("x"))
     secs = world_s or rec["step_seconds"]
     MEASURED[label] = dict(
         arch=arch, kind="train", seq=args.seq_len, batch=args.global_batch,
-        ranks=d * m, local=local, mode=args.mode or "zero1", sync={},
+        ranks=d * m, local=local, mode=args.mode or "zero1",
+        sync={"wire_dtype": args.wire_dtype} if args.wire_dtype else {},
         tp=(d, m), layers=layers, measured_s=min(secs[1:]),
-        steps=rec["steps"], peak=rec["peak"])
+        steps=rec["steps"], peak=rec["peak"], counts=counts)
 
 
 def phase_tensor_parallel(smi: str) -> dict:
@@ -3955,13 +3970,15 @@ def phase_tensor_parallel(smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import ceil_log2
     t14 = time.perf_counter()
-    # (a) the main path tensor parallel, full width and depth
-    n_zero = tp_zero_leaves(P14A_ARGV)
-    print(f"phase 14 (a): {' '.join(P14A_ARGV)}: qwen3-1.7b full width, 28 "
-          f"layers, bf16, 4 virtual ranks on one card (2 data x 2 model: "
-          f"each model column's blocks synced over its data group, "
-          f"{n_zero} zero leaves a rank); reduced: none")
-    a = tp_main(P14A_ARGV, "phase 14 (a)", profile=True)
+    # (a) the main path tensor parallel, full width
+    n_zero = tp_zero_leaves(P14A_ARGV, P14A_LAYERS)
+    print(f"phase 14 (a): {' '.join(P14A_ARGV)}: qwen3-1.7b full width, "
+          f"{P14A_LAYERS} of 28 layers, bf16, 4 virtual ranks on one card (2 "
+          f"data x 2 model: each model column's blocks synced over its data "
+          f"group, {n_zero} zero leaves a rank); reduced: depth 28 -> "
+          f"{P14A_LAYERS}")
+    with cut_depth(P14A_LAYERS):
+        a = tp_main(P14A_ARGV, "phase 14 (a)", profile=True)
     want = {name: 0 for name in counters()}
     steps = len(a["losses"])
     want["fused_round"] = steps * 4 * n_zero * ceil_log2(2)
@@ -3972,8 +3989,9 @@ def phase_tensor_parallel(smi: str) -> dict:
     print(f"phase 14 (a): fused_round launches {a['counts']['fused_round']} "
           f"= {steps} steps x 4 ranks x {n_zero} zero leaves of the blocks "
           f"x 1 round; warm step {a['warm_ms']:.1f} ms")
-    off = tp_main(argv_with(P14A_ARGV, steps=1, fused_kernel="off"),
-                  "phase 14 (a), kernels off")
+    with cut_depth(P14A_LAYERS):
+        off = tp_main(argv_with(P14A_ARGV, steps=1, fused_kernel="off"),
+                      "phase 14 (a), kernels off")
     check(not any(off["counts"].values()), f"phase 14 (a) off: "
           f"{off['counts']}")
     check(off["losses"][0] == a["losses"][0] and off["gnorm"][0] ==
@@ -3983,7 +4001,8 @@ def phase_tensor_parallel(smi: str) -> dict:
     print("phase 14 (a): --fused-kernel off gives a bitwise-equal step-0 "
           "loss and grad norm and bitwise-equal params (every rank's "
           "blocks) after step 0")
-    measured_tp("14a", "qwen3-1.7b", P14A_ARGV, a, local=True)
+    measured_tp("14a", "qwen3-1.7b", P14A_ARGV, a, local=True,
+                layers=P14A_LAYERS)
     # (a)'s hold: 2x2 against 2x1 in float32 at 3 layers
     with cut_depth(P14_HOLD_LAYERS), f32_configs():
         tp = tp_main(argv_with(P14A_ARGV, steps=2), "phase 14 (a) hold 2x2",
@@ -4150,20 +4169,20 @@ def p15_tp_run(label: str, argv, layers: int, smi: str) -> dict:
 
 
 def p15_hold(label: str, argv, against: dict, what: str,
-             fsdp: bool = False) -> None:
+             fsdp: bool = False, phase: int = 15) -> None:
     """``argv`` (a model axis, float32) held against the same argv with
     ``against``'s flags, 2 steps: losses within ``P14_HOLD["loss"]``
     relative, the whole params within its rtol / atol; ``fsdp``: no
     kernel launched."""
-    tp = tp_main(argv, f"phase 15 ({label}) hold", keep_whole=True)
+    tag = f"phase {phase} ({label})"
+    tp = tp_main(argv, f"{tag} hold", keep_whole=True)
     ref = hold_run(argv_with(argv, **against))
-    loss_held(tp["losses"], ref["losses"], f"phase 15 ({label}) hold",
-              P14_HOLD["loss"])
-    worst = held(tp["whole"], ref["whole"], f"phase 15 ({label}) hold",
+    loss_held(tp["losses"], ref["losses"], f"{tag} hold", P14_HOLD["loss"])
+    worst = held(tp["whole"], ref["whole"], f"{tag} hold",
                  P14_HOLD["rtol"], P14_HOLD["atol"])
     check(not fsdp or not any(tp["counts"].values()),
-          f"phase 15 ({label}): fsdp_auto launched {tp['counts']}")
-    print(f"phase 15 ({label}): {what}, float32, 2 steps: losses "
+          f"{tag}: fsdp_auto launched {tp['counts']}")
+    print(f"{tag}: {what}, float32, 2 steps: losses "
           f"{tp['losses']} vs {ref['losses']} (within {P14_HOLD['loss']} "
           f"relative), params within rtol {P14_HOLD['rtol']} / atol "
           f"{P14_HOLD['atol']} (the largest {worst:.3f} of the bound)")
@@ -4288,6 +4307,293 @@ def phase_tp_families_on_cards(smi: str) -> dict:
         free_cuda()
     print(f"phase 15 (d), (e) in {time.perf_counter() - t0:.1f} s ({smi})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: tensor parallelism and fsdp_auto of the hybrid, xLSTM and
+# encoder-decoder families
+# ---------------------------------------------------------------------------
+
+#: (a)-(c) on one card: each family's arch, sequence (whisper's frames;
+#: its 448 decoder tokens follow) and depth (``None``: the config's);
+#: zero1 on 2x2, bf16, full width, global batch 2, 2 steps.  hymba's
+#: depth and the xLSTM's sequence are cut for the phase's time: a hymba
+#: layer costs ≈ 0.4 s a step of host dispatch for four ranks, and the
+#: sLSTM's step loop runs once a token (136,766 kernels a step at seq
+#: 256, whose profile alone took ≈ 14 s of host time; 77,378 at 128).  (c) syncs on the
+#: int8 wire (``P16_WIRE``; no EF residuals, whose compensation quantizes
+#: on the card whatever ``--fused-kernel`` says, as phase 5 (a)):
+#: ``quantize`` and ``fused_round_dq`` in place of ``fused_round``.  Then
+#: whisper in fsdp_auto (``tp``), the same shape.
+P16 = {"a": ("hymba-1.5b", 2048, 3), "b": ("xlstm-125m", 64, None),
+       "c": ("whisper-small", 1500, None)}
+P16_WIRE = {"c": "int8"}
+#: (d), (e) on four cards, one rank a card over NCCL: arch, sequence and
+#: depth.  hymba's depth is cut for the phase's time: its step's
+#: model-axis calls, counted on ``meta`` tensors (``roofline.tp_counts``),
+#: take ≈ 3.7 s of host time a layer (the chunked flash attention's ops)
+P16_CARDS = {"d": ("hymba-1.5b", 2048, 16), "e": ("whisper-small", 1500,
+                                                   None)}
+
+
+class p16_counting:
+    """``p16_counts`` of every job (key -> its arguments) in worker
+    processes, started on entry, beside the card's work: each count runs
+    the model on ``meta`` tensors, seconds to minutes of host time.
+    ``get(key)`` waits for one; the workers end on exit."""
+
+    def __init__(self, jobs: dict):
+        self.jobs = jobs
+
+    def __enter__(self):
+        import concurrent.futures as cf
+        import multiprocessing as mp
+        self.pool = cf.ProcessPoolExecutor(
+            max_workers=len(self.jobs), mp_context=mp.get_context("spawn"))
+        self.futures = {k: self.pool.submit(p16_counts, *args)
+                        for k, args in self.jobs.items()}
+        return self
+
+    def get(self, key):
+        return self.futures[key].result()
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def p16_argv(arch: str, seq: int, **flags) -> list:
+    return argv_with(MAIN_ARGV, arch=arch, mesh="2x2", global_batch=2,
+                     steps=2, seq_len=seq, **flags)
+
+
+def p16_small_argv(arch: str, **flags) -> list:
+    """The holds: the scale-down config (float32), 2x2, seq 64, global
+    batch 4, 2 steps."""
+    return argv_with(MAIN_ARGV, arch=arch, scale_down=True, mesh="2x2",
+                     global_batch=4, seq_len=64, steps=2, **flags)
+
+
+def p16_counts(arch: str, seq: int, layers, ranks: int,
+               wire: str | None = None):
+    """``roofline.tp_counts`` of one zero1 step of ``arch`` on 2x2 at full
+    width (``layers`` deep, the sync on ``wire``), for a process of
+    ``ranks`` ranks."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import ShardingRecipe
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim.zero1 import GradSyncConfig
+    from repro_torch.roofline import tp_counts
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    lay = shd.tp_layout(cfg, ShardingRecipe(tp_size=2), (2, 2))
+    return tp_counts(cfg, lay, mode="zero1", batch=2, seq=seq,
+                     sync=GradSyncConfig(wire_dtype=wire), ranks=ranks)
+
+
+def p16_launches(label: str, counts: dict, steps: int, ranks: int, pc,
+                 n_zero: int, wire: str | None = None) -> None:
+    """``fused_round`` launched once a rank for each reduce-scatter round
+    ``tp_counts`` puts on the data axis (D = 2: one round a zero leaf,
+    half the axis's exchanges), nothing else; on the int8 wire (no EF)
+    ``fused_round_dq`` in its place, and round 0's ``quantize`` and
+    ``quantize_rows``."""
+    want = {name: 0 for name in counters()}
+    rounds = steps * ranks * pc["data"].exchanges // 2
+    if wire:
+        want.update(fused_round_dq=rounds, quantize=rounds,
+                    quantize_rows=rounds)
+    else:
+        want["fused_round"] = rounds
+    check(counts == want and pc["data"].exchanges == 2 * n_zero,
+          f"{label}: launches {counts}, expected {want} (= {steps} steps x "
+          f"{ranks} ranks x {pc['data'].exchanges} / 2 data-axis exchanges "
+          f"of tp_counts, {n_zero} zero leaves a rank)")
+
+
+def p16_run(part: str, smi: str, counting) -> dict:
+    """(a), (b) or (c): zero1 on 2x2 with a profiled warm step, then step
+    0 with ``--fused-kernel off``: launches as ``tp_counts`` (from
+    ``counting``) predicts, on and off bitwise."""
+    from repro_torch.configs import get_config
+    arch, seq, layers = P16[part]
+    label = f"phase 16 ({part})"
+    wire = P16_WIRE.get(part)
+    argv = p16_argv(arch, seq, **({"wire_dtype": wire,
+                                   "no_error_feedback": True}
+                                  if wire else {}))
+    n_zero = tp_zero_leaves(argv, layers)
+    full = get_config(arch).n_layers
+    cut = [f"depth {full} -> {layers}"] if layers else []
+    cut += [f"seq 2048 -> {seq}"] if arch == "xlstm-125m" else []
+    print(f"{label}: {' '.join(argv)}: {arch} full width, bf16, 4 virtual "
+          f"ranks on one card ({n_zero} zero leaves a rank); reduced: "
+          f"{', '.join(cut) or 'none'}", flush=True)
+    with cut_depth(layers):
+        run = tp_main(argv, label, profile=True)
+        off = tp_main(argv_with(argv, steps=1, fused_kernel="off"),
+                      f"{label}, kernels off")
+    steps = len(run["losses"])
+    pc = counting.get(part)
+    p16_launches(label, run["counts"], steps, 4, pc, n_zero, wire)
+    print_tp_run(label, run, smi)
+    print(f"{label}: launches as {steps} steps x 4 ranks x "
+          f"{pc['data'].exchanges // 2} reduce-scatter rounds of tp_counts "
+          f"give them{' on the int8 wire' if wire else ''}; warm step "
+          f"{run['warm_ms']:.1f} ms")
+    check(not any(off["counts"].values()), f"{label} off: {off['counts']}")
+    check(off["losses"][0] == run["losses"][0] and off["gnorm"][0] ==
+          run["gnorm"][0] and off["digest"] == run["digest"],
+          f"{label}: kernels on and off differ in step 0's loss or grad "
+          f"norm or the params after it")
+    print(f"{label}: --fused-kernel off gives a bitwise-equal step-0 loss "
+          f"and grad norm and bitwise-equal params (every rank's blocks) "
+          f"after step 0")
+    measured_tp("16" + part, arch, argv, run, local=True, layers=layers,
+                counts=pc)
+    del run["digest"]
+    run["counts"] = {k: run["counts"][k] + off["counts"][k]
+                     for k in run["counts"]}
+    return run
+
+
+def p16_jobs() -> dict:
+    """:class:`p16_counting`'s jobs for phase 16 (a)-(c)."""
+    return {part: (arch, seq, layers, 4, P16_WIRE.get(part))
+            for part, (arch, seq, layers) in P16.items()}
+
+
+def phase_tp_more_families(smi: str, counting: p16_counting) -> dict:
+    """Phase 16 (a)-(c) on one card, whisper's fsdp_auto, and the float32
+    holds of the three families scaled down against mode single;
+    ``counting``: :class:`p16_counting` of :func:`p16_jobs`, entered by
+    the caller (its workers count beside the phases before)."""
+    t16 = time.perf_counter()
+    out = {}
+    for part in P16:
+        t0 = time.perf_counter()
+        out["16" + part] = p16_run(part, smi, counting)["counts"]
+        print(f"phase 16 ({part}) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    arch, seq, layers = P16["c"]
+    argv = p16_argv(arch, seq, mode="fsdp_auto")
+    fs = tp_main(argv, "phase 16 (c) fsdp_auto")
+    check(not any(fs["counts"].values()), f"phase 16 (c) fsdp_auto: "
+          f"launched {fs['counts']} (it runs the native calls only)")
+    print_tp_run("phase 16 (c) fsdp_auto", fs, smi)
+    single = {"mesh": "1x1", "mode": "single"}
+    for arch, mode in (("hymba-1.5b", "zero1"), ("xlstm-125m", "fsdp_auto"),
+                       ("whisper-small", "zero1")):
+        p15_hold(arch, p16_small_argv(arch, mode=mode), single,
+                 f"{arch} scaled down, {mode} 2x2 vs single at global batch "
+                 f"4", fsdp=mode == "fsdp_auto", phase=16)
+    print(f"phase 16 in {time.perf_counter() - t16:.1f} s ({smi})")
+    return out
+
+
+def p16_rank(spec, dev) -> dict:
+    """16 (d) or (e)'s rank: ``spec["arch"]`` zero1 on a 2x2 ``DistMesh``,
+    full width, with a profiled warm step; then the scale-down config's
+    2 steps, this rank's blocks written for the parent's hold."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.launch import train as trainer
+    with cut_depth(spec["layers"]):
+        on = tp_main(p16_argv(spec["arch"], spec["seq"]),
+                     f"16 ({spec['label']})", dev=dev, profile=True)
+    keep = {}
+
+    def on_step(step, sess, metrics):
+        keep["params"] = T.map_leaves(lambda x: x.detach().cpu(),
+                                      sess.params[0])
+
+    run = trainer.main(p16_small_argv(spec["arch"]), on_step=on_step)
+    torch.save(keep["params"],
+               P12_DIR / f"{spec['label']}.params.{dev.index}.pt")
+    del on["digest"]
+    return {"on": on, "hold_losses": run.losses}
+
+
+def phase_tp_more_families_on_cards(smi: str) -> dict:
+    """Phase 16 (d) and (e) on four cards, one rank a card over NCCL, each
+    with its scale-down run held bitwise against 4 virtual ranks on one
+    card."""
+    t0 = time.perf_counter()
+    out = {}
+    with p16_counting({part: (arch, seq, layers, 1) for part, (
+            arch, seq, layers) in P16_CARDS.items()}) as counting:
+        for part in P16_CARDS:
+            out["16" + part] = p16_on_cards(part, smi, counting)
+    print(f"phase 16 (d), (e) in {time.perf_counter() - t0:.1f} s ({smi})")
+    return out
+
+
+def p16_on_cards(part: str, smi: str, counting) -> dict:
+    """(d) or (e): the world, its launches against ``tp_counts``, its
+    phase-13 record and its scale-down hold; returns its launches."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as trainer
+    arch, seq, layers = P16_CARDS[part]
+    label = "16" + part
+    argv = p16_argv(arch, seq)
+    n_zero = tp_zero_leaves(argv, layers)
+    full = get_config(arch).n_layers
+    print(f"phase 16 ({part}): {' '.join(argv)} on a 2x2 DistMesh, one "
+          f"rank a card over NCCL: {arch} full width, zero1 ({n_zero} zero "
+          f"leaves a rank); reduced: "
+          f"{f'depth {full} -> {layers}' if layers else 'none'}",
+          flush=True)
+    res = torchrun(4, "16big", label, arch=arch, seq=seq, layers=layers)
+    on = [x["on"] for x in res]
+    pc = counting.get(part)
+    for r, x in enumerate(on):
+        p16_launches(f"({label}) rank {r}", x["counts"],
+                     len(x["losses"]), 1, pc, n_zero)
+        check(x["losses"] == on[0]["losses"], f"({label}) rank {r}'s "
+              f"losses {x['losses']} vs rank 0's {on[0]['losses']}")
+        print(f"phase 16 ({part}) rank {r}: step seconds "
+              f"{[round(t, 4) for t in x['step_seconds']]}, warm step "
+              f"{x['warm_ms']:.1f} ms, peak {x['peak'] / 2**30:.2f} "
+              f"GiB, launches {x['counts']}, a step: data axis "
+              f"{x['steps'][0]['data']}, model axis "
+              f"{x['steps'][0]['model']} ({smi})")
+    world_s = [max(x["step_seconds"][i] for x in on)
+               for i in range(len(on[0]["step_seconds"]))]
+    print(f"phase 16 ({part}): losses {on[0]['losses']}, grad norms "
+          f"{on[0]['gnorm']}; the world's step "
+          f"{[round(t, 4) for t in world_s]} s; peak a card "
+          f"{[round(x['peak'] / 2**30, 2) for x in on]} GiB")
+    MEASURED[label] = dict(
+        arch=arch, kind="train", seq=seq, batch=2, ranks=4, local=False,
+        mode="zero1", sync={}, tp=(2, 2), layers=layers,
+        measured_s=min(world_s[1:]), steps=on[0]["steps"],
+        peak=max(x["peak"] for x in on), counts=pc)
+    keep = {}
+
+    def on_step(step, sess, metrics):
+        keep["params"] = [T.map_leaves(lambda x: x.detach().cpu(), p)
+                          for p in sess.params]
+
+    run = trainer.main(p16_small_argv(arch), on_step=on_step)
+    bitwise = run.losses == res[0]["hold_losses"]
+    for r in range(4):
+        path = P12_DIR / f"{label}.params.{r}.pt"
+        got = torch.load(path)
+        bitwise = bitwise and all(
+            same_bits(a, b) for a, b in zip(
+                T.leaves(got), T.leaves(keep["params"][r])))
+        path.unlink()
+    check(bitwise, f"({label}) hold: the scale-down run over NCCL "
+          f"({res[0]['hold_losses']}) is not bitwise the in-process "
+          f"run ({run.losses}) in its losses or every rank's blocks")
+    print(f"phase 16 ({part}): {arch} scaled down, 2 steps: 4 processes "
+          f"over NCCL bitwise 4 virtual ranks on one card (losses "
+          f"{run.losses}, every rank's blocks)")
+    free_cuda()
+    return {k: sum(x["counts"][k] for x in on) for k in counters()}
 
 
 # ---------------------------------------------------------------------------
@@ -4992,7 +5298,7 @@ P12_PHASES = {"a": p12_launcher_one_card, "b": p12_collectives,
               "c": p12_main_path, "d": p12_wire, "e": p12_ep,
               "f2": p12_serve_ep2, "f4": p12_serve_4, "g": p12_checkpoint,
               "14c": p14_tp_rank, "14d": p14_fsdp_rank,
-              "15big": p15_big_rank}
+              "15big": p15_big_rank, "16big": p16_rank}
 
 
 def phase_launcher_one_card(smi: str) -> dict:
@@ -5313,6 +5619,7 @@ def cards_main() -> int:
     by_path = phase_multi_card(smi)
     by_path.update(phase_tp_on_cards(smi))
     by_path.update(phase_tp_families_on_cards(smi))
+    by_path.update(phase_tp_more_families_on_cards(smi))
     phase_roofline(smi, mesh="h100x4")
     names = {"fused_round": ("src/repro_torch/csrc/fused_round.cu",
                              "src/repro/kernels/fused_round.py:109"),
@@ -5356,46 +5663,45 @@ def main() -> int:
         return cards_main()
     if len(sys.argv) == 3 and sys.argv[1] == AGAINST:
         return against_report(sys.argv[2])
-    if sys.argv[1:] == [PROFILE_WIRE_STEP]:
-        return profile_wire_step()
-    if sys.argv[1:] == [PROFILE_EP_STEP]:
-        return profile_ep_step()
-    if len(sys.argv) == 3 and sys.argv[1] == PROFILE_BUCKET_STEP:
-        return profile_bucket_step(int(sys.argv[2]))
     t_all = time.perf_counter()
-    smi = phase_card_and_build()
-    max_err, step = phase_kernel_vs_plain()
-    wire_errs, wire = phase_wire_kernels()
-    br_err, br = phase_block_reduce()
-    perm_err, perm = phase_permute_rows()
-    phase_collectives()
-    phase_wire_collectives()
-    phase_alltoall()
+    smi = timed("phase 1", phase_card_and_build)
+    max_err, step = timed("phase 2 fused_round", phase_kernel_vs_plain)
+    wire_errs, wire = timed("phase 2 wire kernels", phase_wire_kernels)
+    br_err, br = timed("phase 2 block_reduce", phase_block_reduce)
+    perm_err, perm = timed("phase 2 permute_rows", phase_permute_rows)
+    timed("phase 3 collectives", phase_collectives)
+    timed("phase 3 wire collectives", phase_wire_collectives)
+    timed("phase 3 alltoall", phase_alltoall)
     with Preflight("main path"):
-        counts, _, _, f32_rs_bytes, ref = phase_main_path()
-    paths = phase_wire_path(f32_rs_bytes)
-    ep_a, ep_b = phase_ep_path()
-    sweep = phase_conformance(smi)
-    phase_nonuniform(smi)
-    phase_nonuniform_timing(smi)
+        counts, f32_rs_bytes = timed("phase 4", phase_main_path)
+    paths = timed("phase 5", phase_wire_path, f32_rs_bytes)
+    ep_a, ep_b = timed("phase 6", phase_ep_path)
+    sweep = timed("phase 7 (a)", phase_conformance, smi)
+    timed("phase 7 (b)", phase_nonuniform, smi)
+    timed("phase 7 (c)", phase_nonuniform_timing, smi)
     t8 = time.perf_counter()
     phase_paper_comparison(smi)
     phase_broadcast_hierarchical(smi)
     print(f"phase 8 (a), (b) in {time.perf_counter() - t8:.1f} s")
-    syncs = phase_grad_syncs(smi, ref, paths["ref"])
-    print(f"phase 8 in {time.perf_counter() - t8:.1f} s ({smi})")
-    del ref, paths["ref"]
+    syncs = phase_grad_syncs(smi)
+    SECONDS["phase 8"] = round(time.perf_counter() - t8, 1)
+    print(f"phase 8 in {SECONDS['phase 8']} s ({smi})")
     t9 = time.perf_counter()
     phase_verifier()
     rowwise = phase_rowwise()
     drill = phase_elastic_drill(smi)
-    print(f"phase 9 in {time.perf_counter() - t9:.1f} s ({smi})")
-    serving = phase_serving(smi)
-    families = phase_families(smi)
-    launcher = phase_launcher_one_card(smi)
-    tensor_parallel = phase_tensor_parallel(smi)
-    tensor_parallel.update(phase_tp_families(smi))
-    phase_roofline(smi)
+    SECONDS["phase 9"] = round(time.perf_counter() - t9, 1)
+    print(f"phase 9 in {SECONDS['phase 9']} s ({smi})")
+    serving = timed("phase 10", phase_serving, smi)
+    families = timed("phase 11", phase_families, smi)
+    launcher = timed("phase 12 (a)", phase_launcher_one_card, smi)
+    with p16_counting(p16_jobs()) as counting:
+        tensor_parallel = timed("phase 14", phase_tensor_parallel, smi)
+        tensor_parallel.update(timed("phase 15", phase_tp_families, smi))
+        tensor_parallel.update(timed("phase 16", phase_tp_more_families, smi,
+                                     counting))
+    timed("phase 13", phase_roofline, smi)
+    print(f"seconds by phase: {json.dumps(SECONDS)}")
     print("phase 12 (b)-(g), one rank per card over NCCL (the collectives "
           "on the links, the main path at p = 4, the int8 wire with EF at "
           "p = 3, ep training and serving, the fan-out, checkpoints across "

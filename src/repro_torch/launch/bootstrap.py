@@ -55,7 +55,6 @@ from ..data import for_model
 from ..models import (ShardingRecipe, build, is_ep, leaf_dtype,
                       param_shapes)
 from ..models import sharding as shd
-from ..models.transformer import TP_FAMILIES
 from ..optim.adamw import AdamWConfig, TreeAdamState
 from ..optim.zero1 import (GradSyncConfig, Zero1State, resize_zero1_state,
                            zero_flags)
@@ -152,11 +151,10 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
     """Build a runnable :class:`Session` for a ``dp × mp`` mesh; zero1
     runs its ``dp`` ranks on a ``LocalComm``.  ``mp > 1`` runs the
     ``dp × mp`` ranks on a ``LocalMesh``: an expert-parallel MoE config
-    (``moe_dispatch="ep"``) exchanges over the model axis, a dense, MoE
-    or VLM one is tensor parallel over it, as is mode ``fsdp_auto`` on
-    any mesh (``sequence_parallel`` and ``expand_gqa``: the recipe's
-    fields; the hybrid, xLSTM and encoder-decoder families raise
-    ``NotImplementedError``, ROADMAP.md queue 1 item 11.2).  ``grad_sync`` is the sync's impl (circulant, ring, xla or
+    (``moe_dispatch="ep"``) exchanges over the model axis, any other
+    config is tensor parallel over it, as is mode ``fsdp_auto`` on any
+    mesh (``sequence_parallel`` and ``expand_gqa``: the recipe's
+    fields).  ``grad_sync`` is the sync's impl (circulant, ring, xla or
     allreduce) and ``bucket_bytes`` its bucket size (circulant; on an
     expert-parallel mesh the buckets run over the data axis).
     ``wire_dtype="int8"`` puts the gradient reduce-scatter on the int8
@@ -177,11 +175,6 @@ def build_session(*, arch: str, scale_down: bool = False, steps: int = 100,
                                   f"not {mode!r}")
     tensor_parallel = mode == "fsdp_auto" or (mode == "zero1" and mp != 1
                                               and not ep)
-    if tensor_parallel and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"mesh {dp}x{mp} in mode {mode}: tensor parallelism runs the "
-            f"families {TP_FAMILIES}; {cfg.name} ({cfg.family}) waits for "
-            f"ROADMAP.md queue 1 item 11.2 (use {dp}x1 in mode zero1)")
     procs = meshlib.is_process_world()
     if procs:
         dev = join_world(dp * mp, device, f"mesh {dp}x{mp}")

@@ -62,12 +62,12 @@ rank's tokens, as the reference's global batch does)::
         --scale-down --device cpu --mesh 2x2 --steps 3 --seq-len 16 \\
         --global-batch 4 [--mode fsdp_auto]
     # or --arch phi3.5-moe-42b-a6.6b [--moe-dispatch rowwise],
-    # grok-1-314b --mode fsdp_auto, llama-3.2-vision-90b
+    # grok-1-314b --mode fsdp_auto, llama-3.2-vision-90b, hymba-1.5b,
+    # xlstm-125m, whisper-small
 
-A model axis on the hybrid, xLSTM or encoder-decoder family, and
-``--ckpt-dir`` with either (their checkpoints would need resharding
-across meshes), exit with a message citing ROADMAP.md queue 1 item
-11.2.
+``--ckpt-dir`` with a model axis or fsdp_auto (the checkpoints would
+need resharding across meshes) exits with a message citing ROADMAP.md
+queue 1 item 11.2.
 
 Under torchrun every process trains its rank; rank 0 prints the log
 lines (the loss and grad norm are the global ones, folded in rank order:

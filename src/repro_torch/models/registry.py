@@ -81,11 +81,11 @@ def build(cfg: ModelConfig, remat: bool = True, ep_comm=None,
     config exchanges over ``ep_comm`` (the model axis's communicator;
     ``use_fused_kernel`` picks its alltoall backend, ``None`` = the
     ``permute_rows`` kernel when the buffer lies on a card).  With ``tp``
-    (a ``sharding.TensorParallel``) a dense, MoE (global or rowwise
-    dispatch) or VLM model runs tensor parallel: ``loss_ranks`` over
-    each rank's blocks, ``init`` drawing each leaf whole and giving every
-    local rank its blocks; any other family raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 11.2)."""
+    (a ``sharding.TensorParallel``) a model of any family (the MoE under
+    its global or rowwise dispatch) runs tensor parallel: ``loss_ranks``
+    over each rank's blocks, ``init`` drawing each leaf whole and giving
+    every local rank its blocks; the expert-parallel MoE raises
+    ``NotImplementedError`` (its own path)."""
     mod = family_module(cfg)
 
     def init(gen, device=None):

@@ -33,8 +33,10 @@ sum of the ranks' cotangents), a partial sum leaves through
 gradient is one copy's, not the sum of the model ranks' copies of the
 loss, and a replicated leaf (a norm gain) gets the same bits on every
 model rank.  The native calls (``all_reduce_sum``, ``reduce_scatter_sum``,
-``all_gather``) are the counterparts of GSPMD's collectives; they count
-in the model communicator's ``natives``.
+``all_gather``, and ``all_to_all`` where :func:`pieces` regroups a split
+concatenation, the Mamba heads' ``[x | z]``) are the counterparts of
+GSPMD's collectives; they count in the model communicator's
+``natives``.
 
 Why not DTensor / ``parallelize_module``, or FSDP2's ``fully_shard``?
 Both need one process group per rank, so they cannot run on a
@@ -146,6 +148,21 @@ class _Gather(torch.autograd.Function):
         return (None, None, *reduce_scatter_dim(ctx.comm, gs, ctx.dim))
 
 
+class _AllToAll(torch.autograd.Function):
+    """Forward the native all-to-all of every rank's ``(p, blk, ...)``
+    payload, backward the same all-to-all of the cotangents (row j went
+    to rank j, so its cotangent comes back from rank j)."""
+
+    @staticmethod
+    def forward(ctx, comm, *xs):
+        ctx.comm = comm
+        return tuple(comm.all_to_all(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *ctx.comm.all_to_all(list(gs)))
+
+
 class _GatherWhole(torch.autograd.Function):
     """Forward allgather along ``dim``, backward each rank's own block of
     the (replicated, whole) cotangent."""
@@ -237,6 +254,10 @@ class ModelAxis:
         if a.layout == letter:
             return a
         d = a.dim(letter)
+        if a.xs[0].shape[d] % self.p:
+            raise ValueError(f"dim {letter!r} of {a.dims!r} ("
+                             f"{a.xs[0].shape[d]}) does not divide the "
+                             f"model axis ({self.p})")
         if a.layout == PARTIAL:
             return Act(_Scatter.apply(self.comm, d, *a.xs), a.dims, letter)
         if a.layout is not None:
@@ -259,6 +280,44 @@ class ModelAxis:
         if a.layout in w.dims:
             return self.split(w, a.layout).xs
         return self.entering(w if w.layout is None else self.whole(w))
+
+
+def pieces(tp: ModelAxis, a: Act, letter: str, n: int, into: str) -> list:
+    """``a`` cut into ``n`` equal pieces along dim ``letter`` (the
+    reference's ``jnp.split``), each an ``Act`` with that dim renamed
+    ``into``.  Where ``a`` is split on ``letter``, rank r's block is a
+    run of the concatenation (at M = 2 with two pieces, rank 0 holds all
+    of the first and rank 1 all of the second), so one all-to-all
+    (:class:`_AllToAll`, backward its transpose) gives every rank its
+    own block of every piece: rank r's block is sub-blocks ``r·n ...
+    r·n + n - 1`` of the ``n·M`` equal runs, and sub-block k is block
+    ``k mod M`` of piece ``k // M``.  Each rank sends its ``n`` sub-blocks
+    to ``n`` distinct ranks and zeros to the others (``M - n`` rows of
+    its payload; none at M = n).  Any other layout, or pieces that do
+    not split evenly, is cut whole."""
+    d = a.dim(letter)
+    dims = a.dims.replace(letter, into)
+    p = tp.p
+    if a.layout == letter and p > 1 and (
+            n > p or a.whole(letter, p) % (n * p)):
+        a = tp.whole(a)
+    if a.layout != letter or p == 1:
+        if a.layout not in (None, letter):
+            a = tp.whole(a)
+        lay = into if a.layout == letter else None
+        cut = [x.chunk(n, d) for x in a.xs]
+        return [Act([c[j] for c in cut], dims, lay) for j in range(n)]
+    payloads = []
+    for x, r in zip(a.xs, tp.comm.ranks):
+        sub = x.movedim(d, 0).unflatten(0, (n, -1))
+        rows = [torch.zeros_like(sub[0])] * p
+        for j in range(n):
+            rows[(r * n + j) % p] = sub[j]
+        payloads.append(torch.stack(rows))
+    got = _AllToAll.apply(tp.comm, *payloads)
+    return [Act([g[(t * p + q) // n].movedim(0, d)
+                 for g, q in zip(got, tp.comm.ranks)], dims, into)
+            for t in range(n)]
 
 
 def spec_layout(spec, dims: str, model_axis: str):
@@ -313,10 +372,12 @@ def project(tp: ModelAxis, x: Act, w: Act, eq: str) -> Act:
 
 def act_btd(x: Act, tp: ModelAxis) -> Act:
     """(batch, seq, d_model): replicated over the model axis; split on
-    seq when sequence-parallel.  A row-parallel projection's partial sums
-    become one all-reduce (or, sequence-parallel, one reduce-scatter on
-    seq)."""
-    return tp.to(x, "t" if tp.recipe.sequence_parallel else None)
+    seq when sequence-parallel and the sequence divides the axis (GSPMD
+    pads an uneven one; the port keeps it whole: the same values).  A
+    row-parallel projection's partial sums become one all-reduce (or,
+    sequence-parallel, one reduce-scatter on seq)."""
+    return tp.to(x, "t" if tp.recipe.sequence_parallel
+                 and x.whole("t", tp.p) % tp.p == 0 else None)
 
 
 def act_bthd(x: Act, tp: ModelAxis) -> Act:
@@ -341,20 +402,33 @@ def act_btv(x: Act, tp: ModelAxis) -> Act:
 
 #: each leaf's per-layer dims (the letters of :func:`project`'s einsums)
 #: by qualified name (``parent.name``, as ``registry._rules`` reads it),
-#: else by name: the dense, MoE (``e`` the experts) and VLM families
+#: else by name: the dense, MoE (``e`` the experts) and VLM families; the
+#: Mamba heads (``x`` the in-projection's ``[x | z]`` columns, ``i`` the
+#: inner channels, ``n`` the state, ``c`` the conv taps, ``r`` the dt
+#: rank), mLSTM and sLSTM (``g`` the four gates, ``j`` the recurrent
+#: output dim) and the families' extra norms
 LEAF_DIMS = {"embed": "vd", "lm_head": "dv", "final_norm": "d",
              "norm1": "d", "norm2": "d", "wq": "dhk", "wk": "dhk",
              "wv": "dhk", "wo": "hkd", "bq": "hk", "bk": "hk", "bv": "hk",
              "q_norm": "k", "k_norm": "k", "w_gate": "df", "w_up": "df",
              "w_down": "fd", "moe.w_gate": "edf", "moe.w_up": "edf",
              "moe.w_down": "efd", "router": "de", "gate_attn": "",
-             "gate_ffn": ""}
+             "gate_ffn": "",
+             "w_in": "dx", "conv_w": "ci", "w_dt": "ir", "dt_bias": "i",
+             "w_B": "in", "w_C": "in", "A_log": "in", "D": "i",
+             "w_out": "id",
+             "wi": "dh", "wf": "dh", "wo_gate": "dhk", "f_bias": "h",
+             "i_bias": "h",
+             "w_x": "dghk", "r_h": "ghkj", "bias": "ghk",
+             "f_bias_extra": "hk",
+             "norm_attn_out": "d", "norm_ssm_out": "d", "norm": "d",
+             "enc_norm": "d", "norm_x": "d"}
 
 
 def leaf_dims(path) -> str | None:
     """The per-layer dims of the leaf at ``path`` (``None``: it has no
     tensor-parallel layout)."""
-    qual = ".".join(path[-2:])
+    qual = ".".join(map(str, path[-2:]))
     return LEAF_DIMS.get(qual, LEAF_DIMS.get(path[-1]))
 
 
@@ -399,9 +473,8 @@ def tp_layout(cfg, recipe: ShardingRecipe, shape) -> TPLayout:
         dims = leaf_dims(path)
         if dims is None:
             raise NotImplementedError(
-                f"{cfg.name}: leaf {'.'.join(path)} has no tensor-parallel "
-                f"layout (ROADMAP.md queue 1 item 11.2: the dense, MoE and "
-                f"VLM families only)")
+                f"{cfg.name}: leaf {'.'.join(map(str, path))} has no "
+                f"tensor-parallel layout (no entry in LEAF_DIMS)")
         lead = len(shp) - len(dims)
         entries = tuple(spec) + (None,) * (len(shp) - len(spec))
         dsplit = [i for i, e in enumerate(entries)

@@ -16,10 +16,14 @@ so no kernel is owed).
 
 Each mixer has a ``*_shapes`` (the reference's ``init_*`` leaves), a
 full-sequence ``*_forward`` that takes and returns its state, an O(1)
-``*_decode_step`` and an ``*_init_state``.  The states are the
-reference's NamedTuples with tensors in them.  The arithmetic follows
-the reference's expressions and order; the scan's association differs
-from XLA's, so results agree within a tolerance, not bitwise.
+``*_decode_step``, an ``*_init_state`` and a tensor-parallel
+``*_forward_tp`` over the local ranks of a mesh (``models/sharding.py``:
+each rank its own inner channels or heads, the projections that
+contract them partial sums; training only, from zero states).  The
+states are the reference's NamedTuples with tensors in them.  The
+arithmetic follows the reference's expressions and order; the scan's
+association differs from XLA's, so results agree within a tolerance,
+not bitwise.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from . import sharding as shd
 
 
 def _pick_chunk(s: int, chunk: int) -> int:
@@ -94,23 +100,31 @@ def mamba_forward(p, cfg, x, *, chunk: int = 256,
                   state: MambaState | None = None):
     """x: (B, S, d) -> (y (B, S, d), final MambaState).  The scan runs
     over chunks of :func:`_pick_chunk` (S, chunk) steps."""
-    b, s, d = x.shape
-    d_in = cfg.ssm_expand * d
-    n = cfg.ssm_state
-    f32 = torch.float32
     xz = x @ p["w_in"]
     xs, z = torch.chunk(xz, 2, dim=-1)
     conv_state = state.conv if state is not None else None
     xs, conv_tail = _causal_conv(xs, p["conv_w"], conv_state)
     xs = F.silu(xs)
-    dt = F.softplus(xs @ p["w_dt"] + p["dt_bias"])            # (B,S,d_in)
+    y, h = _mamba_scan(cfg, xs, z, xs @ p["w_dt"], xs @ p["w_B"],
+                       xs @ p["w_C"], p, chunk,
+                       state.h if state is not None else None)
+    return y @ p["w_out"], MambaState(h=h, conv=conv_tail)
+
+
+def _mamba_scan(cfg, xs, z, dt_in, Bm, Cm, p, chunk: int, h=None):
+    """The selective scan of the channels of ``xs`` (B, S, d_in'), gated
+    by ``z``: ``dt_in`` (B, S, 1) is ``xs @ w_dt``, ``Bm`` / ``Cm`` (B,
+    S, n) the state projections, ``p`` holds these channels' ``dt_bias``,
+    ``A_log`` and ``D``.  Returns ``(y (B, S, d_in'), final h)``."""
+    b, s, d_in = xs.shape
+    n = cfg.ssm_state
+    f32 = torch.float32
+    dt = F.softplus(dt_in + p["dt_bias"])                      # (B,S,d_in)
     A = -torch.exp(p["A_log"].to(f32))                         # (d_in, n)
-    Bm = xs @ p["w_B"]                                         # (B,S,n)
-    Cm = xs @ p["w_C"]                                         # (B,S,n)
     a = torch.exp(dt.to(f32)[..., None] * A)                   # (B,S,d_in,n)
     bterm = (dt * xs).to(f32)[..., None] * Bm[:, :, None, :].to(f32)
-    h = (state.h if state is not None
-         else torch.zeros((b, d_in, n), dtype=f32, device=x.device))
+    if h is None:
+        h = torch.zeros((b, d_in, n), dtype=f32, device=xs.device)
     ch = _pick_chunk(s, chunk)
     hs = []
     for a_c, b_c in zip(a.split(ch, dim=1), bterm.split(ch, dim=1)):
@@ -118,10 +132,56 @@ def mamba_forward(p, cfg, x, *, chunk: int = 256,
         hs.append(h_all)
     h_seq = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
     y = torch.einsum("bsdn,bsn->bsd", h_seq, Cm.to(f32))
-    y = (y + p["D"].to(f32) * xs.to(f32)).to(x.dtype)
-    y = y * F.silu(z)
-    out = y @ p["w_out"]
-    return out, MambaState(h=h, conv=conv_tail)
+    y = (y + p["D"].to(f32) * xs.to(f32)).to(xs.dtype)
+    return y * F.silu(z), h
+
+
+def _summed(tp, acts: list, local: bool) -> list:
+    """Each ``Act``'s per-rank tensors, whole: with ``local`` as they
+    enter rank-local computations (``ModelAxis.entering``; partial sums
+    of the same leading dims summed in one all-reduce of their
+    concatenation, its backward one all-reduce of the cotangents), else
+    for computations every rank repeats (``ModelAxis.whole``)."""
+    if not local:
+        return [tp.whole(a).xs for a in acts]
+    if len(acts) > 1 and all(a.layout == shd.PARTIAL for a in acts):
+        cat = shd.Act([torch.cat(xs, -1) for xs in zip(*(a.xs for a in acts))],
+                      acts[0].dims, shd.PARTIAL)
+        sizes = [a.xs[0].shape[-1] for a in acts]
+        parts = [x.split(sizes, -1) for x in tp.entering(cat)]
+        return [[p[j] for p in parts] for j in range(len(acts))]
+    return [tp.entering(a) for a in acts]
+
+
+def mamba_forward_tp(tp, p: dict, cfg, x, *, chunk: int = 256):
+    """:func:`mamba_forward` of every local rank of a tensor-parallel mesh
+    (``models/sharding.py``): ``p`` maps each leaf name to its per-rank
+    blocks (``Act`` s), ``x`` is the normed stream.  ``w_in``'s blocks are
+    runs of the concatenated ``[x | z]`` columns; :func:`sharding.pieces`
+    brings every rank its own channels of both halves, the channels
+    ``conv_w``, ``A_log``, ``D`` and ``dt_bias`` are split on.  The
+    projections contracting the split channels (``w_dt``, ``w_B``,
+    ``w_C``) are partial sums, summed in one all-reduce as they enter the
+    scan, which runs on each rank's channels; ``w_out``'s output is the
+    partial sums the caller's ``act_btd`` sums."""
+    xz = shd.project(tp, x, p["w_in"], "btd,dx->btx")
+    xs, z = shd.pieces(tp, xz, "x", 2, "i")
+    lay = "i" if "i" in (xs.layout, p["conv_w"].layout) else None
+    xs, z = tp.to(xs, lay), tp.to(z, lay)
+    conv = tp.like(p["conv_w"], xs)
+    xs = shd.Act([F.silu(_causal_conv(a, w)[0]) for a, w in zip(xs.xs, conv)],
+                 "bti", lay)
+    dt_in, Bm, Cm = _summed(tp, [
+        shd.project(tp, xs, p[k], eq) for k, eq in (
+            ("w_dt", "bti,ir->btr"), ("w_B", "bti,in->btn"),
+            ("w_C", "bti,in->btn"))], lay is not None)
+    leaves = [{k: w for k, w in zip(("dt_bias", "A_log", "D"), ws)}
+              for ws in zip(*(tp.like(p[k], xs)
+                              for k in ("dt_bias", "A_log", "D")))]
+    ys = [_mamba_scan(cfg, a, g, dt, bm, cm, lv, chunk)[0] for
+          a, g, dt, bm, cm, lv in zip(xs.xs, z.xs, dt_in, Bm, Cm, leaves)]
+    return shd.project(tp, shd.Act(ys, "bti", lay), p["w_out"],
+                       "bti,id->btd")
 
 
 def mamba_decode_step(p, cfg, x, state: MambaState):
@@ -195,28 +255,70 @@ def _mlstm_chunk(q, k, v, lf, li, C0, n0):
 def mlstm_forward(p, cfg, x, *, state: MLSTMState | None = None):
     """x: (B, S, d) -> (out (B, S, d), final MLSTMState), chunk by chunk
     of :func:`_pick_chunk` (S, ``cfg.mlstm_chunk``) steps."""
-    b, s, d = x.shape
-    h_, dh = cfg.n_heads, cfg.head_dim
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     lf = F.logsigmoid(x @ p["wf"] + p["f_bias"])         # (B,S,H) <= 0
     li = F.logsigmoid(x @ p["wi"] + p["i_bias"])         # sigmoid input gate
+    hseq, C, n = _mlstm_seq(cfg, q, k, v, lf, li, state)
+    og = torch.sigmoid(torch.einsum("bsd,dhk->bshk", x, p["wo_gate"]))
+    out = torch.einsum("bshk,hkd->bsd", (hseq * og).to(x.dtype), p["wo"])
+    return out, MLSTMState(C=C, n=n)
+
+
+def _mlstm_seq(cfg, q, k, v, lf, li, state=None):
+    """The chunkwise recurrence over the heads of ``q`` (B, S, H', dh):
+    ``(h (B, S, H', dh), C, n)``."""
+    b, s, h_, dh = q.shape
     ch = _pick_chunk(s, cfg.mlstm_chunk)
     f32 = torch.float32
     C = (state.C if state is not None
-         else torch.zeros((b, h_, dh, dh), dtype=f32, device=x.device))
+         else torch.zeros((b, h_, dh, dh), dtype=f32, device=q.device))
     n = (state.n if state is not None
-         else torch.zeros((b, h_, dh), dtype=f32, device=x.device))
+         else torch.zeros((b, h_, dh), dtype=f32, device=q.device))
     hs = []
     for qc, kc, vc, lfc, lic in zip(*(t.split(ch, dim=1)
                                       for t in (q, k, v, lf, li))):
         hout, C, n = _mlstm_chunk(qc, kc, vc, lfc, lic, C, n)
         hs.append(hout)
-    hseq = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
-    og = torch.sigmoid(torch.einsum("bsd,dhk->bshk", x, p["wo_gate"]))
-    out = torch.einsum("bshk,hkd->bsd", (hseq * og).to(x.dtype), p["wo"])
-    return out, MLSTMState(C=C, n=n)
+    return (torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]), C, n
+
+
+def _heads_tp(tp, acts: list) -> tuple:
+    """The mixer's per-head inputs on one layout: each rank its own heads
+    where the first is split on them, else every head on every rank."""
+    lay = "h" if acts[0].layout == "h" else None
+    return lay, [tp.to(a, lay) for a in acts]
+
+
+def _gate_tp(tp, pre, bias, fn):
+    """``fn(pre + bias)`` of every rank, ``bias`` (a leaf ``Act``) as
+    ``pre``'s layout needs it (a replicated leaf's slice of this rank's
+    heads enters through ``ModelAxis.copy``)."""
+    return [fn(a + b) for a, b in zip(pre.xs, tp.like(bias, pre))]
+
+
+def mlstm_forward_tp(tp, p: dict, cfg, x):
+    """:func:`mlstm_forward` of every local rank of a tensor-parallel
+    mesh (``p``: each leaf's per-rank ``Act``; ``x``: the normed stream).
+    Every rank projects and runs the recurrence of its own heads (``wq``,
+    ``wk``, ``wv``, ``wi``, ``wf``, ``wo_gate`` split on them; the
+    replicated ``f_bias`` / ``i_bias`` sliced); ``wo``'s output is the
+    partial sums the caller's ``act_btd`` sums."""
+    proj = [shd.project(tp, x, p[k], eq) for k, eq in (
+        ("wq", "btd,dhk->bthk"), ("wk", "btd,dhk->bthk"),
+        ("wv", "btd,dhk->bthk"), ("wf", "btd,dh->bth"),
+        ("wi", "btd,dh->bth"), ("wo_gate", "btd,dhk->bthk"))]
+    lay, (q, k, v, f_pre, i_pre, o_pre) = _heads_tp(tp, proj)
+    lf = _gate_tp(tp, f_pre, p["f_bias"], F.logsigmoid)
+    li = _gate_tp(tp, i_pre, p["i_bias"], F.logsigmoid)
+    outs = []
+    for r, xr in enumerate(x.xs):
+        hseq = _mlstm_seq(cfg, q.xs[r], k.xs[r], v.xs[r], lf[r], li[r])[0]
+        og = torch.sigmoid(o_pre.xs[r])
+        outs.append((hseq * og).to(xr.dtype))
+    return shd.project(tp, shd.Act(outs, "bthk", lay), p["wo"],
+                       "bthk,hkd->btd")
 
 
 def mlstm_decode_step(p, cfg, x, state: MLSTMState):
@@ -283,22 +385,58 @@ def slstm_forward(p, cfg, x, *, state: SLSTMState | None = None):
     once on the way in and out; ``unbind`` gives each step its input so
     the backward stacks the steps' gradients once)."""
     b = x.shape[0]
-    f32 = torch.float32
-    h_, dh = cfg.n_heads, cfg.head_dim
     x_proj = torch.einsum("bsd,dghk->bsghk", x, p["w_x"])  # (B,S,4,H,dh)
     st = (state if state is not None
           else slstm_init_state(cfg, b, device=x.device))
-    st = SLSTMState(*(t.transpose(0, 1) for t in st))      # (H, B, dh)
-    r_h = p["r_h"].to(f32).permute(1, 2, 0, 3).reshape(h_, dh, 4 * dh)
-    bias = p["bias"].to(f32).permute(1, 0, 2)[:, None]      # (H, 1, 4, dh)
-    f_extra = p["f_bias_extra"].to(f32)[:, None]            # (H, 1, dh)
-    hs = []
-    for x_t in x_proj.to(f32).permute(1, 3, 0, 2, 4).unbind(0):
-        st = slstm_step(r_h, bias, f_extra, x_t, st)
-        hs.append(st.h)
-    hseq = torch.stack(hs, dim=2).permute(1, 2, 0, 3)       # (B,S,H,dh)
+    hseq, st = _slstm_seq(*_slstm_heads_first(p), x_proj,
+                          SLSTMState(*(t.transpose(0, 1) for t in st)))
     out = torch.einsum("bshk,hkd->bsd", hseq.to(x.dtype), p["wo"])
     return out, SLSTMState(*(t.transpose(0, 1) for t in st))
+
+
+def _slstm_heads_first(p) -> tuple:
+    """``r_h``, ``bias`` and ``f_bias_extra`` of ``p`` (any number of
+    heads) in :func:`slstm_step`'s layout, float32."""
+    f32 = torch.float32
+    g, h_, dh = p["r_h"].shape[:3]
+    r_h = p["r_h"].to(f32).permute(1, 2, 0, 3).reshape(h_, dh, g * dh)
+    bias = p["bias"].to(f32).permute(1, 0, 2)[:, None]      # (H, 1, 4, dh)
+    return r_h, bias, p["f_bias_extra"].to(f32)[:, None]    # (H, 1, dh)
+
+
+def _slstm_seq(r_h, bias, f_extra, x_proj, st: SLSTMState):
+    """The recurrence over ``x_proj`` (B, S, 4, H, dh) from the heads-first
+    state ``st``: ``(h (B, S, H, dh) float32, final state)``."""
+    hs = []
+    for x_t in x_proj.to(torch.float32).permute(1, 3, 0, 2, 4).unbind(0):
+        st = slstm_step(r_h, bias, f_extra, x_t, st)
+        hs.append(st.h)
+    return torch.stack(hs, dim=2).permute(1, 2, 0, 3), st   # (B,S,H,dh)
+
+
+def slstm_forward_tp(tp, p: dict, cfg, x):
+    """:func:`slstm_forward` of every local rank of a tensor-parallel
+    mesh: each rank the recurrence of its own heads (``w_x`` and ``r_h``
+    split on them, the replicated ``bias`` / ``f_bias_extra`` sliced),
+    the local ranks' heads side by side in ONE step loop (the step is
+    per head, so the loop's host time is one rank's).  ``wo``'s output is
+    the partial sums the caller's ``act_btd`` sums."""
+    proj = shd.project(tp, x, p["w_x"], "btd,dghk->btghk")
+    lay, (proj,) = _heads_tp(tp, [proj])
+    leaves = [tp.like(p[k], proj) for k in ("r_h", "bias", "f_bias_extra")]
+    firsts = [_slstm_heads_first(dict(zip(("r_h", "bias", "f_bias_extra"),
+                                          ws))) for ws in zip(*leaves)]
+    nh = [r_h.shape[0] for r_h, _, _ in firsts]
+    b = x.xs[0].shape[0]
+    dh = cfg.head_dim
+    z = torch.zeros((sum(nh), b, dh), dtype=torch.float32,
+                    device=x.xs[0].device)
+    st = SLSTMState(c=z, n=z, m=torch.full_like(z, -1e30), h=z)
+    hseq, _ = _slstm_seq(*(torch.cat(t) for t in zip(*firsts)),
+                         torch.cat(proj.xs, 3), st)
+    outs = [h.to(xr.dtype) for h, xr in zip(hseq.split(nh, 2), x.xs)]
+    return shd.project(tp, shd.Act(outs, "bthk", lay), p["wo"],
+                       "bthk,hkd->btd")
 
 
 def slstm_decode_step(p, cfg, x, state: SLSTMState):

@@ -30,11 +30,13 @@ at one offset or at a per-row offset, writing its k/v (and Mamba state)
 into the cache in place.  Their expert-parallel forms
 (:func:`prefill_ep`, :func:`decode_step_ep`) run every local rank of a
 communicator on the same tokens, each layer's MoE exchange across them.
-The dense and MoE families' tensor-parallel form (:func:`loss_fn_tp`)
-runs every local rank of a ``D x M`` mesh together, each rank with its
-blocks of the leaves (``models/sharding.py``): attention and FFN through
-the reference's hooks (the MoE's global or rowwise dispatch with each
-rank's experts, ``dispatch.moe_ffn_global_tp``), the embedding a
+The dense, MoE and hybrid families' tensor-parallel form
+(:func:`loss_fn_tp`) runs every local rank of a ``D x M`` mesh
+together, each rank with its blocks of the leaves
+(``models/sharding.py``): attention and FFN through the reference's
+hooks (the MoE's global or rowwise dispatch with each rank's experts,
+``dispatch.moe_ffn_global_tp``; the hybrid's Mamba heads on each rank's
+inner channels, ``ssm.mamba_forward_tp``), the embedding a
 vocab-parallel lookup, the head vocab-sharded logits and the loss a
 vocab-parallel cross-entropy; under fsdp_auto each layer's leaves split
 over the data axis are gathered just before the layer runs (again in
@@ -118,8 +120,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
     fan-in of the per-layer shape).  With ``split(path, leaf)``, a list
     of per-rank blocks of a whole leaf, it returns one tree per rank:
     each leaf is drawn whole, as the unsharded model draws it from the
-    same generator, cut into its blocks and freed (the families of
-    :func:`check_tp`)."""
+    same generator, cut into its blocks and freed (not the
+    expert-parallel MoE: :func:`check_tp`)."""
     if split is None:
         return T.unflatten(_draws(cfg, gen, device))
     check_tp(cfg)
@@ -292,28 +294,18 @@ def loss_fn_ep(params: list, cfg: ModelConfig, batches: list, comm,
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism: the dense and MoE families over the local ranks of a
-# D x M mesh
+# Tensor parallelism: the dense, MoE and hybrid families over the local
+# ranks of a D x M mesh
 # ---------------------------------------------------------------------------
 
-#: the families a model axis (without ``moe_dispatch="ep"``) and
-#: fsdp_auto run
-TP_FAMILIES = ("dense", "moe", "vlm")
-
-
 def check_tp(cfg: ModelConfig) -> None:
-    """Refuse a config tensor parallelism does not run: a family outside
-    :data:`TP_FAMILIES`, or the expert-parallel MoE (its own path)."""
+    """Refuse a config tensor parallelism does not run: the
+    expert-parallel MoE (its own path; every family runs on a model
+    axis)."""
     if cfg.is_moe and cfg.moe_dispatch == "ep":
         raise NotImplementedError(
             f"{cfg.name}: moe_dispatch='ep' runs its own expert-parallel "
             f"path, not tensor parallelism or fsdp_auto")
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (a model axis without "
-            f"moe_dispatch='ep') and fsdp_auto run the families "
-            f"{TP_FAMILIES}; family {cfg.family!r} waits for ROADMAP.md "
-            f"queue 1 item 11.2")
 
 
 def _leaf_acts(tp: shd.TensorParallel, paths, lls, per_rank,
@@ -355,15 +347,15 @@ def _ffn_tp(ax, p: dict, h):
 
 
 def _dense_layer_tp(cfg: ModelConfig, tp: shd.TensorParallel, lp: dict, x,
-                    positions):
-    """One decoder layer of every rank on the stream ``x`` (an ``Act``)
+                    positions, i: int = 0, causal: bool = True):
+    """Decoder layer ``i`` of every rank on the stream ``x`` (an ``Act``)
     and the layer's leaves ``lp`` (``Act`` s): ``(x, per-rank aux losses
-    or None)``; the FFN is the MoE's for that family."""
+    or None)``; the FFN is the MoE's for that family, and the hybrid
+    family mixes Mamba heads into the attention (:func:`_mixer_tp`).
+    ``causal=False``: an encoder layer."""
     ax = tp.axis
     h = attn._norm_tp(ax, x, lp["norm1"], cfg.norm_eps)
-    a, _ = attn.self_attention_tp(ax, lp["attn"], cfg, h, positions,
-                                  window=cfg.sliding_window)
-    x = _add(x, shd.act_btd(a, ax))
+    x = _add(x, _mixer_tp(cfg, ax, lp, h, positions, i, causal))
     if cfg.is_moe:
         h = attn._norm_tp(ax, x, lp["norm2"], cfg.norm_eps)
         y, auxs = moe_ffn_tp(ax, lp["moe"], cfg, h,
@@ -375,10 +367,29 @@ def _dense_layer_tp(cfg: ModelConfig, tp: shd.TensorParallel, lp: dict, x,
     return x, None
 
 
+def _mixer_tp(cfg: ModelConfig, ax, lp: dict, h, positions, i: int = 0,
+              causal: bool = True):
+    """Layer ``i``'s self attention of the normed stream ``h``, laid out
+    as ``act_btd`` says; for the hybrid family the attention and the
+    Mamba heads on the same ``h``, each summed over the model axis, then
+    mixed 50/50 after their own norms (:func:`_hybrid_mix`)."""
+    a, _ = attn.self_attention_tp(ax, lp["attn"], cfg, h, positions,
+                                  causal=causal, window=_window(cfg, i))
+    a = shd.act_btd(a, ax)
+    if cfg.family != "hybrid":
+        return a
+    m = shd.act_btd(ssm.mamba_forward_tp(
+        ax, lp["mamba"], cfg, h, chunk=min(cfg.mlstm_chunk,
+                                           positions.shape[1])), ax)
+    na = attn._norm_tp(ax, a, lp["norm_attn_out"], cfg.norm_eps)
+    nm = attn._norm_tp(ax, m, lp["norm_ssm_out"], cfg.norm_eps)
+    return shd.Act([0.5 * (u + v) for u, v in zip(na.xs, nm.xs)], "btd",
+                   na.layout)
+
+
 def _tp_layer_forward(cfg: ModelConfig, tp: shd.TensorParallel, paths,
-                      lls,
-                      positions, nr: int, *args):
-    """One layer for all local ranks: ``args`` is the ranks' streams,
+                      lls, positions, nr: int, i: int, *args):
+    """Layer ``i`` for all local ranks: ``args`` is the ranks' streams,
     then each rank's layer leaves in ``paths`` order.  Returns the
     streams, then (MoE) the ranks' aux losses."""
     xs, leaves = args[:nr], args[nr:]
@@ -386,7 +397,7 @@ def _tp_layer_forward(cfg: ModelConfig, tp: shd.TensorParallel, paths,
     lp = _leaf_acts(tp, paths, lls,
                     [leaves[r * n:(r + 1) * n] for r in range(nr)], 1)
     x, auxs = _dense_layer_tp(cfg, tp, lp, shd.Act(xs, "btd", _stream(tp)),
-                              positions)
+                              positions, i)
     return (*x.xs, *(auxs or ()))
 
 
@@ -507,7 +518,7 @@ def loss_fn_tp(params: list, cfg: ModelConfig, batches: list,
     for i in range(cfg.n_layers):
         leaves = [leaf for _, per_layer in slices for leaf in per_layer[i]]
         out = run_layer(_tp_layer_forward, remat, cfg, tp, paths, lls,
-                        positions, nr, *x.xs, *leaves)
+                        positions, nr, i, *x.xs, *leaves)
         x = shd.Act(out[:nr], "btd", x.layout)
         if cfg.is_moe:
             auxs = [a + b for a, b in zip(auxs, out[nr:])]

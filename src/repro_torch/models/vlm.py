@@ -76,7 +76,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
              for path, shape in T.flatten(param_shapes(cfg)))
     if split is None:
         return T.unflatten(draws)
-    tfm.check_tp(cfg)
     return tfm.split_draws(draws, split)
 
 
@@ -206,7 +205,6 @@ def loss_fn_tp(params: list, cfg: ModelConfig, batches: list, tp,
     are shared by its model ranks.  With ``remat`` each group is one
     checkpoint around all ranks (the reference checkpoints
     ``group_body``)."""
-    tfm.check_tp(cfg)
     nr = len(params)
     top = tfm._top_tp(tp, params)
     x, positions = tfm._embed_stream_tp(cfg, tp, top, batches)

@@ -7,7 +7,9 @@ per-layer dicts (``{"norm", "mixer"}``), not stacked leaves: the tree
 flattens it by index, as JAX does.  The cache is a list of per-layer
 states (``MLSTMState`` / ``SLSTMState``), O(1) in the sequence length;
 :func:`decode_step` returns new states (the reference's).  The reference
-applies no remat to this family; neither does the port.
+applies no remat to this family; neither does the port.  The
+tensor-parallel form (:func:`loss_fn_tp`) runs every local rank of a ``D
+x M`` mesh together, each mixer on its rank's heads.
 """
 from __future__ import annotations
 
@@ -15,7 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import tree as T
+from . import attention as attn
+from . import sharding as shd
 from . import ssm
+from . import transformer as tfm
 from .config import ModelConfig
 from .layers import cross_entropy_loss, dtype_of, init_leaf, rmsnorm
 
@@ -38,13 +43,18 @@ def leaf_dtype(cfg: ModelConfig, path) -> torch.dtype:
     return dtype_of(cfg)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
+                split=None) -> dict | list:
     """Random parameters from ``gen``, each leaf by the reference's
-    initializer for its name (:func:`layers.init_leaf`)."""
+    initializer for its name (:func:`layers.init_leaf`).  With
+    ``split(path, leaf)``, one tree of blocks per rank
+    (``transformer.split_draws``)."""
     dtype = dtype_of(cfg)
-    return T.unflatten(
-        (path, init_leaf(gen, path[-1], shape, 0, dtype, device))
-        for path, shape in T.flatten(param_shapes(cfg)))
+    draws = ((path, init_leaf(gen, path[-1], shape, 0, dtype, device))
+             for path, shape in T.flatten(param_shapes(cfg)))
+    if split is None:
+        return T.unflatten(draws)
+    return tfm.split_draws(draws, split)
 
 
 def _forward(params, cfg, x, states=None):
@@ -79,6 +89,44 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             remat: bool = True) -> torch.Tensor:
     return cross_entropy_loss(forward_logits(params, cfg, batch["tokens"]),
                               batch["targets"], batch.get("mask"))
+
+
+def _layer_tp(cfg, tp, i: int, paths, lls, nr: int, *args):
+    """Layer ``i`` (mLSTM or sLSTM) for all local ranks: ``args`` is the
+    ranks' streams, then each rank's layer leaves in ``paths`` order."""
+    ax = tp.axis
+    xs, leaves = args[:nr], args[nr:]
+    n = len(paths)
+    lp = tfm._leaf_acts(tp, paths, lls,
+                        [leaves[r * n:(r + 1) * n] for r in range(nr)], 0)
+    x = shd.Act(xs, "btd", tfm._stream(tp))
+    h = attn._norm_tp(ax, x, lp["norm"], cfg.norm_eps)
+    mixer = ssm.mlstm_forward_tp if _is_mlstm(i) else ssm.slstm_forward_tp
+    return tuple(tfm._add(x, shd.act_btd(mixer(ax, lp["mixer"], cfg, h),
+                                         ax)).xs)
+
+
+def loss_fn_tp(params: list, cfg: ModelConfig, batches: list, tp,
+               remat: bool = True) -> list:
+    """Per-rank losses of the xLSTM over the local ranks of a
+    tensor-parallel mesh (``transformer.loss_fn_tp``'s contract): every
+    mixer runs its own heads on each rank (``ssm.mlstm_forward_tp``,
+    ``ssm.slstm_forward_tp``), its input gathered whole over the
+    sequence where the stream is split on it (sequence parallelism: the
+    reference's ``act_btd`` splits it only between layers).  ``remat`` is
+    unused: the reference applies none to this family, nor does
+    :func:`loss_fn`."""
+    nr = len(params)
+    top = tfm._top_tp(tp, params)
+    x, _ = tfm._embed_stream_tp(cfg, tp, top, batches)
+    for i in range(cfg.n_layers):
+        items = [T.flatten(p["layers"][i]) for p in params]
+        paths = [path for path, _ in items[0]]
+        lls = [T.get(tp.layout.leaves["layers"][i], path) for path in paths]
+        leaves = [leaf for it in items for _, leaf in it]
+        x = shd.Act(_layer_tp(cfg, tp, i, paths, lls, nr, *x.xs, *leaves),
+                    "btd", x.layout)
+    return tfm._loss_head_tp(cfg, tp, top, x, batches)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

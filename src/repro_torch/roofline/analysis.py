@@ -376,6 +376,10 @@ class _Recorder:
         self._note("native_rs", xs)
         return self._comm.reduce_scatter_sum(xs)
 
+    def all_to_all(self, xs):
+        self._note("all_to_all", xs)
+        return self._comm.all_to_all(xs)
+
     def fold_sum(self, xs):
         self._note("fold", xs)
         return self._comm.fold_sum(xs)
@@ -389,8 +393,10 @@ def model_calls(cfg, layout, *, batch: int, seq: int,
     pool's; ``"model"``: the hooks'), as ``(op, elements a rank, dtype)``
     lists: the family's ``loss_fn_tp`` run on a ``LocalMesh`` of
     ``layout.mesh``'s shape with ``meta`` tensors of every rank's blocks
-    and batch (``batch`` global rows of ``seq`` tokens, and the VLM's
-    image embeddings), then one backward of the ranks' losses."""
+    and batch (``batch`` global rows of ``seq`` tokens, the VLM's image
+    embeddings; the encoder-decoder's ``seq`` frames and
+    ``min(dec_len, seq)`` tokens, as ``data.for_model`` draws them), then
+    one backward of the ranks' losses."""
     from ..comm import LocalMesh
     from ..models import sharding as shd
     from ..models.layers import dtype_of
@@ -405,8 +411,12 @@ def model_calls(cfg, layout, *, batch: int, seq: int,
         ll.block, dtype=leaf_dtype(cfg, path), device=meta,
         requires_grad=True)) for path, ll in T.flatten(layout.leaves))
         for _ in range(d * m)]
-    tok = torch.empty((batch // d, seq), dtype=torch.long, device=meta)
+    n_tok = min(cfg.dec_len, seq) if cfg.family == "encdec" else seq
+    tok = torch.empty((batch // d, n_tok), dtype=torch.long, device=meta)
     one = {"tokens": tok, "targets": tok}
+    if cfg.family == "encdec":
+        one["frames"] = torch.empty((batch // d, seq, cfg.d_model),
+                                    dtype=torch.float32, device=meta)
     if cfg.family == "vlm":
         one["image_embeds"] = torch.empty(
             (batch // d, cfg.n_image_tokens, cfg.d_model),
@@ -468,6 +478,9 @@ def tp_counts(cfg, layout, *, mode: str, batch: int, seq: int, sync=None,
                 t.all_reduce(numel * size, name)
             elif op == "native_rs":
                 t.native("reduce-scatter", (t.p - 1) * numel * size / t.p,
+                         {name: numel * size})
+            elif op == "all_to_all":
+                t.native("all-to-all", (t.p - 1) * numel * size / t.p,
                          {name: numel * size})
             elif op == "allgather" and len(call) == 3:
                 t.native("all-gather", (t.p - 1) * numel * size,

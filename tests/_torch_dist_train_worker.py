@@ -9,7 +9,8 @@ Three worlds, one after the other (a rank past a world's size exits):
   ``DistMesh``; ``ARGV["tp"]``, qwen3-1.7b tensor parallel on a 2x2
   ``DistMesh`` (ZeRO-1 over data, TP over model); ``ARGV["tp_moe"]``,
   grok-1-314b fsdp_auto on it (the global dispatch's pool gathered over
-  the data axis); then ``moe_ffn_ep``
+  the data axis); ``ARGV["tp_hybrid"]``, hymba-1.5b tensor parallel on
+  it (the Mamba heads' all-to-all of ``[x | z]``); then ``moe_ffn_ep``
   over a ``DistComm`` of the 4 ranks,
   each rank the backward of its own loss
   (:func:`moe_loss_and_grads`), and the backward of ``all_reduce_sum``
@@ -64,7 +65,11 @@ ARGV = {"exact": qwen(),
         "tp_moe": ["--arch", "grok-1-314b", "--scale-down", "--device",
                    "cpu", "--mode", "fsdp_auto", "--mesh", "2x2", "--steps",
                    "3", "--seq-len", "16", "--global-batch", "4",
-                   "--log-every", "1"]}
+                   "--log-every", "1"],
+        "tp_hybrid": ["--arch", "hymba-1.5b", "--scale-down", "--device",
+                      "cpu", "--mode", "zero1", "--mesh", "2x2", "--steps",
+                      "3", "--seq-len", "16", "--global-batch", "4",
+                      "--log-every", "1"]}
 ZERO1_RUNS = ("exact", "int8", "bucket", "ring", "xla")
 
 
@@ -180,6 +185,7 @@ def main(rank: int, ports: str, tmp: str) -> None:
     train.main(ARGV["ep"], on_step=record(out, "ep"))
     train.main(ARGV["tp"], on_step=record(out, "tp"))
     train.main(ARGV["tp_moe"], on_step=record(out, "tp_moe"))
+    train.main(ARGV["tp_hybrid"], on_step=record(out, "tp_hybrid"))
     [(o, a, g)] = moe_loss_and_grads(DistComm(), [rank])
     out["moe/out"], out["moe/aux"] = o.numpy(), a.numpy()
     for k, v in g["p"].items():

@@ -1,14 +1,18 @@
-"""Shared by ``test_torch_tp.py``, ``test_torch_fsdp.py``,
-``test_torch_tp_moe.py`` and ``test_torch_tp_vlm.py``: the runs of
-``_torch_tp_ref.py`` on the port's side, the reference worker's spawn,
-and the holds both files make.
+"""Shared by ``test_torch_tp.py``, ``test_torch_fsdp.py`` and the
+families' ``test_torch_tp_*.py``: the runs of ``_torch_tp_ref.py`` on
+the port's side, the reference worker's spawn, and the holds the files
+make.
 
 Every run starts from the launcher's seed-0 parameters (scaled-down
-qwen3-1.7b, qwen1.5-110b for its QKV bias, phi-3.5-MoE, grok-1-314b and
-llama-3.2-vision-90b), carried to the reference
-with ``repro_torch.convert``, so the launcher's own CLI runs are held
-against the reference's runs too.
+qwen3-1.7b, qwen1.5-110b for its QKV bias, phi-3.5-MoE, grok-1-314b,
+llama-3.2-vision-90b, hymba-1.5b, xlstm-125m and whisper-small),
+carried to the reference with ``repro_torch.convert``, so the
+launcher's own CLI runs are held against the reference's runs too.  A
+run's ``model`` (``<arch>~<tag>``) overrides fields of the scaled-down
+config on both sides (:data:`MODELS`); the launcher has no flag for
+that, so :func:`session` builds it under :class:`configured`.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -24,6 +28,7 @@ from repro_torch.models import build, value_and_grad, value_and_grad_ranks
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS, SEQ, BATCH = 4, 16, 4
 MOE, GROK, VLM = "phi3.5-moe-42b-a6.6b", "grok-1-314b", "llama-3.2-vision-90b"
+HYBRID, XLSTM, ENCDEC = "hymba-1.5b", "xlstm-125m", "whisper-small"
 #: run -> the port's ``build_session`` kwargs (the runs of
 #: ``_torch_tp_ref.RUNS`` and two layouts held by their gradients only)
 RUNS = {
@@ -51,15 +56,64 @@ RUNS = {
     "vlm_zero1_1x4_sp": dict(arch=VLM, mode="zero1", dp=1, mp=4,
                              sequence_parallel=True),
     "vlm_fsdp_2x2": dict(arch=VLM, mode="fsdp_auto", dp=2, mp=2),
+    "hybrid_zero1_2x2": dict(arch=HYBRID, mode="zero1", dp=2, mp=2,
+                             model=HYBRID + "~relocated"),
+    "hybrid_zero1_1x4_sp": dict(arch=HYBRID, mode="zero1", dp=1, mp=4,
+                                sequence_parallel=True),
+    "hybrid_fsdp_2x2": dict(arch=HYBRID, mode="fsdp_auto", dp=2, mp=2),
+    "xlstm_zero1_2x2": dict(arch=XLSTM, mode="zero1", dp=2, mp=2),
+    "xlstm_fsdp_1x4_sp": dict(arch=XLSTM, mode="fsdp_auto", dp=1, mp=4,
+                              sequence_parallel=True),
+    "encdec_zero1_2x2": dict(arch=ENCDEC, mode="zero1", dp=2, mp=2,
+                             model=ENCDEC + "~v129"),
+    "encdec_fsdp_2x2": dict(arch=ENCDEC, mode="fsdp_auto", dp=2, mp=2),
+    "encdec_zero1_1x4_sp": dict(arch=ENCDEC, mode="zero1", dp=1, mp=4,
+                                sequence_parallel=True),
 }
+#: ``<arch>~<tag>`` -> the fields overridden in the scaled-down config
+#: (``_torch_tp_ref.MODELS`` holds those of its runs): hymba with heads,
+#: kv heads and vocab that divide neither 2 nor 4, as at full width (25,
+#: 5, 32001), so ``sanitize_spec`` relocates the attention, the
+#: embedding and the head onto d_model; whisper with such a vocab (51865
+#: at full width)
+MODELS = {HYBRID + "~relocated": dict(n_heads=5, n_kv_heads=5,
+                                      vocab_size=129),
+          ENCDEC + "~v129": dict(vocab_size=129)}
 
 
-def init_numpy(arch: str) -> dict:
-    """The launcher's seed-0 initial parameters of ``arch`` scaled down,
-    as the reference's numpy tree."""
-    sess = bootstrap.build_session(arch=arch, scale_down=True, device="cpu",
-                                   steps=1, seq_len=SEQ, global_batch=1,
-                                   init_state=False)
+class configured:
+    """Within the block, every session the launcher builds has ``model``'s
+    config: its arch's scale-down with :data:`MODELS`' fields."""
+
+    def __init__(self, model: str | None):
+        self.fields = MODELS.get(model or "", {})
+
+    def __enter__(self):
+        self.resolve = resolve = bootstrap.resolve_cfg
+        fields = self.fields
+
+        def cfg(*args, **kw):
+            return dataclasses.replace(resolve(*args, **kw), **fields)
+
+        if fields:
+            bootstrap.resolve_cfg = cfg
+
+    def __exit__(self, *exc):
+        bootstrap.resolve_cfg = self.resolve
+
+
+def model_of(run: str) -> str:
+    """The model key of ``run``: its arch, or ``<arch>~<tag>``."""
+    return RUNS[run].get("model", RUNS[run]["arch"])
+
+
+def init_numpy(model: str) -> dict:
+    """The launcher's seed-0 initial parameters of ``model`` (an arch, or
+    ``<arch>~<tag>``) scaled down, as the reference's numpy tree."""
+    with configured(model):
+        sess = bootstrap.build_session(
+            arch=model.split("~")[0], scale_down=True, device="cpu",
+            steps=1, seq_len=SEQ, global_batch=1, init_state=False)
     return params_to_numpy(sess.model.init(torch.Generator().manual_seed(0),
                                            torch.device("cpu")))
 
@@ -68,9 +122,9 @@ def reference(tmp, runs) -> dict:
     """Spawn ``_torch_tp_ref.py`` on the launcher's initial parameters for
     ``runs``; its npz as a dict."""
     inits = {}
-    for arch in sorted({RUNS[r]["arch"] for r in runs}):
-        for path, leaf in T.flatten(init_numpy(arch)):
-            inits[f"{arch}/" + "/".join(map(str, path))] = leaf
+    for model in sorted({model_of(r) for r in runs}):
+        for path, leaf in T.flatten(init_numpy(model)):
+            inits[f"{model}/" + "/".join(map(str, path))] = leaf
     np.savez(tmp / "in.npz", **inits)
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
@@ -85,15 +139,20 @@ def reference(tmp, runs) -> dict:
 
 
 def tree(z: dict, prefix: str) -> dict:
-    return T.unflatten((tuple(k[len(prefix):].split("/")), v)
+    """The leaves of ``z`` under ``prefix`` as a tree (the xLSTM's layer
+    indices as ``int``: a list, as the port holds it)."""
+    return T.unflatten((tuple(int(x) if x.isdigit() else x
+                              for x in k[len(prefix):].split("/")), v)
                        for k, v in z.items() if k.startswith(prefix))
 
 
 def session(run: str, steps: int = STEPS, **kw):
     """The port's session of ``run`` (no state yet)."""
-    return bootstrap.build_session(
-        scale_down=True, steps=steps, seq_len=SEQ, global_batch=BATCH,
-        device="cpu", init_state=False, **{**RUNS[run], **kw})
+    kw = {**RUNS[run], **kw}
+    with configured(kw.pop("model", None)):
+        return bootstrap.build_session(
+            scale_down=True, steps=steps, seq_len=SEQ, global_batch=BATCH,
+            device="cpu", init_state=False, **kw)
 
 
 def replicas_agree(sess) -> None:
@@ -158,8 +217,7 @@ def assert_run_matches(z: dict, run: str, atol: float = ATOL,
     ``loss_tol`` and grad norms within ``gnorm_tol`` (``None``: not
     held), the parameters after the last step (whole) within
     ``rtol=1e-5`` and ``atol``."""
-    arch = RUNS[run]["arch"]
-    sess, losses, gnorms = train(run, tree(z, f"{arch}/init/"))
+    sess, losses, gnorms = train(run, tree(z, f"{model_of(run)}/init/"))
     np.testing.assert_allclose(losses, z[f"{run}/losses"], rtol=0,
                                atol=loss_tol)
     if gnorm_tol is not None:
@@ -171,13 +229,14 @@ def assert_run_matches(z: dict, run: str, atol: float = ATOL,
         np.testing.assert_allclose(
             a.float().numpy(), T.get(want, path), rtol=1e-5,
             atol=max(atol, BK_ATOL) if path[-1] == "bk" else atol,
-            err_msg=".".join(path))
+            err_msg=".".join(map(str, path)))
 
 
-def assert_grads_match(run: str) -> None:
+def assert_grads_match(run: str, atol: dict | None = None) -> None:
     """One backward of the tensor-parallel model from the launcher's
     seed-0 parameters against the unsharded model's per data rank: every
-    rank's block of every leaf within ``rtol=1e-4`` / ``atol=1e-6`` (a
+    rank's block of every leaf within ``rtol=1e-4`` / ``atol=1e-6``
+    (``atol`` maps a leaf's name to its own) (a
     leaf split over the data axes: the blocks of the data ranks' summed
     gradients).  Where the data ranks pool their tokens (fsdp_auto's
     global MoE dispatch) no data rank's gradient is its batch's alone:
@@ -186,7 +245,7 @@ def assert_grads_match(run: str) -> None:
     divides by D), and a leaf not split over the data axes is held
     summed over them."""
     sess = session(run)
-    full = params_from_numpy(init_numpy(RUNS[run]["arch"]), sess.cfg)
+    full = params_from_numpy(init_numpy(model_of(run)), sess.cfg)
     params = bootstrap.shard_params(sess, full)
     batches = bootstrap.place_batch(sess, sess.pipe.batch_at(0))
     _, grads = value_and_grad_ranks(sess.model.loss_ranks)(params, batches)
@@ -226,5 +285,6 @@ def assert_grads_match(run: str) -> None:
             ll = T.get(sess.tp.layout.leaves, path)
             w = T.get(want[j] if ll.data is not None or pooled else wloc[j],
                       path)
-            torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-6,
-                                       msg=".".join(path))
+            torch.testing.assert_close(
+                x, w, rtol=1e-4, atol=(atol or {}).get(path[-1], 1e-6),
+                msg=".".join(map(str, path)))

@@ -1,6 +1,7 @@
 """Subprocess worker: the reference's tensor-parallel training for the
 port's parity tests (``test_torch_tp.py``, ``test_torch_fsdp.py``,
-``test_torch_tp_moe.py``, ``test_torch_tp_vlm.py``).
+``test_torch_tp_moe.py``, ``test_torch_tp_vlm.py``, and the hybrid's,
+the xLSTM's and the encoder-decoder's ``test_torch_tp_*.py``).
 
 The reference's own step builders, ``repro.train.steps.build("zero1" |
 "fsdp_auto", ...)`` with a ``ShardingRecipe``, run on a plain
@@ -12,7 +13,10 @@ batch by ``P("data")``.  Scaled-down qwen3-1.7b and qwen1.5-110b (its
 QKV bias; fsdp_auto trains it ``tp_fsdp``, as the reference's dry run
 does), phi-3.5-MoE (global and rowwise dispatch), grok-1-314b and
 llama-3.2-vision-90b (both ``tp_fsdp`` under fsdp_auto; the VLM's batch
-holds its image embeddings), seq 16, global batch 4, the launcher's
+holds its image embeddings), hymba-1.5b, xlstm-125m and whisper-small
+(``tp`` under fsdp_auto; whisper's batch holds its frames; a run's
+``<arch>~<tag>`` is the scaled-down config with :data:`MODELS`'
+fields), seq 16, global batch 4, the launcher's
 AdamW defaults, the
 circulant sync on the jnp backend, 4 steps from the initial parameters
 in ``<in.npz>`` (``<arch>/<path>``: the port's launcher's seed-0
@@ -73,7 +77,29 @@ RUNS = {
     "vlm_zero1_2x2": ("llama-3.2-vision-90b", "zero1", (2, 2), {}, {}),
     "vlm_fsdp_2x2": ("llama-3.2-vision-90b", "fsdp_auto", (2, 2),
                      dict(mode="tp_fsdp"), {}),
+    # the hybrid (``test_torch_tp_hybrid.py``): heads and vocab that do
+    # not divide the axis (``sanitize_spec`` relocates them onto
+    # d_model, as at full width), then sequence-parallel
+    "hybrid_zero1_2x2": ("hymba-1.5b~relocated", "zero1", (2, 2), {}, {}),
+    "hybrid_zero1_1x4_sp": ("hymba-1.5b", "zero1", (1, 4),
+                            dict(sequence_parallel=True), {}),
+    # the xLSTM (``test_torch_tp_xlstm.py``) and the encoder-decoder
+    # (``test_torch_tp_encdec.py``; whisper-small is not in
+    # ``FSDP_ARCHS``: fsdp_auto trains recipe mode ``tp``)
+    "xlstm_zero1_2x2": ("xlstm-125m", "zero1", (2, 2), {}, {}),
+    "encdec_fsdp_2x2": ("whisper-small", "fsdp_auto", (2, 2), {}, {}),
 }
+#: ``<arch>~<tag>``: the scaled-down config with these fields overridden
+#: (``_torch_tp_cases.MODELS``, the port's side, holds them too)
+MODELS = {"hymba-1.5b~relocated": dict(n_heads=5, n_kv_heads=5,
+                                       vocab_size=129)}
+
+
+def config(model, **kw):
+    """The scaled-down config of ``model`` (an arch, or ``<arch>~<tag>``
+    of :data:`MODELS`), with ``kw`` overridden too."""
+    return get_config(model.split("~")[0]).scaled_down(
+        **MODELS.get(model, {}), **kw)
 
 
 def _key(k):
@@ -87,7 +113,7 @@ def _flat(prefix, tree):
 
 
 def train(arch, mode, shape, recipe_kw, sync_kw, init, cfg_kw=None):
-    cfg = get_config(arch).scaled_down(**(cfg_kw or {}))
+    cfg = config(arch, **(cfg_kw or {}))
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape),
                 ("data", "model"))
     recipe = ShardingRecipe(data_axes=("data",), model_axis="model",
@@ -122,7 +148,7 @@ def train(arch, mode, shape, recipe_kw, sync_kw, init, cfg_kw=None):
 def _load(src, arch):
     """``<arch>/<path>`` of ``src`` as the reference's parameter tree,
     each leaf in the config's dtype."""
-    cfg = get_config(arch).scaled_down()
+    cfg = config(arch)
     like = jax.eval_shape(build(cfg).init, jax.random.PRNGKey(0))
     z = np.load(src)
     return jax.tree_util.tree_map_with_path(

@@ -126,9 +126,15 @@ def test_serve_width_that_differs_from_the_world_is_refused(torchrun_env,
 @pytest.mark.parametrize("argv", [
     ["--arch", "hymba-1.5b", "--mesh", "1x2"],
     ["--arch", "xlstm-125m", "--mesh", "2x1", "--mode", "fsdp_auto"]])
-def test_tensor_parallelism_and_fsdp_refused_citing_11_2(torchrun_env, argv):
+def test_tensor_parallelism_and_fsdp_refused_citing_11_2(torchrun_env, argv,
+                                                         tmp_path):
+    """Tensor parallelism and fsdp_auto train these families under
+    torchrun (``test_torch_dist_train.py``'s hymba 2x2 world); a
+    checkpoint directory with either is still refused, before the world
+    is joined."""
     with pytest.raises(SystemExit, match="item 11.2"):
-        train.main(TRAIN + argv)
+        train.main(TRAIN + argv + ["--ckpt-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 def test_elastic_drill_over_processes_refused_citing_11_2(torchrun_env):

@@ -29,7 +29,9 @@ in-process run of the same argv (virtual ranks of a ``LocalComm`` or a
   run.  The model axis sums with gloo's own all-reduce and
   reduce-scatter; with two ranks a sum has one order, so bitwise.  The
   same for grok-1-314b (MoE) in ``--mode fsdp_auto`` on 2x2, whose
-  global dispatch pools the data ranks' tokens over gloo.
+  global dispatch pools the data ranks' tokens over gloo, and for
+  hymba-1.5b (the hybrid) in zero1 on 2x2, whose Mamba heads exchange
+  their ``[x | z]`` columns with gloo's all-to-all.
 * ``moe_ffn_ep`` over a ``DistComm`` of 4 processes, each the backward
   of its own loss: outputs, aux losses and every rank's grads bitwise
   ``value_and_grad_ranks`` on a ``LocalComm(4)`` (one backward of the
@@ -129,7 +131,7 @@ def world(tmp_path_factory):
         stderr=subprocess.STDOUT, text=True) for r in range(4)]
     # the in-process runs of the same argv, meanwhile
     local = {}
-    for name in (*W.ZERO1_RUNS, "ep", "tp", "tp_moe"):
+    for name in (*W.ZERO1_RUNS, "ep", "tp", "tp_moe", "tp_hybrid"):
         train.main(W.ARGV[name], on_step=_record(local, name))
     local["moe"] = W.moe_loss_and_grads(LocalComm(4), range(4))
     local["ar"] = W.all_reduce_grad(LocalComm(4), range(4))
@@ -221,6 +223,18 @@ def test_tp_moe_over_processes_is_bitwise_in_process(world):
         assert outs[g]["tp_moe/loss"].tolist() == local["tp_moe/loss"]
         assert outs[g]["tp_moe/gnorm"].tolist() == local["tp_moe/gnorm"]
         _state_equal("tp_moe", local, outs[g], "tp_moe", g)
+
+
+def test_tp_hybrid_over_processes_is_bitwise_in_process(world):
+    """hymba-1.5b zero1 on a 2x2 ``DistMesh``: the Mamba heads' all-to-all
+    of ``[x | z]`` over gloo (exact moves), the partial sums' all-reduce
+    of two ranks (one order)."""
+    local, outs, _, _ = world
+    for g in range(4):
+        assert outs[g]["tp_hybrid/loss"].tolist() == local["tp_hybrid/loss"]
+        assert outs[g]["tp_hybrid/gnorm"].tolist() == \
+            local["tp_hybrid/gnorm"]
+        _state_equal("tp_hybrid", local, outs[g], "tp_hybrid", g)
 
 
 def test_ep_over_processes_matches_reference(world):

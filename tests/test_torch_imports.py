@@ -218,31 +218,39 @@ def test_train_cli_on_step_sees_each_step():
 
 @pytest.mark.parametrize("extra", [["--ckpt-every", "0"],
                                    ["--fail-at-step", "-1"],
-                                   ["--arch", "hymba-1.5b", "--mesh", "1x3"],
+                                   ["--arch", "hymba-1.5b", "--mesh", "1x3",
+                                    "--ckpt-dir", "{tmp}"],
                                    ["--arch", "xlstm-125m", "--mode",
-                                    "fsdp_auto"],
+                                    "fsdp_auto", "--ckpt-dir", "{tmp}"],
                                    ["--grad-sync", "ring", "--bucket-bytes",
                                     "1000"], ["--bucket-bytes", "0"]])
-def test_train_cli_refuses_unported_flags(extra):
-    """Unported features (tensor parallelism and fsdp_auto of a family
-    other than the dense one), the checkpoint flags' bounds (a positive
-    interval, a step >= 0) and the sync's own refusals (bucketing is
-    circulant only and takes a positive size) exit with a message."""
+def test_train_cli_refuses_unported_flags(extra, tmp_path):
+    """Unported features (a checkpoint directory with tensor parallelism
+    or fsdp_auto: resharding across meshes waits for ROADMAP item 11.2;
+    both train without one, ``test_train_cli_runs_tensor_parallel_and_
+    fsdp_auto``), the checkpoint flags' bounds (a positive interval, a
+    step >= 0) and the sync's own refusals (bucketing is circulant only
+    and takes a positive size) exit with a message."""
     from repro_torch.launch import train
+    extra = [str(tmp_path) if x == "{tmp}" else x for x in extra]
     with pytest.raises(SystemExit):
         train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
                     "--mesh", "3x1", "--steps", "1", "--seq-len", "8",
                     "--global-batch", "3", *extra])
+    assert not any(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "1x3"],
-                                   ["--mode", "fsdp_auto"]])
-def test_train_cli_runs_tensor_parallel_and_fsdp_auto(extra):
-    """``--mesh 1x3`` (tensor parallel over three virtual model ranks)
-    and ``--mode fsdp_auto`` (on the 3x1 mesh) train, on the losses of
-    the 3x1 zero1 run of the same flags."""
+@pytest.mark.parametrize("arch, extra", [
+    pytest.param("qwen3-1.7b", ["--mesh", "1x3"], id="extra0"),
+    pytest.param("qwen3-1.7b", ["--mode", "fsdp_auto"], id="extra1"),
+    pytest.param("hymba-1.5b", ["--mesh", "1x3"], id="hymba-mesh-1x3")])
+def test_train_cli_runs_tensor_parallel_and_fsdp_auto(arch, extra):
+    """``--mesh 1x3`` (tensor parallel over three virtual model ranks;
+    the scaled-down hymba's heads, channels and vocab divide no 3, so
+    every leaf replicates) and ``--mode fsdp_auto`` (on the 3x1 mesh)
+    train, on the losses of the 3x1 zero1 run of the same flags."""
     from repro_torch.launch import train
-    argv = ["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
+    argv = ["--arch", arch, "--scale-down", "--device", "cpu",
             "--mesh", "3x1", "--steps", "2", "--seq-len", "8",
             "--global-batch", "3"]
     want = train.main(argv).losses

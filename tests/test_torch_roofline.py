@@ -124,18 +124,24 @@ def test_analytic_card_cells_and_helpers_equal_reference():
                     getattr(ref_analytic, name)(ref, s), (arch, name, s)
 
 
-#: phase 15's cells (chip_smoke.py phase 13 rows 15a, 15d, 15e): arch,
-#: layers, the global batch, seq, and (n_chips, tp, dp_world)
+#: phase 15's and 16's cells (chip_smoke.py phase 13 rows 15a, 15d,
+#: 15e, 16a-16e): arch, layers, the global batch, seq, and (n_chips, tp,
+#: dp_world)
 CARD_TP = {"15a": ("phi3.5-moe-42b-a6.6b", 2, 2, 2048, (4, 2, 2)),
            "15d": ("grok-1-314b", 3, 2, 2048, (4, 2, 2)),
-           "15e": ("llama-3.2-vision-90b", 20, 2, 2048, (4, 2, 2))}
+           "15e": ("llama-3.2-vision-90b", 20, 2, 2048, (4, 2, 2)),
+           "16a": ("hymba-1.5b", 3, 2, 2048, (4, 2, 2)),
+           "16b": ("xlstm-125m", 12, 2, 64, (4, 2, 2)),
+           "16c": ("whisper-small", 12, 2, 1500, (4, 2, 2)),
+           "16d": ("hymba-1.5b", 16, 2, 2048, (4, 2, 2)),
+           "16e": ("whisper-small", 12, 2, 1500, (4, 2, 2))}
 
 
 @pytest.mark.parametrize("label", sorted(CARD_TP))
 def test_analytic_tp_card_cells_equal_reference(label):
-    """Phase 15's tensor-parallel cells at their cut depths: FLOPs and HBM
-    bytes a chip, and the roofline's terms, bound and ``mfu`` at a
-    measured time, the reference's (its constants the H100's)."""
+    """Phase 15's and 16's tensor-parallel cells at their depths: FLOPs
+    and HBM bytes a chip, and the roofline's terms, bound and ``mfu`` at
+    a measured time, the reference's (its constants the H100's)."""
     import dataclasses
     arch, layers, batch, seq, (n, tp, dp) = CARD_TP[label]
     ref = dataclasses.replace(get_config(arch), n_layers=layers)
@@ -149,8 +155,10 @@ def test_analytic_tp_card_cells_equal_reference(label):
         ref_analytic.cell_hbm_bytes_per_chip(ref, rcell)
     rl = analysis.analyze(port, cell, measured_s=1.0)
     assert rl.t_bound == max(rl.t_compute, rl.t_memory, rl.t_collective)
+    # the reference's dry run counts an encoder-decoder's decoder tokens
+    dec = min(port.dec_len, seq) if port.family == "encdec" else seq
     assert rl.mfu == analysis.model_flops(
-        port, batch * seq / n, True) / analysis.PEAK_FLOPS
+        port, batch * dec / n, True) / analysis.PEAK_FLOPS
 
 
 @pytest.fixture()
@@ -445,20 +453,19 @@ TP_FAMILY_STEPS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(TP_FAMILY_STEPS))
-def test_tp_counts_of_moe_and_vlm_equal_comm_counters(name):
-    """``tp_counts`` of the MoE (global, rowwise, pooled over the data
-    axis under fsdp_auto) and VLM steps equals ``comm.bytes``,
-    ``comm.exchanges`` and ``comm.natives`` of both axes over one step,
-    exactly: the model run on ``meta`` tensors makes the calls the step
-    makes."""
-    mode, kw = TP_FAMILY_STEPS[name]
+def _tp_counts_equal_comm_counters(mode: str, kw: dict, model=None):
+    """One step of a scaled-down tensor-parallel session (``model``: a
+    ``_torch_tp_cases.MODELS`` key whose config overrides apply):
+    ``tp_counts`` equals ``comm.bytes``, ``comm.exchanges`` and
+    ``comm.natives`` of both axes, exactly."""
+    import _torch_tp_cases as C
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        sess = bootstrap.build_session(scale_down=True, steps=2, seq_len=8,
-                                       global_batch=4, device="cpu",
-                                       mode=mode, **kw)
+        with C.configured(model):
+            sess = bootstrap.build_session(
+                scale_down=True, steps=2, seq_len=8, global_batch=4,
+                device="cpu", mode=mode, **kw)
         comms = {"data": sess.comm, "model": sess.tp.axis.comm}
         before = {a: (c.bytes, c.exchanges, c.natives)
                   for a, c in comms.items()}
@@ -471,8 +478,50 @@ def test_tp_counts_of_moe_and_vlm_equal_comm_counters(name):
                 (c.bytes, c.exchanges, c.natives), before[axis]))
             want = pc[axis]
             assert (want.bytes, want.exchanges, want.natives) == got, axis
+        return pc
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("name", sorted(TP_FAMILY_STEPS))
+def test_tp_counts_of_moe_and_vlm_equal_comm_counters(name):
+    """``tp_counts`` of the MoE (global, rowwise, pooled over the data
+    axis under fsdp_auto) and VLM steps equals ``comm.bytes``,
+    ``comm.exchanges`` and ``comm.natives`` of both axes over one step,
+    exactly: the model run on ``meta`` tensors makes the calls the step
+    makes."""
+    _tp_counts_equal_comm_counters(*TP_FAMILY_STEPS[name])
+
+
+#: the hybrid, xLSTM and encoder-decoder families' tensor-parallel steps
+#: (scaled down; ``model``: hymba with heads and vocab relocated onto
+#: d_model, whisper with such a vocab, ``_torch_tp_cases.MODELS``)
+TP_MORE_STEPS = {
+    "hybrid_zero1_2x2": ("zero1", dict(arch="hymba-1.5b", dp=2, mp=2),
+                         "hymba-1.5b~relocated"),
+    "hybrid_zero1_1x4_sp": ("zero1", dict(arch="hymba-1.5b", dp=1, mp=4,
+                                          sequence_parallel=True)),
+    "xlstm_zero1_2x2": ("zero1", dict(arch="xlstm-125m", dp=2, mp=2)),
+    "xlstm_fsdp_1x4_sp": ("fsdp_auto", dict(arch="xlstm-125m", dp=1, mp=4,
+                                            sequence_parallel=True)),
+    "encdec_zero1_2x2": ("zero1", dict(arch="whisper-small", dp=2, mp=2),
+                         "whisper-small~v129"),
+    "encdec_fsdp_1x4_sp": ("fsdp_auto", dict(arch="whisper-small", dp=1,
+                                             mp=4, sequence_parallel=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TP_MORE_STEPS))
+def test_tp_counts_of_hybrid_xlstm_encdec_equal_comm_counters(name):
+    """``tp_counts`` of the hybrid (the Mamba heads' all-to-all of ``[x |
+    z]`` and the one all-reduce of their ``dt`` / ``B`` / ``C`` partial
+    sums), xLSTM and encoder-decoder steps, relocated and
+    sequence-parallel layouts among them, equals ``comm.bytes``,
+    ``comm.exchanges`` and ``comm.natives`` of both axes over one step,
+    exactly."""
+    pc = _tp_counts_equal_comm_counters(*TP_MORE_STEPS[name])
+    if name.startswith("hybrid"):
+        assert pc["model"].stats.ops["all-to-all"] > 0
 
 
 def test_tp_counts_full_width_per_layer():
