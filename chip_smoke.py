@@ -2855,7 +2855,7 @@ def phase_elastic_drill(smi: str) -> dict:
     print(f"elastic drill: run_drill({DRILL}); {cfg.name} full width, "
           f"{cfg.n_layers} layers; reduced: depth 28 -> {cfg.n_layers} "
           f"(every width kept)")
-    (ROOT / "build").mkdir(exist_ok=True)
+    # the checkpoint: bf16 parameters, float32 moments (12 B a parameter)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
     free = shutil.disk_usage(ckpt_dir).free
     print(f"elastic drill: checkpoints in {ckpt_dir} ({free / 1e9:.1f} GB "
@@ -2952,6 +2952,26 @@ def free_cuda() -> None:
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+class phase_dir:
+    """A new directory under ``build/`` for a phase's checkpoints, made by
+    this run and removed with what it holds when the block ends,
+    whatever the outcome."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+
+    def __enter__(self) -> Path:
+        import tempfile
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.path = Path(tempfile.mkdtemp(prefix=self.prefix,
+                                          dir=ROOT / "build"))
+        return self.path
+
+    def __exit__(self, *exc):
+        import shutil
+        shutil.rmtree(self.path, ignore_errors=True)
 
 
 def check_none_launched(counts: dict, label: str) -> None:
@@ -3868,6 +3888,7 @@ def tp_main(argv, label: str, *, keep_whole: bool = False,
     (``profile``) one unprofiled and one profiled warm step of the same
     session, and (``keep_whole``, in process) the whole parameters."""
     import torch
+    from repro_torch import tree as T
     from repro_torch.launch import bootstrap
     from repro_torch.launch import train as trainer
     last_step = trainer._parser().parse_args(argv).steps - 1
@@ -3890,7 +3911,8 @@ def tp_main(argv, label: str, *, keep_whole: bool = False,
         rec["counts"] = read_counts()
         rec["peak"] = torch.cuda.max_memory_allocated()
         if keep_whole:
-            rec["whole"] = bootstrap.whole_params(sess, sess.params)
+            rec["whole"] = T.map_leaves(lambda x: x.to(sess.device),
+                                        bootstrap.params_whole(sess))
         if profile:
             warm = timed_step(lambda: bootstrap.run_step(sess, step + 1))
             rec["warm_ms"] = warm
@@ -5139,8 +5161,20 @@ def p12_checkpoint(spec, dev) -> dict:
     import torch.distributed as dist
     from repro_torch.ft import SimulatedFailure
     from repro_torch.launch import train as trainer
-    out = {"writes": [], "restores": []}
+    from repro_torch.launch import bootstrap
+    out = {"writes": [], "restores": [], "gathers": []}
     trainer.CheckpointManager = timed_manager(out["writes"], out["restores"])
+
+    def gather_timed(fn):  # a checkpoint's gather: every rank takes part
+        def run(sess):
+            t0 = time.perf_counter()
+            got = fn(sess)
+            out["gathers"].append((fn.__name__, time.perf_counter() - t0))
+            return got
+        return run
+
+    bootstrap.params_whole = gather_timed(bootstrap.params_whole)
+    bootstrap.opt_flat = gather_timed(bootstrap.opt_flat)
     a_dir, b_dir = P12_DIR / "ckpt_a", P12_DIR / "ckpt_b"
     ck = ["--ckpt-every", "2"]
     with cut_depth(P12G_LAYERS):
@@ -5294,11 +5328,437 @@ def phase_tp_on_cards(smi: str) -> dict:
                     for k in counters()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: checkpoints of tensor-parallel, fsdp_auto and expert-parallel
+# sessions in the reference's global layout, restored on other meshes; the
+# elastic drill on a model axis
+# ---------------------------------------------------------------------------
+
+#: (a): phase 14 (a)'s path on the int8 wire with EF, at global batch 4
+#: (every data world of (a)'s meshes divides it): 2 steps, a checkpoint,
+#: then the next step on each mesh of ``P17A_MESHES`` from it
+P17A_ARGV = argv_with(MAIN_ARGV, mesh="2x2", global_batch=4, steps=4,
+                      wire_dtype="int8")
+P17A_LAYERS = 2
+P17A_MESHES = ((2, 2), (4, 1), (1, 4))
+#: the relative gap a step resumed on another mesh may have from the 2x2
+#: run's loss (the data world changes the folds' order and, on the int8
+#: wire, the rounding; measured 3e-6 to 5e-6 on the H100, PERF.md §6)
+P17_LOSS_REL = 1e-4
+#: steps before the checkpoint
+P17_K = 2
+#: (b): qwen1.5-110b fsdp_auto ``tp_fsdp`` on 2x2 at phase 14 (b)'s depth,
+#: restored on 1x4
+P17B_LAYERS = 1
+#: (c): the elastic drill on a model axis: 2x2 -> 1x2 after a rank loss
+P17C_DRILL = dict(arch="qwen3-1.7b", scale_down=False, n_layers=1, steps=4,
+                  seq_len=2048, global_batch=2, world=2, mp=2,
+                  shrink_at_step=3, fail_rank=1, ckpt_every=2,
+                  device="cuda")
+#: (d), ``--cards 4``: phase 14 (a)'s path over NCCL, exact, at
+#: ``P17D_LAYERS``: checkpointed on 2x2 at step 2, resumed on 4x1
+P17D_ARGV = argv_with(MAIN_ARGV, mesh="2x2", global_batch=4, steps=4)
+P17D_LAYERS = 3
+#: (d)'s checkpoints (read by every rank and by this process)
+P17_DIR = ROOT / "build" / "phase17"
+
+
+def p17_session(arch: str, shape, *, init_state: bool, n_layers: int,
+                **kw):
+    """The launcher's session of ``arch`` at full width on a ``shape``
+    mesh, seq 2048, on the card."""
+    from repro_torch.launch import bootstrap
+    return bootstrap.build_session(
+        arch=arch, steps=kw.pop("steps", 4), seq_len=2048,
+        global_batch=kw.pop("global_batch", 4), dp=shape[0], mp=shape[1],
+        device="cuda", init_state=init_state, n_layers=n_layers, **kw)
+
+
+def p17_want(sess, steps: int) -> dict:
+    """The launches ``steps`` steps of ``sess`` make by its plans on the
+    int8 wire with EF: per local rank and zero leaf (at the shapes the
+    sync sees: a leaf synced whole at its whole shape) the EF's
+    ``quantize``, round 0's (``quantize_rows``, a ``quantize`` too) and
+    one ``fused_round_dq`` a round."""
+    from repro_torch import tree as T
+    from repro_torch.core import ceil_log2
+    from repro_torch.models import param_shapes
+    from repro_torch.optim.zero1 import tp_sync_layout, zero_flags
+    if sess.tp is not None:
+        _, shapes = tp_sync_layout(sess.tp.layout, sess.world, sess.sync)
+    else:
+        shapes = [s for _, s in T.flatten(param_shapes(sess.cfg))]
+    n = (sum(zero_flags(shapes, sess.world, sess.sync))
+         * len(sess.comm.ranks) * steps)
+    rounds = ceil_log2(sess.world)
+    want = {name: 0 for name in counters()}
+    want.update(quantize=n * (1 + (rounds > 0)),
+                quantize_rows=n * (rounds > 0), fused_round_dq=n * rounds)
+    return want
+
+
+def p17_whole_leaves(sess) -> None:
+    """Print the leaves the int8 wire syncs whole on ``sess``'s mesh
+    (``optim.zero1.wire_needs_whole``) and what that costs a step over
+    the model axis: each rank gathers the other model ranks' blocks of
+    the leaf's gradient and parameter."""
+    from repro_torch import tree as T
+    from repro_torch.models import leaf_dtype
+    from repro_torch.optim.zero1 import tp_sync_layout
+    dims, _ = tp_sync_layout(sess.tp.layout, sess.world, sess.sync)
+    m, ranks = sess.tp.axis.p, len(sess.comm.ranks)
+    names, total = [], 0
+    for (path, ll), d in zip(T.flatten(sess.tp.layout.leaves), dims):
+        if d is None:
+            continue
+        n = int(np.prod(ll.block)) * leaf_dtype(sess.cfg, path).itemsize
+        names.append(".".join(map(str, path)))
+        total += 2 * ranks * (m - 1) * n
+    print(f"phase 17 (a): the int8 wire syncs {names} whole (their blocks "
+          f"would round other groups or data blocks than the reference's "
+          f"global rows): {total} bytes a step over the model axis, all "
+          f"ranks (each gathers the other model ranks' blocks of the "
+          f"gradient and the parameter)")
+
+
+def p17_save(sess, directory, step: int) -> dict:
+    """``sess``'s checkpoint at ``step`` as the launcher writes it (the
+    whole leaves and the reference's global moments): its bytes and the
+    seconds to gather and write it."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import bootstrap
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    params = bootstrap.params_whole(sess)
+    opt = bootstrap.opt_flat(sess)
+    t1 = time.perf_counter()
+    mgr = CheckpointManager(str(directory), keep_last=1)
+    mgr.save(step, params, opt, {"data_cursor": step, "world": sess.world})
+    del params, opt
+    return {"mgr": mgr, "gather_s": t1 - t0,
+            "write_s": time.perf_counter() - t1,
+            "bytes": mgr.last_write["bytes"]}
+
+
+def p17_written_back(sess, z: dict, world: int) -> int:
+    """``sess``'s restored state written back (``params_whole``,
+    ``opt_flat``) against the checkpoint's arrays ``z`` (written at data
+    world ``world``), byte for byte: where a zero1 session's data world
+    differs, the file's moments and EF residuals put through
+    ``resize_zero1_state`` (the reference's resize), leaf by leaf.
+    Returns the arrays compared."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.manager import to_host
+    from repro_torch.launch import bootstrap
+    from repro_torch.models import param_shapes
+    from repro_torch.optim.zero1 import Zero1State, resize_zero1_state
+    got = {f"p_{i}": to_host(x)
+           for i, x in enumerate(T.leaves(bootstrap.params_whole(sess)))}
+    got.update({f"opt_{k}": v for k, v in bootstrap.opt_flat(sess).items()})
+    check(sorted(got) == sorted(z), f"written back: keys "
+          f"{sorted(set(got) ^ set(z))} differ")
+    shapes = [s for _, s in T.flatten(param_shapes(sess.cfg))]
+    n = len(shapes)
+    for key in sorted(got):
+        want = z[key]
+        i = int(key.split("_")[-1]) if key.startswith("opt_") else -1
+        if (sess.mode == "zero1" and sess.world != world and i >= 0
+                and i != 2 * n):
+            leaf = {"x": torch.empty(shapes[i % n if i < 2 * n else
+                                            i - 2 * n - 1], device="meta")}
+            st = (Zero1State(m={"x": want}, v={"x": want}, step=0)
+                  if i < 2 * n else
+                  Zero1State(m={"x": np.zeros(0)}, v={"x": np.zeros(0)},
+                             step=0, ef={"x": want}))
+            st = resize_zero1_state(st, leaf, sess.world, sess.sync)
+            want = np.asarray(st.m["x"] if i < 2 * n else st.ef["x"])
+        a = got.pop(key)
+        check(a.shape == want.shape and a.dtype == want.dtype
+              and np.array_equal(
+                  np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+                  np.ascontiguousarray(want).reshape(-1).view(np.uint8)),
+              f"written back: {key} {a.shape} {a.dtype} differs from the "
+              f"file's {want.shape} {want.dtype}")
+    return len(z)
+
+
+def p17_reshard(smi: str, d: Path) -> dict:
+    """17 (a): qwen3-1.7b 2x2 on the int8 wire with EF, checkpointed (in
+    ``d``) after 2 steps and restored on 2x2 (the next step bitwise the
+    uninterrupted run's), 4x1 and 1x4 (written back byte-equal; the next
+    step's loss within ``P17_LOSS_REL`` of 2x2's)."""
+    import torch
+    from repro_torch.launch import bootstrap
+    kw = dict(wire_dtype="int8", n_layers=P17A_LAYERS)
+    print(f"phase 17 (a): qwen3-1.7b full width, {P17A_LAYERS} of 28 "
+          f"layers, bf16, --mesh 2x2 --wire-dtype int8 (EF), global batch 4,"
+          f" seq 2048: {P17_K} steps, a checkpoint, then step {P17_K} on "
+          f"{', '.join(f'{a}x{b}' for a, b in P17A_MESHES)} from it, the "
+          f"checkpoint in {d}; reduced: depth 28 -> {P17A_LAYERS}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sess = p17_session("qwen3-1.7b", (2, 2), init_state=True, **kw)
+    for s in range(P17_K):
+        bootstrap.run_step(sess, s)
+    ck = p17_save(sess, d, P17_K)
+    loss = float(bootstrap.run_step(sess, P17_K)["loss"])
+    want_digest = digest(sess.params)
+    counts = read_counts()
+    want = p17_want(sess, P17_K + 1)
+    check(counts == want, f"17 (a): launches {counts}, the plans' {want}")
+    print(f"phase 17 (a): 2x2, {P17_K + 1} steps: launches {counts} (the "
+          f"plans'); the checkpoint {ck['bytes']} bytes, gathered in "
+          f"{ck['gather_s']:.2f} s, written in {ck['write_s']:.2f} s; step "
+          f"{P17_K} loss {loss}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    p17_whole_leaves(sess)
+    sess.params = sess.opt = None
+    free_cuda()
+    total = dict(counts)
+    file = None  # the file's arrays, read once for the written-back checks
+    for shape in P17A_MESHES:
+        mesh = f"{shape[0]}x{shape[1]}"
+        torch.cuda.reset_peak_memory_stats()
+        s2 = p17_session("qwen3-1.7b", shape, init_state=False, **kw)
+        t0 = time.perf_counter()
+        step, _ = bootstrap.restore_session(s2, ck["mgr"], step=P17_K)
+        restore_s = time.perf_counter() - t0
+        check(step == P17_K, f"17 (a) {mesh}: restored step {step}")
+        what = ""
+        if shape != (2, 2):
+            from repro_torch.checkpoint.manager import _load_npz
+            t0 = time.perf_counter()
+            if file is None:
+                file = _load_npz(str(d / f"step_{P17_K}" / "arrays.npz"))
+            n = p17_written_back(s2, file, 2)
+            what = (f"; written back: {n} arrays byte-equal to the file's"
+                    f"{' resized to D = ' + str(shape[0]) if shape[0] != 2 else ''}"
+                    f" ({time.perf_counter() - t0:.2f} s)")
+        zero_counts()
+        got = float(bootstrap.run_step(s2, P17_K)["loss"])
+        c = read_counts()
+        want = p17_want(s2, 1)
+        check(c == want, f"17 (a) {mesh}: launches {c}, the plans' {want}")
+        for k, v in c.items():
+            total[k] += v
+        check(math.isfinite(got), f"17 (a) {mesh}: loss {got}")
+        loss_held([got], [loss], f"17 (a) {mesh}", P17_LOSS_REL)
+        if shape == (2, 2):
+            check(got == loss and digest(s2.params) == want_digest,
+                  f"17 (a) 2x2: the resumed step (loss {got}) is not the "
+                  f"uninterrupted run's ({loss}) bitwise")
+            what = "; the step bitwise the uninterrupted run's (loss, every " \
+                   "rank's parameters)"
+        print(f"phase 17 (a) {mesh}: restored in {restore_s:.2f} s{what}; "
+              f"step {P17_K} loss {got} (2x2 uninterrupted: {loss}, "
+              f"held at {P17_LOSS_REL} relative); "
+              f"launches {c}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        s2.params = s2.opt = None
+        free_cuda()
+    del file
+    return total
+
+
+def p17_fsdp(smi: str, d: Path) -> dict:
+    """17 (b), on card 0 of ``--cards 4``: qwen1.5-110b fsdp_auto
+    ``tp_fsdp`` on 2x2 at full width, checkpointed (in ``d``) after a
+    step and restored on 1x4: the restored parameters, assembled again,
+    byte-equal to the file's, and the next step's loss within
+    ``P17_LOSS_REL`` of 2x2's.  Its 38.5 GB checkpoint takes about 2
+    minutes of disk I/O on the card machine (PERF.md §6), more than the
+    default run's time limit leaves (the moments' written-back bytes are
+    held in (a))."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.manager import to_host
+    from repro_torch.launch import bootstrap
+    kw = dict(mode="fsdp_auto", n_layers=P17B_LAYERS, global_batch=2,
+              steps=2)
+    print(f"phase 17 (b): qwen1.5-110b full width, {P17B_LAYERS} of 80 "
+          f"layers, fsdp_auto tp_fsdp on 2x2, global batch 2: a step, a "
+          f"checkpoint (in {d}), then step 1 on 2x2 and on 1x4 from it; "
+          f"reduced: depth 80 -> {P17B_LAYERS}")
+    zero_counts()
+    sess = p17_session("qwen1.5-110b", (2, 2), init_state=True, **kw)
+    bootstrap.run_step(sess, 0)
+    ck = p17_save(sess, d, 1)
+    loss = float(bootstrap.run_step(sess, 1)["loss"])
+    sess.params = sess.opt = None
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    s2 = p17_session("qwen1.5-110b", (1, 4), init_state=False, **kw)
+    t0 = time.perf_counter()
+    bootstrap.restore_session(s2, ck["mgr"], step=1)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaves = T.leaves(bootstrap.params_whole(s2))
+    with np.load(d / "step_1" / "arrays.npz") as z:
+        check(len(leaves) == sum(k.startswith("p_") for k in z.files),
+              f"17 (b): {len(leaves)} leaves against the file's")
+        for i, x in enumerate(leaves):
+            a, want = to_host(x), z[f"p_{i}"]
+            check(a.shape == want.shape and a.dtype == want.dtype
+                  and a.tobytes() == want.tobytes(), f"17 (b) 1x4: "
+                  f"parameter p_{i} {a.shape} {a.dtype} differs from the "
+                  f"file's {want.shape} {want.dtype}")
+    del leaves
+    back_s = time.perf_counter() - t0
+    got = float(bootstrap.run_step(s2, 1)["loss"])
+    counts = read_counts()
+    check(not any(counts.values()), f"17 (b): fsdp_auto launched {counts}")
+    check(math.isfinite(got), f"17 (b): loss {got}")
+    loss_held([got], [loss], "17 (b) 1x4", P17_LOSS_REL)
+    print(f"phase 17 (b): the checkpoint {ck['bytes']} bytes, gathered in "
+          f"{ck['gather_s']:.2f} s, written in {ck['write_s']:.2f} s; on "
+          f"1x4 restored in {restore_s:.2f} s, its parameters written back "
+          f"byte-equal to the file's ({back_s:.2f} s); step 1 loss {got} "
+          f"(2x2 uninterrupted: {loss}, held at {P17_LOSS_REL} relative); "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    s2.params = s2.opt = None
+    free_cuda()
+    return counts
+
+
+def p17_drill(smi: str, d: Path) -> dict:
+    """17 (c): the elastic drill on a model axis at full width: 2x2 ->
+    1x2 after rank 1's loss at step 3, resumed from the step-2 checkpoint
+    (in ``d``) bitwise the uninterrupted 1x2 run's from it."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import ceil_log2
+    from repro_torch.launch import bootstrap
+    from repro_torch.launch.elastic import run_drill
+    from repro_torch.optim.zero1 import zero_flags
+    kw = P17C_DRILL
+    print(f"phase 17 (c): run_drill({kw}): qwen3-1.7b full width, the "
+          f"checkpoints in {d}; reduced: depth 28 -> {kw['n_layers']}")
+    lay = bootstrap.build_session(
+        arch=kw["arch"], dp=kw["world"], mp=kw["mp"], n_layers=kw["n_layers"],
+        global_batch=kw["global_batch"], device="cuda",
+        init_state=False).tp.layout
+    n_zero = sum(zero_flags([ll.block for ll in T.leaves(lay.leaves)],
+                            kw["world"], bootstrap.GradSyncConfig()))
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_drill(ckpt_dir=str(d), compare_ref=True, **kw)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {name: 0 for name in counters()}
+    # steps 0-2 at 2x2 (4 ranks, one round); 1x2 has no data-axis round
+    want["fused_round"] = (kw["shrink_at_step"] * kw["world"] * kw["mp"]
+                           * n_zero * ceil_log2(kw["world"]))
+    check(counts == want, f"17 (c): launches {counts}, the plans' {want}")
+    check(res["bitwise"] and res["new_world"] == kw["world"] - 1,
+          f"17 (c): resumed {res['post']} vs the 1x2 run {res.get('ref')}")
+    check(all(math.isfinite(x) for _, x in res["pre"] + res["post"]),
+          "17 (c): non-finite loss")
+    ck = res["ckpt"]
+    print(f"phase 17 (c): pre {res['pre']}; resumed at step "
+          f"{res['resumed_step']} on 1x2: {res['post']}, bitwise the "
+          f"uninterrupted 1x2 run's from the checkpoint; its "
+          f"{ck['write']['bytes']} bytes written in {ck['write']['s']:.2f} s,"
+          f" restored in {[round(t, 2) for t in ck['restore_s']]} s; peaks "
+          + ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                      for k, v in res["peaks"].items())
+          + f"; launches {counts}; {wall:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_tp_checkpoints(smi: str) -> dict:
+    """Phase 17 (a) and (c) on one card ((b) runs under ``--cards 4``),
+    each with its checkpoints in a directory of its own."""
+    t0 = time.perf_counter()
+    with phase_dir("chip_smoke_p17a_") as d:
+        out = {"17a": p17_reshard(smi, d)}
+    with phase_dir("chip_smoke_p17c_") as d:
+        out["17c"] = p17_drill(smi, d)
+    print(f"phase 17 in {time.perf_counter() - t0:.1f} s ({smi})")
+    return out
+
+
+def p17_rank(spec, dev) -> dict:
+    """17 (d)'s rank: ``P17D_ARGV`` on a 2x2 ``DistMesh`` to its step-2
+    checkpoint (every leaf gathered over the data axis, then the model
+    axis, rank 0 writing), then resumed from it on 4x1."""
+    import torch
+    from repro_torch.ft import SimulatedFailure
+    from repro_torch.launch import train as trainer
+    d = str(P17_DIR / "d")
+    out = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    with cut_depth(P17D_LAYERS):
+        try:
+            trainer.main(P17D_ARGV + ["--ckpt-dir", d, "--ckpt-every", "2",
+                                      "--fail-at-step", "2"])
+            fail("17 (d): no failure injected at step 2")
+        except SimulatedFailure:
+            pass
+        out["save_counts"] = read_counts()
+        zero_counts()
+        t0 = time.perf_counter()
+        run = trainer.main(argv_with(P17D_ARGV, mesh="4x1") + [
+            "--ckpt-dir", d, "--ckpt-every", "100"])
+    out.update(resumed=run.losses, wall=time.perf_counter() - t0,
+               counts=read_counts(),
+               peak=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def phase_tp_checkpoints_on_cards(smi: str) -> dict:
+    """17 (d): a 2x2 checkpoint over NCCL resumed on 4x1 by the 4
+    processes, held bitwise against the same checkpoint resumed in
+    process (4 virtual ranks on card 0)."""
+    import shutil
+    from repro_torch.core import ceil_log2
+    from repro_torch.launch import train as trainer
+    t0 = time.perf_counter()
+    shutil.rmtree(P17_DIR / "d", ignore_errors=True)
+    print(f"phase 17 (d): {' '.join(P17D_ARGV)} at {P17D_LAYERS} layers on a "
+          f"2x2 DistMesh over NCCL, checkpointed at step 2, resumed on 4x1; "
+          f"reduced: depth 28 -> {P17D_LAYERS}")
+    res = torchrun(4, "17d", "17d")
+    n2 = tp_zero_leaves(P17D_ARGV, P17D_LAYERS)
+    n4 = tp_zero_leaves(argv_with(P17D_ARGV, mesh="4x1"), P17D_LAYERS)
+    for r, x in enumerate(res):
+        want = {name: 0 for name in counters()}
+        want["fused_round"] = 2 * n2 * ceil_log2(2)
+        check(x["save_counts"] == want, f"17 (d) rank {r}: launches to the "
+              f"checkpoint {x['save_counts']}, the plans' {want}")
+        want["fused_round"] = 2 * n4 * ceil_log2(4)
+        check(x["counts"] == want, f"17 (d) rank {r}: launches resumed "
+              f"{x['counts']}, the plans' {want}")
+        check(x["resumed"] == res[0]["resumed"], f"17 (d) rank {r}: losses "
+              f"{x['resumed']} vs rank 0's")
+    shutil.copytree(P17_DIR / "d", P17_DIR / "d_local")
+    with cut_depth(P17D_LAYERS):
+        local = trainer.main(argv_with(P17D_ARGV, mesh="4x1") + [
+            "--ckpt-dir", str(P17_DIR / "d_local"), "--ckpt-every", "100"])
+    check(local.losses == res[0]["resumed"], f"17 (d): resumed over NCCL "
+          f"{res[0]['resumed']} vs in process {local.losses}")
+    print(f"phase 17 (d): resumed on 4x1 over NCCL {res[0]['resumed']}, "
+          f"bitwise the in-process resume of the same checkpoint; "
+          f"resume {max(x['wall'] for x in res):.1f} s (the slowest rank, "
+          f"restore included); peak a card "
+          f"{[round(x['peak'] / 2**30, 2) for x in res]} GiB; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+    for sub in ("d", "d_local"):
+        shutil.rmtree(P17_DIR / sub, ignore_errors=True)
+    free_cuda()
+    return {"17d": {k: sum(x["save_counts"][k] + x["counts"][k] for x in res)
+                    for k in counters()}}
+
+
 P12_PHASES = {"a": p12_launcher_one_card, "b": p12_collectives,
               "c": p12_main_path, "d": p12_wire, "e": p12_ep,
               "f2": p12_serve_ep2, "f4": p12_serve_4, "g": p12_checkpoint,
               "14c": p14_tp_rank, "14d": p14_fsdp_rank,
-              "15big": p15_big_rank, "16big": p16_rank}
+              "15big": p15_big_rank, "16big": p16_rank, "17d": p17_rank}
 
 
 def phase_launcher_one_card(smi: str) -> dict:
@@ -5561,12 +6021,14 @@ def phase_checkpoint_on_cards(smi: str) -> None:
     check(g3[0]["resumed"] == ref.losses, f"(g) resumed at 3 ranks "
           f"{g3[0]['resumed']} vs the p' run {ref.losses}")
     w = g4[0]["writes"][0]
+    gather = {name: round(t, 3) for name, t in g4[0]["gathers"][:2]}
     print(f"(g) {' '.join(P12G_ARGV)} at {P12G_LAYERS} layers (reduced: "
           f"depth 28 -> {P12G_LAYERS}, global batch 4 -> 12 for p' = 3): "
           f"resumed at 4 ranks bitwise the uninterrupted run ({un}); the "
           f"step-2 checkpoint resumed by 3 ranks bitwise the in-process p' "
-          f"run ({ref.losses}); write {w['s']:.2f} s for {w['bytes']} bytes "
-          f"by rank 0; restores {[round(t, 2) for t in g4[0]['restores']]} "
+          f"run ({ref.losses}); the step-2 state gathered in {gather} s and "
+          f"written in {w['s']:.2f} s for {w['bytes']} bytes by rank 0; "
+          f"restores {[round(t, 2) for t in g4[0]['restores']]} "
           f"s at 4 ranks (rank 0), {[round(t, 2) for t in g3[0]['restores']]}"
           f" s at 3 ({smi})")
     for d in ("ckpt_a", "ckpt_b", "ckpt_c"):
@@ -5599,8 +6061,9 @@ def phase_multi_card(smi: str, parts: str = "bcdefg") -> dict:
 
 def cards_main() -> int:
     """``python3 chip_smoke.py --cards 4``: phase 1 for every card, then
-    phase 12 (b)-(g), phase 14 (c), (d), phase 15 (d), (e), phase 13, the
-    kernels line and the verdict."""
+    phase 12 (b)-(g), phase 14 (c), (d), phase 15 (d), (e), phase 16 (d),
+    (e), phase 17 (b) (on card 0) and (d), phase 13, the kernels line
+    and the verdict."""
     import torch
     check(torch.cuda.device_count() >= P12_CARDS,
           f"--cards {P12_CARDS} needs {P12_CARDS} cards, this machine shows "
@@ -5620,6 +6083,9 @@ def cards_main() -> int:
     by_path.update(phase_tp_on_cards(smi))
     by_path.update(phase_tp_families_on_cards(smi))
     by_path.update(phase_tp_more_families_on_cards(smi))
+    with phase_dir("chip_smoke_p17b_") as d:
+        by_path["17b"] = p17_fsdp(smi, d)
+    by_path.update(phase_tp_checkpoints_on_cards(smi))
     phase_roofline(smi, mesh="h100x4")
     names = {"fused_round": ("src/repro_torch/csrc/fused_round.cu",
                              "src/repro/kernels/fused_round.py:109"),
@@ -5700,12 +6166,14 @@ def main() -> int:
         tensor_parallel.update(timed("phase 15", phase_tp_families, smi))
         tensor_parallel.update(timed("phase 16", phase_tp_more_families, smi,
                                      counting))
+    tensor_parallel.update(timed("phase 17", phase_tp_checkpoints, smi))
     timed("phase 13", phase_roofline, smi)
     print(f"seconds by phase: {json.dumps(SECONDS)}")
     print("phase 12 (b)-(g), one rank per card over NCCL (the collectives "
           "on the links, the main path at p = 4, the int8 wire with EF at "
           "p = 3, ep training and serving, the fan-out, checkpoints across "
-          "processes), runs under python3 chip_smoke.py --cards 4")
+          "processes), and phase 17 (b) (qwen1.5-110b's 38.5 GB fsdp_auto "
+          "checkpoint) and (d), run under python3 chip_smoke.py --cards 4")
     by_path = {"4": counts, "5a": paths["a"][1], "5b": paths["b"][1],
                "6a": ep_a[1], "6b": ep_b[1], "7a": sweep, **syncs,
                "9b": rowwise, "9c": drill, "10": serving, "11": families,

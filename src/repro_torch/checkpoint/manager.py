@@ -67,9 +67,66 @@ def _save_npz(path: str, arrays: dict) -> None:
         for key, val in arrays.items():
             info = zipfile.ZipInfo(key + ".npy", date_time=(1980, 1, 1, 0, 0,
                                                             0))
+            arr = np.asarray(val, order="C")
+            if arr.dtype.hasobject:  # ``write_array(allow_pickle=False)``
+                raise ValueError(f"{key}: object arrays cannot be saved")
             with zf.open(info, "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, np.asanyarray(val),
-                                          allow_pickle=False)
+                # ``write_array``'s header, then the data in one write (it
+                # copies a zip member's data in 16 MiB chunks)
+                np.lib.format.write_array_header_1_0(
+                    f, np.lib.format.header_data_from_array_1_0(arr))
+                f.write(memoryview(arr.reshape(-1)).cast("B"))
+
+
+def _load_npz(path: str) -> dict:
+    """Every array of an ``arrays.npz``, by key.  A stored member (as
+    :func:`_save_npz` writes them) is read straight from its place in the
+    file into its array, with no staging copy (``np.load`` of a zip
+    member reads it in chunks and joins them: at full width most of a
+    restore's time), the members on a few threads (reads and CRC-32s
+    release the interpreter), and its CRC-32 checked as ``zipfile``
+    checks it.  A compressed member (neither this writer nor
+    ``np.savez`` makes one) is refused."""
+    import struct
+    import zipfile
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+    stored = []
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            key = info.filename[:-len(".npy")]
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise zipfile.BadZipFile(f"{key}: a compressed member")
+            f.seek(info.header_offset)
+            head = f.read(30)
+            if head[:4] != b"PK\x03\x04":
+                raise zipfile.BadZipFile(f"{key}: bad local header")
+            name_len, extra_len = struct.unpack("<HH", head[26:30])
+            start = info.header_offset + 30 + name_len + extra_len
+            f.seek(start)
+            version = np.lib.format.read_magic(f)
+            shape, fortran, dtype = (
+                np.lib.format.read_array_header_1_0(f) if version == (1, 0)
+                else np.lib.format.read_array_header_2_0(f))
+            header = f.tell() - start
+            f.seek(start)
+            stored.append((key, info, f.read(header), start + header, shape,
+                           fortran, dtype))
+
+    def read(item):
+        key, info, header, offset, shape, fortran, dtype = item
+        count = int(np.prod(shape))
+        with open(path, "rb") as f:
+            f.seek(offset)
+            arr = np.fromfile(f, dtype=dtype, count=count)
+        if arr.size != count or len(header) + arr.nbytes != info.file_size:
+            raise zipfile.BadZipFile(f"{key}: truncated member")
+        if zlib.crc32(arr.view(np.uint8), zlib.crc32(header)) != info.CRC:
+            raise zipfile.BadZipFile(f"{key}: bad CRC-32")
+        return key, arr.reshape(shape, order="F" if fortran else "C")
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return dict(ex.map(read, stored))
 
 
 class CheckpointError(RuntimeError):
@@ -261,14 +318,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def _read(self, step: int):
-        """Raw (manifest, npz) of one checkpoint dir; raises on any
-        corruption (truncated manifest, bad zip, missing keys)."""
+        """Raw (manifest, arrays by key) of one checkpoint dir; raises on
+        any corruption (truncated manifest, bad zip, a truncated or
+        corrupt member)."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        data = np.load(os.path.join(d, "arrays.npz"))
-        data.files  # force the zip directory read — surfaces truncation
-        return manifest, data
+        return manifest, _load_npz(os.path.join(d, "arrays.npz"))
 
     def restore(self, step: int | None, params_template, device=None):
         """Returns (step, params, opt_arrays dict, manifest): ``params``
@@ -329,7 +385,7 @@ class CheckpointManager:
             new_items.append((path, leaf))
             del arr
         params = T.unflatten(new_items)
-        opt = {k[len("opt_"):]: data[k] for k in data.files
+        opt = {k[len("opt_"):]: data[k] for k in data
                if k.startswith("opt_")}
         return step, params, opt, manifest
 

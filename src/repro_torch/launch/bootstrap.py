@@ -29,9 +29,15 @@ rank's blocks).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); asking for ``cuda`` where there is none raises.
-:func:`opt_flat` and :func:`restore_session` carry a session's state
-through a checkpoint (``repro_torch.checkpoint``) in the reference's
-global layout, across a change of world size.  :func:`build_serve_session`
+:func:`params_whole`, :func:`opt_flat` and :func:`restore_session`
+carry a session's state through a checkpoint (``repro_torch.checkpoint``)
+in the reference's global layout: the whole leaves, and the
+optimizer's arrays as the reference's ``np.asarray`` gives them
+(zero1's moments padded for the data world, its EF residuals one row a
+data rank; fsdp_auto's whole moments), whatever the ``D × M`` mesh and
+mode that wrote them, so a checkpoint restores on any mesh and mode the
+reference's ``restore_session`` restores it on (the data world resized,
+each rank's blocks cut).  :func:`build_serve_session`
 assembles the serving stack on the same config resolution instead: a
 :class:`repro_torch.serve.ReplicaSet` of engines (expert parallel over
 a ``LocalComm`` for a MoE arch with ``moe_dispatch="ep"``) with the
@@ -40,7 +46,7 @@ initial weights fanned out over the ``kind="broadcast"`` plan.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -56,8 +62,9 @@ from ..models import (ShardingRecipe, build, is_ep, leaf_dtype,
                       param_shapes)
 from ..models import sharding as shd
 from ..optim.adamw import AdamWConfig, TreeAdamState
-from ..optim.zero1 import (GradSyncConfig, Zero1State, resize_zero1_state,
-                           zero_flags)
+from ..optim.zero1 import (GradSyncConfig, Zero1State, is_zero_leaf,
+                           local_rows, padded_rows, resize_zero1_state,
+                           tp_sync_layout)
 from ..serve import ReplicaSet
 from ..train import build_fsdp_auto, build_single, build_zero1
 from . import mesh as meshlib
@@ -311,27 +318,12 @@ def build_serve_session(*, arch: str, max_len: int, scale_down: bool = False,
 
 def shard_params(sess: Session, params: dict) -> list:
     """Every local rank's blocks of a whole parameter tree (a
-    tensor-parallel session's layout), each a copy of its own."""
+    tensor-parallel session's layout), each a copy of its own: the
+    inverse of :func:`params_whole`."""
     per_leaf = [(path, sess.tp.blocks(path, x))
                 for path, x in T.flatten(params)]
     return [T.unflatten((path, b[j]) for path, b in per_leaf)
             for j in range(len(sess.comm.ranks))]
-
-
-def whole_params(sess: Session, trees: list) -> dict:
-    """The whole parameter tree from every local rank's blocks (the
-    in-process world, where every rank is local): the inverse of
-    :func:`shard_params`."""
-    lay = sess.tp.layout
-    out = []
-    for path, shape in T.flatten(param_shapes(sess.cfg)):
-        ll = T.get(lay.leaves, path)
-        full = T.get(trees[0], path).new_empty(shape)
-        for tree, c in zip(trees, sess.tp.coords()):
-            shd.leaf_block(full, ll, lay.mesh, c, copy=False).copy_(
-                T.get(tree, path))
-        out.append((path, full))
-    return T.unflatten(out)
 
 
 def place_batch(sess: Session, batch: dict):
@@ -364,127 +356,268 @@ def run_step(sess: Session, step: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Checkpoint form of a session's state
+# Checkpoint form of a session's state: the reference's global arrays
 # ---------------------------------------------------------------------------
 
-def _zero_flags(sess: Session, params: dict) -> list[bool]:
-    """Per leaf (flatten order): sharded at ``sess.world``?"""
-    return zero_flags([tuple(p.shape) for p in T.leaves(params)],
-                      sess.world, sess.sync)
+class _Leaf(NamedTuple):
+    """One leaf of a session's state as a checkpoint sees it: its
+    ``whole`` shape, the shape its zero1 sync sees on a rank (``sync``:
+    the rank's block, or the whole leaf), and its ``LeafLayout`` where
+    the ranks hold blocks of it (``ll``; ``None``: whole leaves)."""
+    path: tuple
+    whole: tuple
+    sync: tuple
+    ll: Any
+
+    @property
+    def state_blocked(self) -> bool:
+        """Are the rank's optimizer moments (and EF) of a block?"""
+        return self.ll is not None and self.sync != self.whole
 
 
-def _check_gatherable(sess: Session) -> None:
-    if sess.tp is not None:
-        raise NotImplementedError(
-            "checkpoints of a tensor-parallel or fsdp_auto session are not "
-            "supported: resharding them across meshes waits for ROADMAP.md "
-            "queue 1 item 11.2")
-    if sess.ep_comm is not None:
-        raise NotImplementedError(
-            "checkpoints of an expert-parallel session are not supported: "
-            "each model column keeps its own replica of the ZeRO-1 state")
+def _leaves(sess: Session) -> list[_Leaf]:
+    """Every leaf of ``sess``'s parameters, flatten order."""
+    shapes = T.flatten(param_shapes(sess.cfg))
+    if sess.tp is None:
+        return [_Leaf(path, tuple(s), tuple(s), None) for path, s in shapes]
+    lls = T.leaves(sess.tp.layout.leaves)
+    if sess.mode == "zero1":
+        _, sync = tp_sync_layout(sess.tp.layout, sess.world, sess.sync)
+    else:  # fsdp_auto: the moments are the parameters' blocks
+        sync = [ll.block for ll in lls]
+    return [_Leaf(path, tuple(s), tuple(y), ll)
+            for (path, s), y, ll in zip(shapes, sync, lls)]
 
 
-def _gather_rows(sess: Session, parts: list) -> np.ndarray | None:
-    """The ranks' shards stacked along dim 0, in one host array: the
-    local ranks' parts in the in-process world; in a process world every
-    rank's through the circulant allgather (each process takes part),
-    copied to the host by the lead process only (``None`` elsewhere)."""
-    if sess.proc is not None:
-        full = C.allgather(list(parts), sess.comm,
-                           spec=CollectiveSpec(schedule=sess.sync.schedule))
-        return to_host(full[0]) if sess.lead else None
-    host = torch.empty((sum(x.shape[0] for x in parts), *parts[0].shape[1:]),
-                       dtype=parts[0].dtype)
-    off = 0
-    for x in parts:
-        host[off:off + x.shape[0]].copy_(x)
-        off += x.shape[0]
-    return to_host(host)
+def _model_comm(sess: Session):
+    """The model axis's communicator (tensor or expert parallel), else
+    ``None``."""
+    return sess.tp.axis.comm if sess.tp is not None else sess.ep_comm
+
+
+def _coords(sess: Session) -> list[dict]:
+    """Every local rank's mesh coordinates, ``{"data": d, "model": m}``."""
+    mc = _model_comm(sess)
+    models = mc.ranks if mc is not None else [0] * len(sess.comm.ranks)
+    return [{"data": d, "model": m} for d, m in zip(sess.comm.ranks, models)]
+
+
+def _every_rank(sess: Session, xs: list, data: bool = True,
+                model: bool = True) -> list | None:
+    """The ranks' tensors, ``xs`` holding the local ranks' (one each), as
+    ``(coords, tensor)`` pairs in the mesh's data-major rank order, on
+    the session's device: the local ranks' in the in-process world.  In
+    a process world (each process takes part) the circulant allgather
+    brings them over the data axis where they differ along it
+    (``data``), then over the model axis (``model``); along an axis where
+    they agree the lead process keeps its own (data 0, model 0).  The
+    lead process gets the pairs, the others ``None``."""
+    if sess.proc is None:
+        return [(c, x.detach()) for c, x in zip(_coords(sess), xs)]
+    spec = CollectiveSpec(schedule=sess.sync.schedule)
+    got = xs[0].detach()[None]
+    d = m = 1
+    if data and sess.comm.p > 1:
+        d = sess.comm.p
+        got = C.allgather([got.contiguous()], sess.comm, spec=spec)[0]
+    mc = _model_comm(sess)
+    if model and mc is not None and mc.p > 1:
+        m = mc.p
+        got = C.allgather([got.contiguous()], mc, spec=spec)[0]  # model-major
+    if not sess.lead:
+        return None
+    return [({"data": i, "model": j}, got[j * d + i])
+            for i in range(d) for j in range(m)]
+
+
+def _whole(sess: Session, leaf: _Leaf, pairs: list,
+           blocked: bool) -> torch.Tensor:
+    """The whole leaf from its ranks' tensors (``pairs``): assembled from
+    the blocks (``blocked``), else the first rank's (model column 0: of
+    an expert-parallel session's replicas, the copy the reference's
+    ``np.asarray`` reads)."""
+    if not blocked:
+        return pairs[0][1]
+    out = pairs[0][1].new_empty(leaf.whole)
+    for c, x in pairs:
+        shd.leaf_block(out, leaf.ll, sess.tp.layout.mesh, c,
+                       copy=False).copy_(x)
+    return out
+
+
+def _unshard(sess: Session, leaf: _Leaf, pairs: list) -> list:
+    """A zero1 moment's ``sync``-shaped array of every model column, from
+    its ranks' shards (``pairs``): the data ranks' rows joined and the
+    padding dropped (a leaf kept whole over the data axis: data rank
+    0's)."""
+    zero = sess.sync.use_zero and is_zero_leaf(leaf.sync, sess.world,
+                                               sess.sync.min_shard_numel)
+    cols: dict = {}
+    for c, x in pairs:
+        cols.setdefault(c["model"], []).append(x)
+    return [({"data": 0, "model": mc},
+             torch.cat(xs)[:leaf.sync[0]] if zero else xs[0])
+            for mc, xs in sorted(cols.items())]
+
+
+def _global_rows(sess: Session, leaf: _Leaf, x: torch.Tensor) -> np.ndarray:
+    """A whole zero1 moment in the reference's global layout: a zero leaf
+    (at the whole shape) padded to ``(ld_pad, *rest)``."""
+    if sess.sync.use_zero and is_zero_leaf(leaf.whole, sess.world,
+                                           sess.sync.min_shard_numel):
+        pad = padded_rows(leaf.whole[0], sess.world) - leaf.whole[0]
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *leaf.whole[1:]))])
+    return to_host(x)
+
+
+def _split(leaf: _Leaf) -> tuple[bool, bool]:
+    """Do the ranks' blocks of a parameter leaf (and, in fsdp_auto, of its
+    moments) differ along the data axis, and along the model axis?"""
+    ll = leaf.ll
+    return (ll is not None and ll.data is not None,
+            ll is not None and ll.model_dim is not None)
+
+
+def params_whole(sess: Session) -> dict | None:
+    """The session's whole parameter tree on the host, as a checkpoint
+    stores it: assembled from the ranks' blocks with tensor parallelism
+    (on the device, a leaf at a time), else rank 0's (model column 0 of
+    an expert-parallel session).  In a process world every process must
+    call it (the blocks come through the allgathers); the lead process
+    gets the tree, the others ``None``."""
+    if sess.mode == "single":
+        return sess.params
+    out, ranks = [], [T.leaves(p) for p in sess.params]
+    for i, leaf in enumerate(_leaves(sess)):
+        pairs = _every_rank(sess, [r[i] for r in ranks], *_split(leaf))
+        if pairs is not None:
+            out.append((leaf.path, _whole(sess, leaf, pairs,
+                                          leaf.ll is not None).cpu()))
+    return T.unflatten(out) if sess.lead else None
 
 
 def opt_flat(sess: Session) -> dict | None:
     """Checkpoint form of the optimizer state: the reference's GLOBAL host
-    arrays keyed ``leaf_<i>`` in its flatten order: every ``m`` leaf,
-    every ``v`` leaf, ``step`` (int32), then in zero1 every EF residual
-    leaf.  In zero1 each zero leaf's ranks' ``m`` / ``v`` shards are
-    gathered into the ``(ld_pad, *rest)`` array the reference stores,
-    its EF residuals into ``(world, *leaf)`` (tiny leaves: rank 0's
-    replica and a ``(1, *leaf)`` dummy), so :func:`restore_session` can
-    restore it at any world size.  In a process world every process must
-    call it (the shards come through the allgather); the lead process
-    gets the arrays, the others ``None``."""
+    arrays keyed ``leaf_<i>`` in its flatten order (the same keys,
+    shapes, dtypes and bytes as the reference's ``np.asarray`` of each
+    leaf of the same state): every ``m`` leaf, every ``v`` leaf, ``step``
+    (int32), then in zero1 every EF residual leaf.
+
+    Whatever the ``D × M`` mesh and mode, each array is of the whole
+    leaf.  In zero1 a zero leaf (by the reference's rule at its WHOLE
+    shape and the data world ``D``) is stored ``(ld_pad, *rest)``, a
+    tiny one whole, its EF residuals ``(D, *leaf)`` (a tiny leaf's
+    ``(1, *leaf)`` dummy): the ranks' shards are joined over the data
+    axis (a rank's shard is of its block where tensor parallelism syncs
+    blocks: its rows and flags are the block's, so the block is gathered
+    whole and padded by the whole leaf's rule), and the blocks over the
+    model axis.  fsdp_auto stores each whole ``m`` and ``v``.  An
+    expert-parallel session's model columns each keep their own replica:
+    column 0's is stored, the copy the reference's ``np.asarray`` reads.
+    :func:`restore_session` restores it on any mesh.  In a process world
+    every process must call it (the shards come through the allgathers);
+    the lead process gets the arrays, the others ``None``."""
     if sess.mode == "single":
         o = sess.opt
         leaves = ([to_host(x) for x in T.leaves(o.m)]
                   + [to_host(x) for x in T.leaves(o.v)]
                   + [np.asarray(o.step, np.int32)])
         return {f"leaf_{i}": x for i, x in enumerate(leaves)}
-    _check_gatherable(sess)
     opts = sess.opt
-    flags = _zero_flags(sess, sess.params[0])
+    plan = _leaves(sess)
+    fsdp = sess.mode == "fsdp_auto"
 
-    def whole(x):  # a replicated leaf: the lead's copy
-        return to_host(x) if sess.lead else None
+    def zero(shape):  # are a zero1 leaf's moments sharded over data?
+        return sess.sync.use_zero and is_zero_leaf(
+            shape, sess.world, sess.sync.min_shard_numel)
 
-    def gather(trees):
-        per_rank = [T.leaves(t) for t in trees]
-        return [_gather_rows(sess, [r[i] for r in per_rank]) if flag
-                else whole(per_rank[0][i]) for i, flag in enumerate(flags)]
+    def moments(trees):
+        out, ranks = [], [T.leaves(t) for t in trees]
+        for i, leaf in enumerate(plan):
+            xs = [r[i] for r in ranks]
+            if fsdp:
+                pairs = _every_rank(sess, xs, *_split(leaf))
+                if pairs is not None:
+                    out.append(to_host(_whole(sess, leaf, pairs, True)))
+                continue
+            pairs = _every_rank(sess, xs, zero(leaf.sync),
+                                leaf.state_blocked)
+            if pairs is not None:
+                cols = _unshard(sess, leaf, pairs)
+                out.append(_global_rows(sess, leaf, _whole(
+                    sess, leaf, cols, leaf.state_blocked)))
+        return out
 
-    leaves = (gather([o.m for o in opts]) + gather([o.v for o in opts])
+    leaves = (moments([o.m for o in opts]) + moments([o.v for o in opts])
               + [np.asarray(opts[0].step, np.int32)])
-    if opts[0].ef is not None:
-        per_rank = [T.leaves(o.ef) for o in opts]
-        leaves += [_gather_rows(sess, [r[i][None] for r in per_rank]) if flag
-                   else whole(per_rank[0][i][None])
-                   for i, flag in enumerate(flags)]
+    if not fsdp and opts[0].ef is not None:
+        ranks = [T.leaves(o.ef) for o in opts]
+        for i, leaf in enumerate(plan):
+            n = sess.world if is_zero_leaf(
+                leaf.whole, sess.world, sess.sync.min_shard_numel) else 1
+            pairs = _every_rank(sess, [r[i] for r in ranks], n > 1,
+                                leaf.state_blocked)
+            if pairs is None:
+                continue
+            rows = []
+            for d in range(n):
+                mine = [(c, x) for c, x in pairs if c["data"] == d]
+                rows.append(_whole(sess, leaf, mine, leaf.state_blocked))
+            leaves.append(to_host(torch.stack(rows)))
     if not sess.lead:
         return None
     return {f"leaf_{i}": x for i, x in enumerate(leaves)}
 
 
-def _shard(arr: np.ndarray, rank: int, world: int, device) -> torch.Tensor:
-    """``rank``'s ``1/world`` rows of ``arr`` as a tensor on ``device``."""
-    rows = arr.shape[0] // world
-    part = np.ascontiguousarray(arr[rank * rows:(rank + 1) * rows])
-    return torch.from_numpy(part).to(device, copy=True)
+def _saved_kind(n: int, n_leaves: int) -> str:
+    return {2 * n_leaves + 1: "moments",
+            3 * n_leaves + 1: "moments and EF residuals"}.get(
+                n, f"{n} arrays")
 
 
 def restore_session(sess: Session, mgr, step: int | None = None
                     ) -> tuple[int, dict]:
-    """Restore ``mgr``'s checkpoint into ``sess``, resizing across
-    world-size changes; returns ``(resumed_step, manifest)``.
+    """Restore ``mgr``'s checkpoint into ``sess``; returns
+    ``(resumed_step, manifest)``.
 
-    The checkpoint's optimizer arrays are GLOBAL (gathered; see
-    :func:`opt_flat`), so a world mismatch is handled on the host:
-    rebuild the saved world's global :class:`Zero1State`, run
-    ``resize_zero1_state`` to ``sess.world``, then cut each rank's shard
-    and move it to the session's device.  In a process world every
-    process reads the checkpoint and cuts its own rank's shard.
-    ``sess.params`` may be ``None`` (a session built with
-    ``init_state=False``)."""
-    _check_gatherable(sess)
-    if sess.params is None:
-        template = T.unflatten(
-            (path, torch.empty(shape, dtype=leaf_dtype(sess.cfg, path),
-                               device="meta"))
-            for path, shape in T.flatten(param_shapes(sess.cfg)))
-    else:
-        template = sess.params[0] if sess.mode == "zero1" else sess.params
+    The checkpoint holds the reference's GLOBAL arrays (see
+    :func:`opt_flat`), whatever mesh and mode wrote it, so it restores on
+    any ``D′ × M′`` mesh and mode the reference's ``restore_session``
+    restores it on, to the same global state: in zero1 the state is
+    rebuilt at the saved data world and, where that differs from
+    ``D′``, put through ``resize_zero1_state``; then each local rank's
+    part is cut on the host (``sharding.leaf_block`` for its blocks;
+    in zero1 the data rank's rows of them, or of the whole leaf where
+    the sync sees it whole) and moved to the session's device.  In a
+    process world every process reads the checkpoint and cuts its own
+    rank's.  Refused, with a message, as the reference cannot restore
+    them: a checkpoint whose arrays do not match the session's sync (EF
+    residuals or not) and one whose arrays do not have the shapes the
+    session's mode takes (a zero1 state whose rows are padded for a
+    data world, restored whole in single or fsdp_auto mode, or on the
+    same world into zero1 leaves that need padding).  ``sess.params``
+    may be ``None`` (a session built with ``init_state=False``)."""
+    template = T.unflatten(
+        (path, torch.empty(shape, dtype=leaf_dtype(sess.cfg, path),
+                           device="meta"))
+        for path, shape in T.flatten(param_shapes(sess.cfg)))
     s, params, opt_arrs, man = mgr.restore(step, template,
-                                           device=sess.device)
+                                           device=torch.device("cpu"))
     del template
-    paths = [path for path, _ in T.flatten(params)]
-    n_leaves = len(paths)
+    plan = _leaves(sess)
+    n_leaves = len(plan)
     ef = sess.mode == "zero1" and sess.sync.uses_error_feedback
     n = sum(1 for k in opt_arrs if k.startswith("leaf_"))
     want = 2 * n_leaves + 1 + (n_leaves if ef else 0)
     if n != want:
         raise ValueError(
             f"checkpoint has {n} optimizer leaves, session expects {want} "
-            f"— sync/arch mismatch?")
+            f"— sync/arch mismatch? (it holds {_saved_kind(n, n_leaves)}, "
+            f"the session's {sess.mode} sync takes "
+            f"{_saved_kind(want, n_leaves)})")
     leaves = [opt_arrs.pop(f"leaf_{i}") for i in range(n)]
+    paths = [leaf.path for leaf in plan]
 
     def tree(lo):
         return T.unflatten(zip(paths, leaves[lo:lo + n_leaves]))
@@ -492,37 +625,95 @@ def restore_session(sess: Session, mgr, step: int | None = None
     m, v, st = tree(0), tree(n_leaves), int(leaves[2 * n_leaves])
     efs = tree(2 * n_leaves + 1) if ef else None
     del leaves
+    zero1 = sess.mode == "zero1"
+    if zero1 and int(man.get("world", sess.world)) != sess.world:
+        state = resize_zero1_state(Zero1State(m=m, v=v, step=st, ef=efs),
+                                   params, sess.world, sess.sync)
+        m, v, efs = state.m, state.v, state.ef
+        del state
+    flags = [zero1 and sess.sync.use_zero and is_zero_leaf(
+        leaf.whole, sess.world, sess.sync.min_shard_numel) for leaf in plan]
+    for leaf, flag in zip(plan, flags):
+        rows = padded_rows(leaf.whole[0], sess.world) if flag else None
+        want_mv = (rows, *leaf.whole[1:]) if flag else leaf.whole
+        for name, arr in (("m", T.get(m, leaf.path)),
+                          ("v", T.get(v, leaf.path))):
+            if tuple(arr.shape) != tuple(want_mv):
+                raise ValueError(
+                    f"checkpoint's {name} of {'.'.join(map(str, leaf.path))}"
+                    f" is {tuple(arr.shape)}, the session's {sess.mode} "
+                    f"state on data world {sess.world} takes "
+                    f"{tuple(want_mv)}: the reference cannot restore it "
+                    f"either (rows padded for a data world of "
+                    f"{man.get('world')}, restored whole?)")
+        if efs is not None:
+            want_ef = ((sess.world if flag else 1), *leaf.whole)
+            if tuple(T.get(efs, leaf.path).shape) != want_ef:
+                raise ValueError(
+                    f"checkpoint's EF residuals of "
+                    f"{'.'.join(map(str, leaf.path))} are "
+                    f"{tuple(T.get(efs, leaf.path).shape)}, the session "
+                    f"takes {want_ef}")
     dev = sess.device
 
-    def put(x):  # a copy: ranks never share a tensor
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, copy=True)
+    def on_dev(x):  # one host-to-device copy of a stored array
+        x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        return x.to(dev)
+
+    def own(x):  # a copy of its own: ranks never share a tensor
+        return x.clone(memory_format=torch.contiguous_format)
 
     if sess.mode == "single":
-        sess.params = params
-        sess.opt = TreeAdamState(m=T.map_leaves(put, m),
-                                 v=T.map_leaves(put, v), step=st)
+        sess.params = T.map_leaves(lambda x: own(on_dev(x)), params)
+        sess.opt = TreeAdamState(m=T.map_leaves(lambda x: own(on_dev(x)), m),
+                                 v=T.map_leaves(lambda x: own(on_dev(x)), v),
+                                 step=st)
         return s, man
-    state = Zero1State(m=m, v=v, step=st, ef=efs)
-    del m, v, efs
-    if int(man.get("world", sess.world)) != sess.world:
-        state = resize_zero1_state(state, params, sess.world, sess.sync)
-    flags = _zero_flags(sess, params)
-    world = sess.world
-    opts = []
-    for r in sess.comm.ranks:
-        def mv(tree):
-            return T.unflatten(
-                (path, _shard(x, r, world, dev) if flag else put(x))
-                for (path, x), flag in zip(T.flatten(tree), flags))
+    coords = _coords(sess)
 
-        ef_r = None
-        if state.ef is not None:
-            ef_r = T.unflatten(
-                (path, put(x[r] if flag else x[0]))
-                for (path, x), flag in zip(T.flatten(state.ef), flags))
-        opts.append(Zero1State(m=mv(state.m), v=mv(state.v), step=state.step,
-                               ef=ef_r))
-    sess.params = [params] + [T.map_leaves(torch.clone, params)
-                              for _ in sess.comm.ranks[1:]]
-    sess.opt = opts
+    def block(leaf, x, c, blocked):  # rank c's block of the whole x (a view)
+        return shd.leaf_block(x, leaf.ll, sess.tp.layout.mesh, c,
+                              copy=False) if blocked else x
+
+    def moment(leaf, x, c):  # rank c's part of a whole moment
+        if not zero1:  # fsdp_auto: the rank's block
+            return own(block(leaf, x, c, True))
+        x = block(leaf, x, c, leaf.state_blocked)
+        if sess.sync.use_zero and is_zero_leaf(leaf.sync, sess.world,
+                                               sess.sync.min_shard_numel):
+            x = local_rows(x, c["data"], sess.world)
+        return own(x)
+
+    # a leaf at a time: each stored array crosses to the device once and
+    # every local rank's part is cut there
+    parts = {k: [[] for _ in coords] for k in ("p", "m", "v", "ef")}
+    for leaf, flag in zip(plan, flags):
+        x = on_dev(T.get(params, leaf.path))
+        for j, c in enumerate(coords):
+            parts["p"][j].append((leaf.path, own(block(
+                leaf, x, c, leaf.ll is not None))))
+        for k, tree_ in (("m", m), ("v", v)):
+            x = on_dev(T.get(tree_, leaf.path))
+            x = x[:leaf.whole[0]] if flag else x
+            for j, c in enumerate(coords):
+                parts[k][j].append((leaf.path, moment(leaf, x, c)))
+        if efs is not None:
+            e = T.get(efs, leaf.path)
+            for d in sorted({c["data"] for c in coords}):
+                x = on_dev(e[d if flag else 0])
+                for j, c in enumerate(coords):
+                    if c["data"] == d:
+                        parts["ef"][j].append((leaf.path, own(block(
+                            leaf, x, c, leaf.state_blocked))))
+        del x
+    new_p = [T.unflatten(ps) for ps in parts["p"]]
+    if zero1:
+        new_o = [Zero1State(m=T.unflatten(mj), v=T.unflatten(vj), step=st,
+                            ef=T.unflatten(ej) if efs is not None else None)
+                 for mj, vj, ej in zip(parts["m"], parts["v"], parts["ef"])]
+    else:
+        new_o = [TreeAdamState(m=T.unflatten(mj), v=T.unflatten(vj), step=st)
+                 for mj, vj in zip(parts["m"], parts["v"])]
+    del parts
+    sess.params, sess.opt = new_p, new_o
     return s, man

@@ -11,7 +11,10 @@ state, resume.  Runs on the card unless asked for the CPU::
         --scale-down --device cpu --steps 9 --world 4 --shrink-at-step 5 \\
         --fail-rank 2 --seq-len 16 --global-batch 12 --ckpt-every 3
 
-The flags are the reference's plus ``--device``.  The circulant plans are
+The flags are the reference's plus ``--device``; ``--mp M`` runs each
+world as a ``D x M`` tensor-parallel mesh and resizes its data axis
+(2x2 -> 1x2 with ``--world 2 --mp 2 --shrink-at-step 5``).  The
+circulant plans are
 what make this cheap: they are round-optimal at ANY p (paper Theorem
 1/2), so 4 → 3 is as good a world as 4.
 
@@ -73,7 +76,8 @@ def _train_range(sess, start: int, stop: int, *, mgr=None, ckpt_every=None,
             watchdog.observe(step, dt + slow)
         out.append((step, loss))
         if mgr is not None and ckpt_every and (step + 1) % ckpt_every == 0:
-            mgr.save_async(step + 1, sess.params[0], bootstrap.opt_flat(sess),
+            mgr.save_async(step + 1, bootstrap.params_whole(sess),
+                           bootstrap.opt_flat(sess),
                            _ckpt_extra(sess, step + 1, arch))
     return out
 
@@ -120,20 +124,21 @@ def run_drill(*, arch: str = "qwen3-1.7b", scale_down: bool = True,
     world, the peak device memory (``peaks``, ``None`` on the CPU) and
     the checkpoint's write and restore timings (``ckpt``).  ``n_layers``
     cuts the config's depth (no CLI flag: for runs of a full-width config
-    on one card).  Under torchrun it refuses: over processes the loss of
-    a rank needs a new communicator of the survivors (ROADMAP.md queue 1
-    item 11.2)."""
+    on one card).  ``mp > 1`` runs each world as a ``D x mp`` mesh,
+    tensor parallel over its model axis (zero1 over the data axis, as
+    the reference's drill with ``--mp``): the event resizes the data
+    axis, and the checkpoint (the reference's global arrays) is
+    resharded onto the new mesh.  Under torchrun it refuses: over
+    processes the loss of a rank needs a new communicator of the
+    survivors (ROADMAP.md queue 1 item 11.2)."""
     if meshlib.is_process_world():
         raise NotImplementedError(
             "the elastic drill runs its worlds as virtual ranks in one "
             "process; over processes the loss of a rank needs a new "
             "communicator of the survivors, which is not ported (ROADMAP.md "
             "queue 1 item 11.2): run it without torchrun")
-    if mp != 1:
-        raise NotImplementedError(
-            f"mp={mp}: the drill reshards the data axis of a dp x 1 mesh "
-            f"(tensor parallelism is not ported, and expert-parallel state "
-            f"is not checkpointed)")
+    if mp < 1:
+        raise ValueError(f"mp must be positive, got {mp}")
     if (shrink_at_step is None) == (grow_at_step is None):
         raise ValueError("give exactly one of shrink_at_step/grow_at_step")
     event_step = shrink_at_step if shrink_at_step is not None \
@@ -157,8 +162,8 @@ def run_drill(*, arch: str = "qwen3-1.7b", scale_down: bool = True,
             arch=arch, scale_down=scale_down, steps=steps, seq_len=seq_len,
             global_batch=global_batch, world=world, event_step=event_step,
             shrink=shrink_at_step is not None, fail_rank=fail_rank,
-            new_world=new_world, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
-            keep_last=keep_last, schedule=schedule, wire_dtype=wire_dtype,
+            new_world=new_world, mp=mp, ckpt_every=ckpt_every,
+            ckpt_dir=ckpt_dir, keep_last=keep_last, schedule=schedule, wire_dtype=wire_dtype,
             lr=lr, warmup=warmup, io_faults=io_faults, io_retries=io_retries,
             io_backoff_s=io_backoff_s,
             recovery_deadline_s=recovery_deadline_s, slow_link=slow_link,
@@ -170,7 +175,7 @@ def run_drill(*, arch: str = "qwen3-1.7b", scale_down: bool = True,
 
 
 def _run_drill(*, arch, scale_down, steps, seq_len, global_batch, world,
-               event_step, shrink, fail_rank, new_world, ckpt_every,
+               event_step, shrink, fail_rank, new_world, mp, ckpt_every,
                ckpt_dir, keep_last, schedule, wire_dtype, lr, warmup,
                io_faults, io_retries, io_backoff_s, recovery_deadline_s,
                slow_link, compare_ref, device, verbose, n_layers) -> dict:
@@ -191,7 +196,7 @@ def _run_drill(*, arch, scale_down, steps, seq_len, global_batch, world,
     def session_at(w, init_state=True):
         return bootstrap.build_session(
             arch=arch, scale_down=scale_down, steps=steps, seq_len=seq_len,
-            global_batch=global_batch, dp=w, mode="zero1",
+            global_batch=global_batch, dp=w, mp=mp, mode="zero1",
             schedule=schedule, wire_dtype=wire_dtype, lr=lr, warmup=warmup,
             device=device, init_state=init_state, n_layers=n_layers)
 
@@ -238,8 +243,8 @@ def _run_drill(*, arch, scale_down, steps, seq_len, global_batch, world,
         if not shrink and sess.params is not None:
             # Grow is voluntary: every rank is alive, so the boundary
             # checkpoints synchronously — zero steps lost.
-            mgr.save(step, sess.params[0], bootstrap.opt_flat(sess),
-                     _ckpt_extra(sess, step, arch))
+            mgr.save(step, bootstrap.params_whole(sess),
+                     bootstrap.opt_flat(sess), _ckpt_extra(sess, step, arch))
         latest = mgr.latest_step()
         if latest is None:
             raise FileNotFoundError(f"no checkpoint to drain to in "
@@ -324,7 +329,9 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=12)
     ap.add_argument("--world", type=int, default=4,
                     help="starting data-parallel world size")
-    ap.add_argument("--mp", type=int, default=1, help="model-axis size")
+    ap.add_argument("--mp", type=int, default=1,
+                    help="model-axis size: the worlds are D x mp meshes, "
+                         "tensor parallel over the model axis")
     ap.add_argument("--shrink-at-step", type=int, default=None,
                     help="kill --fail-rank at this step; resume at world-1")
     ap.add_argument("--fail-rank", type=int, default=0)

@@ -65,9 +65,16 @@ rank's tokens, as the reference's global batch does)::
     # grok-1-314b --mode fsdp_auto, llama-3.2-vision-90b, hymba-1.5b,
     # xlstm-125m, whisper-small
 
-``--ckpt-dir`` with a model axis or fsdp_auto (the checkpoints would
-need resharding across meshes) exits with a message citing ROADMAP.md
-queue 1 item 11.2.
+A checkpoint holds the reference's global arrays whatever the mesh
+and mode (``bootstrap.opt_flat``), so a run resumes from one written
+on any ``--mesh DxM`` and mode the reference restores it on: a
+tensor-parallel, fsdp_auto or expert-parallel run's too, resharded
+(``bootstrap.restore_session``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --scale-down --device cpu --mesh 2x2 --steps 4 --seq-len 16 \
+        --global-batch 4 --ckpt-dir /tmp/ck --ckpt-every 2
+    # then resume the same run on four data ranks: --mesh 4x1, --steps 6
 
 Under torchrun every process trains its rank; rank 0 prints the log
 lines (the loss and grad norm are the global ones, folded in rank order:
@@ -161,12 +168,6 @@ def build(argv=None):
         raise SystemExit(f"--fail-at-step must be >= 0, got "
                          f"{args.fail_at_step}")
     d, m = (int(x) for x in args.mesh.split("x"))
-    if args.ckpt_dir and (args.mode == "fsdp_auto" or (
-            m > 1 and args.moe_dispatch != "ep")):
-        raise SystemExit(
-            "--ckpt-dir with tensor parallelism or fsdp_auto: resharding "
-            "checkpoints across meshes waits for ROADMAP.md queue 1 item "
-            "11.2")
     try:
         sess = bootstrap.build_session(
             arch=args.arch, scale_down=args.scale_down, steps=args.steps,
@@ -239,16 +240,17 @@ def _loop(args, sess, on_step, start, mgr, say) -> TrainRun:
         if on_step is not None:
             on_step(step, sess, metrics)
         if mgr and (step + 1) % args.ckpt_every == 0:
-            opt = bootstrap.opt_flat(sess)  # every rank: a collective
+            # every rank: collectives over the mesh
+            params = bootstrap.params_whole(sess)
+            opt = bootstrap.opt_flat(sess)
             if sess.lead:
                 mgr.save_async(
-                    step + 1, sess.params[0] if sess.mode == "zero1"
-                    else sess.params, opt,
+                    step + 1, params, opt,
                     {"data_cursor": step + 1,
                      "config": config_fingerprint(sess.cfg),
                      "mesh": args.mesh, "arch": args.arch,
                      "world": sess.world})
-            del opt
+            del params, opt
     if losses:
         say(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
     return TrainRun(losses=losses, step_seconds=times, sync_bytes=nbytes,

@@ -443,6 +443,14 @@ class LeafLayout(NamedTuple):
     data: int | None
     block: tuple
 
+    @property
+    def model_dim(self) -> int | None:
+        """The dim of the stored leaf split over the model axis (``None``:
+        replicated over it)."""
+        if self.model is None:
+            return None
+        return len(self.block) - len(self.dims) + self.dims.index(self.model)
+
 
 class TPLayout(NamedTuple):
     """A model's leaves on a ``(D, M)`` mesh: ``leaves`` a tree of

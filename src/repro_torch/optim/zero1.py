@@ -49,6 +49,7 @@ from ..core import collectives as C
 from ..core.spec import CollectiveSpec
 from ..kernels.ops import dequantize_blocks, quantize_blocks
 from ..kernels.quantize import DEFAULT_GROUP
+from ..models.sharding import all_gather_dim, local_block
 from . import adamw
 
 _IMPLS = ("circulant", "ring", "xla", "allreduce")
@@ -205,6 +206,59 @@ def zero_flags(shapes: Sequence[tuple], world: int,
     baseline shards none)?"""
     return [sync.use_zero and is_zero_leaf(s, world, sync.min_shard_numel)
             for s in shapes]
+
+
+def whole_shape(block: Sequence[int], dim: int | None, m: int) -> tuple:
+    """The shape of a leaf whose ``block`` is split ``m`` ways on ``dim``
+    over the model axis (``None``: replicated, the block is whole)."""
+    shape = tuple(block)
+    if dim is None:
+        return shape
+    return shape[:dim] + (shape[dim] * m,) + shape[dim + 1:]
+
+
+def wire_needs_whole(block: Sequence[int], dim: int | None, m: int,
+                     world: int, sync: GradSyncConfig) -> bool:
+    """Must the int8 wire sync this tensor-parallel leaf whole, on the
+    reference's rows, to quantize the reference's groups?  The reference
+    syncs the GSPMD-global leaf: its data blocks are rows of the whole
+    leaf and its quantization groups runs of ``quant_group`` elements of
+    a flattened block (the EF's of a row).  A rank's block (split ``m``
+    ways on ``dim``) sees the same blocks and groups only where the leaf
+    is sharded (or kept whole) alike at both shapes, its rows are whole
+    rows (``dim`` is not 0) and each row's run of the block is a whole
+    number of groups; otherwise the step gathers it over the model axis
+    first (:func:`zero1_step`'s ``whole_dims``).  The exact sync, the
+    bucketed one (whose buckets regroup the leaves in both packages) and
+    a replicated leaf keep the blocks."""
+    if (sync.wire != "int8" or sync.impl != "circulant" or dim is None
+            or sync.bucket_bytes is not None):
+        return False
+    shape = whole_shape(block, dim, m)
+    zero = is_zero_leaf(shape, world, sync.min_shard_numel)
+    if zero != is_zero_leaf(tuple(block), world, sync.min_shard_numel):
+        return True
+    if not zero:
+        return False  # tiny at both shapes: folded exactly
+    run = int(np.prod(block[dim:]))
+    return dim == 0 or run % sync.quant_group != 0
+
+
+def tp_sync_layout(layout, world: int, sync: GradSyncConfig
+                   ) -> tuple[list, list]:
+    """A tensor-parallel zero1 step's sync layout over ``world`` data
+    ranks (``layout``: the ``sharding.TPLayout``), per leaf in flatten
+    order: the model-axis dim of each leaf the step syncs whole
+    (:func:`wire_needs_whole`; ``None`` for the others, synced
+    as blocks) and the shape the sync sees (whole, or the block)."""
+    m = layout.mesh.axis_sizes[-1]
+    dims, shapes = [], []
+    for ll in T.leaves(layout.leaves):
+        whole = wire_needs_whole(ll.block, ll.model_dim, m, world, sync)
+        dims.append(ll.model_dim if whole else None)
+        shapes.append(whole_shape(ll.block, ll.model_dim, m) if whole
+                      else tuple(ll.block))
+    return dims, shapes
 
 
 def _pad_lead(x: torch.Tensor, world: int, dtype: torch.dtype) -> torch.Tensor:
@@ -565,7 +619,8 @@ def _bucketed_allgather(shards: list, zero_idx: list, items: list, comm,
 def zero1_step(loss_and_grad: Callable, params: list, opt: list,
                batches: list, *, comm, opt_cfg: adamw.AdamWConfig,
                sync: GradSyncConfig, model_comm=None,
-               model_split: Sequence[bool] | None = None):
+               model_split: Sequence[bool] | None = None,
+               whole_dims: Sequence[int | None] | None = None):
     """One ZeRO-1 training step over the local ranks.
 
     ``params`` / ``opt`` / ``batches`` are per-local-rank lists (parameter
@@ -588,7 +643,14 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     AdamW is elementwise, so the numbers are those of the global split.
     The grad norm is the global one: the split leaves' squares summed
     over the model axis too, the replicated ones (the same bits on every
-    model rank) counted once.
+    model rank) counted once.  A leaf with a model-axis dim in
+    ``whole_dims`` (:func:`wire_needs_whole`: the int8 wire, where the
+    blocks would round other groups than the reference's) is synced
+    whole instead: its gradient and parameter gathered over the model
+    axis, its EF, reduce-scatter, AdamW and allgather those of the
+    unsharded step on the whole leaf (every model rank of a data rank
+    the same bits, and the state of the whole leaf's rows), and the
+    rank's block kept.
     """
     world = comm.p
     losses, trees = loss_and_grad(params, batches)
@@ -597,7 +659,12 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     # paths, shapes and dtypes only: the old leaves must not outlive their
     # update
     flat = T.flatten(params[0])
-    items = [(path, tuple(p.shape)) for path, p in flat]
+    whole_dims = whole_dims or [None] * len(flat)
+    # each leaf's shape as the sync sees it: a leaf synced whole has its
+    # whole shape
+    items = [(path, whole_shape(p.shape, d, model_comm.p if d is not None
+                                else 1))
+             for (path, p), d in zip(flat, whole_dims)]
     dtypes = [p.dtype for _, p in flat]
     del flat
     # the layout is :func:`sync_schedule`'s: the allreduce baseline
@@ -627,6 +694,8 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
         gs = [g[i] for g in grads]
         for g in grads:
             g[i] = None  # free each leaf's gradients once reduced
+        if whole_dims[i] is not None:
+            gs = all_gather_dim(model_comm, gs, whole_dims[i])
         if flag:
             if use_ef:
                 gs = [ef_step(j, i, g) for j, g in enumerate(gs)]
@@ -663,9 +732,10 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
             tiny_sq.append(t)
         shard_sq = comm.fold_sum(shard_sq)
         gnorms = [torch.sqrt(s + t) for s, t in zip(shard_sq, tiny_sq)]
-    else:
-        gnorms = mesh_grad_norms(g_red, flags, model_split, comm,
-                                 model_comm)
+    else:  # a leaf synced whole is the same on every model rank
+        gnorms = mesh_grad_norms(
+            g_red, flags, [m and d is None for m, d in
+                           zip(model_split, whole_dims)], comm, model_comm)
 
     # --- AdamW on shards, then allgather each updated leaf (bucketed:
     # every leaf's shard first, then the pipelined allgather) ---
@@ -679,8 +749,13 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
     shards: list[dict] = [{} for _ in comm.ranks]
     for i, ((path, _), flag) in enumerate(zip(items, flags)):
         new_loc = []
+        whole = None
+        if whole_dims[i] is not None:
+            whole = all_gather_dim(model_comm,
+                                   [T.get(p, path) for p in params],
+                                   whole_dims[i])
         for j, rank in enumerate(comm.ranks):
-            p = T.get(params[j], path)
+            p = T.get(params[j], path) if whole is None else whole[j]
             p_loc = local_rows(p, rank, world) if flag else p
             g = g_red[j][i] * scales[j]
             g_red[j][i] = None
@@ -695,9 +770,13 @@ def zero1_step(loss_and_grad: Callable, params: list, opt: list,
             for j, val in enumerate(new_loc):
                 shards[j][i] = val
             continue
+        del p, whole
         if flag:
             ld = items[i][1][0]
             new_loc = allgather_leaf(new_loc, ld, comm, sync)
+        if whole_dims[i] is not None:  # each rank keeps its block
+            new_loc = [x.contiguous() for x in local_block(
+                model_comm, new_loc, whole_dims[i])]
         for j, val in enumerate(new_loc):
             T.assign(params[j], path, val)
     if bucketed:
@@ -738,8 +817,8 @@ def mesh_grad_norms(grads: list, over_data: Sequence[bool],
             for s, a, r in zip(split_m, split_d, rest)]
 
 
-def init_zero1_state(params: dict, world: int, sync: GradSyncConfig
-                     ) -> Zero1State:
+def init_zero1_state(params: dict, world: int, sync: GradSyncConfig,
+                     shapes: Sequence[tuple] | None = None) -> Zero1State:
     """One rank's zero optimizer state: zero leaves get their
     ``(ld_pad / world, *rest)`` fp32 shard, tiny leaves full fp32
     replicas (the reference's global state, cut to one rank's shard);
@@ -747,21 +826,34 @@ def init_zero1_state(params: dict, world: int, sync: GradSyncConfig
     With the compressed sync and error feedback, every leaf also gets a
     zero fp32 EF residual of its own shape: this rank's full-leaf
     residual for zero leaves, a dummy for tiny ones (the reference's
-    ``(world, *leaf)`` / ``(1, *leaf)`` state, cut to one rank's row)."""
-    def mk(p):
-        shape = tuple(p.shape)
+    ``(world, *leaf)`` / ``(1, *leaf)`` state, cut to one rank's row).
+    ``shapes`` (flatten order) are the leaves' shapes as the sync sees
+    them, where they are not the parameters' (a tensor-parallel leaf
+    synced whole: :func:`wire_needs_whole`)."""
+    it = iter(shapes) if shapes is not None else None
+
+    def sync_shape(p):
+        return tuple(p.shape) if it is None else tuple(next(it))
+
+    def mk(p, shape):
         if sync.use_zero and is_zero_leaf(shape, world,
                                           sync.min_shard_numel):
             ld_pad = shape[0] + (-shape[0]) % world
             shape = (ld_pad // world, *shape[1:])
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
-    def mk_ef(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    seen = [(p, sync_shape(p)) for p in T.leaves(params)]
+    paths = [path for path, _ in T.flatten(params)]
 
-    ef = T.map_leaves(mk_ef, params) if sync.uses_error_feedback else None
-    return Zero1State(m=T.map_leaves(mk, params), v=T.map_leaves(mk, params),
-                      step=0, ef=ef)
+    def tree(fn):
+        return T.unflatten((path, fn(p, shape))
+                           for path, (p, shape) in zip(paths, seen))
+
+    def mk_ef(p, shape):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    ef = tree(mk_ef) if sync.uses_error_feedback else None
+    return Zero1State(m=tree(mk), v=tree(mk), step=0, ef=ef)
 
 
 def resize_zero1_state(state: Zero1State, params: dict, new_world: int,

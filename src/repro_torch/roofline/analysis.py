@@ -57,7 +57,7 @@ import torch
 from .. import tree as T
 from ..core.plan import plan
 from ..models import leaf_dtype, param_shapes
-from ..optim.zero1 import sync_schedule
+from ..optim.zero1 import sync_schedule, tp_sync_layout
 from .analytic import analytic_cell
 
 PEAK_FLOPS = 989.4e12     # dense bf16 / chip (H100 SXM data sheet)
@@ -439,7 +439,9 @@ def tp_counts(cfg, layout, *, mode: str, batch: int, seq: int, sync=None,
     ``ranks`` ranks.  Each has :func:`model_calls`'s, and ``mode``'s own:
     zero1's data-axis sync of every rank's blocks (``sync_schedule`` on
     their shapes, the grad norm's fold of two sums, on the plans of
-    ``sync``) and the norm's model-axis fold; fsdp_auto's all-reduce of
+    ``sync``), the norm's model-axis fold and, for each leaf the int8
+    wire syncs whole (``optim.zero1.tp_sync_layout``), the model-axis
+    allgathers of its gradient and parameter; fsdp_auto's all-reduce of
     every leaf not split over the data axes (its gradient, in the
     parameter's dtype), the norm's folds on both axes and the loss's."""
     d, m = layout.mesh.axis_sizes
@@ -449,8 +451,14 @@ def tp_counts(cfg, layout, *, mode: str, batch: int, seq: int, sync=None,
     leaves = T.flatten(layout.leaves)
     f32 = torch.float32
     if mode == "zero1":
-        shapes = [ll.block for _, ll in leaves]
+        whole_dims, shapes = tp_sync_layout(layout, d, sync)
         dtypes = [leaf_dtype(cfg, path) for path, _ in leaves]
+        for (_, ll), dim, dt in zip(leaves, whole_dims, dtypes):
+            if dim is not None:  # its gradient and parameter, gathered
+                n = 1
+                for x in ll.block:
+                    n *= x
+                calls["model"] += [("allgather", n, dt)] * 2
         for c in sync_schedule(shapes, dtypes, d, sync, model_axis=True):
             calls["data"].append(
                 (c.op, c.numel, c.dtype) if c.spec is None else

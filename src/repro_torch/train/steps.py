@@ -48,7 +48,8 @@ import torch
 
 from ..optim.adamw import AdamWConfig, init_tree_state, lr_at, update_tree
 from ..optim.zero1 import (GradSyncConfig, init_zero1_state, is_zero_leaf,
-                           mesh_grad_norms, plan_grad_buckets, zero1_step)
+                           mesh_grad_norms, plan_grad_buckets, tp_sync_layout,
+                           zero1_step)
 
 
 @dataclass
@@ -136,6 +137,7 @@ def build_zero1(model: ModelApi, comm, opt_cfg: AdamWConfig,
     bucket, well-formed segments, and every leaf's shard rows covered
     exactly.  With ``tp`` (the ``sharding.TensorParallel`` the model
     was built with) every rank holds its blocks, the sync runs on them
+    (on the int8 wire, the leaves :func:`tp_sync_layout` names whole)
     and the grad norm also sums over the model axis."""
     for role, spec in collective_specs(sync, model.cfg, ep_world):
         pl = plan(spec, p=comm.p if role == "data" else ep_world)
@@ -144,11 +146,12 @@ def build_zero1(model: ModelApi, comm, opt_cfg: AdamWConfig,
     if sync.bucket_bytes is not None:
         check_bucket_partition(model.cfg, comm.p, sync,
                                tp.layout.local_shapes() if tp else None)
-    model_comm = model_split = None
+    model_comm = model_split = whole_dims = shapes = None
     if tp is not None:
         model_comm = tp.axis.comm
         model_split = [ll.model is not None
                        for ll in T.leaves(tp.layout.leaves)]
+        whole_dims, shapes = tp_sync_layout(tp.layout, comm.p, sync)
     if model.loss_ranks is not None:
         loss_and_grad = value_and_grad_ranks(model.loss_ranks)
     else:
@@ -161,10 +164,10 @@ def build_zero1(model: ModelApi, comm, opt_cfg: AdamWConfig,
     def step_fn(params, opt, batches):
         return zero1_step(loss_and_grad, params, opt, batches, comm=comm,
                           opt_cfg=opt_cfg, sync=sync, model_comm=model_comm,
-                          model_split=model_split)
+                          model_split=model_split, whole_dims=whole_dims)
 
     def init_opt(params):
-        return [init_zero1_state(p, comm.p, sync) for p in params]
+        return [init_zero1_state(p, comm.p, sync, shapes) for p in params]
 
     return BuiltStep(step_fn=step_fn, init_opt=init_opt)
 

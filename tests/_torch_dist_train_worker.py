@@ -10,7 +10,10 @@ Three worlds, one after the other (a rank past a world's size exits):
   ``DistMesh`` (ZeRO-1 over data, TP over model); ``ARGV["tp_moe"]``,
   grok-1-314b fsdp_auto on it (the global dispatch's pool gathered over
   the data axis); ``ARGV["tp_hybrid"]``, hymba-1.5b tensor parallel on
-  it (the Mamba heads' all-to-all of ``[x | z]``); then ``moe_ffn_ep``
+  it (the Mamba heads' all-to-all of ``[x | z]``); :func:`tp_ckpt_argv`
+  at ``--mesh 2x2`` with ``--fail-at-step 2`` (its step-2 checkpoint in
+  ``<tmp>/ck4``), then at ``--mesh 4x1`` resuming from it; then
+  ``moe_ffn_ep``
   over a ``DistComm`` of the 4 ranks,
   each rank the backward of its own loss
   (:func:`moe_loss_and_grads`), and the backward of ``all_reduce_sum``
@@ -71,6 +74,15 @@ ARGV = {"exact": qwen(),
                       "3", "--seq-len", "16", "--global-batch", "4",
                       "--log-every", "1"]}
 ZERO1_RUNS = ("exact", "int8", "bucket", "ring", "xla")
+
+
+def tp_ckpt_argv(mesh: str, ckpt_dir: str) -> list:
+    """The tensor-parallel checkpoint's argv: qwen3-1.7b on the int8 wire
+    with EF (its whole-leaf syncs gathered over the model axis), 4
+    steps at global batch 4, checkpointed every 2 into ``ckpt_dir``."""
+    return qwen(mesh, steps=4, batch=4) + ["--wire-dtype", "int8",
+                                           "--ckpt-dir", ckpt_dir,
+                                           "--ckpt-every", "2"]
 
 
 def ckpt_argv(mesh: str, ckpt_dir: str) -> list:
@@ -186,6 +198,14 @@ def main(rank: int, ports: str, tmp: str) -> None:
     train.main(ARGV["tp"], on_step=record(out, "tp"))
     train.main(ARGV["tp_moe"], on_step=record(out, "tp_moe"))
     train.main(ARGV["tp_hybrid"], on_step=record(out, "tp_hybrid"))
+    ck4 = os.path.join(tmp, "ck4")
+    try:
+        train.main(tp_ckpt_argv("2x2", ck4) + ["--fail-at-step", "2"],
+                   on_step=record(out, "tp_save"))
+        raise AssertionError("no failure injected")
+    except SimulatedFailure:
+        pass
+    train.main(tp_ckpt_argv("4x1", ck4), on_step=record(out, "tp_restore"))
     [(o, a, g)] = moe_loss_and_grads(DistComm(), [rank])
     out["moe/out"], out["moe/aux"] = o.numpy(), a.numpy()
     for k, v in g["p"].items():

@@ -138,6 +138,15 @@ def reference(tmp, runs) -> dict:
     return dict(np.load(tmp / "ref.npz"))
 
 
+def checkpoint(directory, step: int) -> tuple[dict, dict]:
+    """The arrays and the manifest of a checkpoint the launcher wrote."""
+    import json
+    path = os.path.join(str(directory), f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        man = json.load(f)
+    return dict(np.load(os.path.join(path, "arrays.npz"))), man
+
+
 def tree(z: dict, prefix: str) -> dict:
     """The leaves of ``z`` under ``prefix`` as a tree (the xLSTM's layer
     indices as ``int``: a list, as the port holds it)."""
@@ -223,7 +232,7 @@ def assert_run_matches(z: dict, run: str, atol: float = ATOL,
     if gnorm_tol is not None:
         np.testing.assert_allclose(gnorms, z[f"{run}/gnorms"], rtol=0,
                                    atol=gnorm_tol)
-    got = bootstrap.whole_params(sess, sess.params)
+    got = bootstrap.params_whole(sess)
     want = tree(z, f"{run}/final/")
     for path, a in T.flatten(got):
         np.testing.assert_allclose(

@@ -17,10 +17,13 @@ sync.  Writes ``<out.npz>``: the initial parameters (``init/<path>``),
 and for each run its per-step losses and the parameters after the last
 step: ``losses`` / ``final/<path>`` (exact), ``int8_``, ``bf16_``,
 ``bucket_``, ``bucket_int8_``, ``ring_``, ``xla_``, ``allreduce_``,
-``p2_`` and ``p4_`` prefixed likewise.  ``train`` is also the recipe of
-``_torch_zero1_archs_ref.py`` (the other architecture families).
+``p2_`` and ``p4_`` prefixed likewise; ``[runs]`` names the runs to
+take (their prefixes, comma-separated, ``f32`` for the exact run; all
+of them by default), so each test file spawns only the runs its tests
+read.  ``train`` is also the recipe of ``_torch_zero1_archs_ref.py``
+(the other architecture families).
 
-Run: python tests/_torch_zero1_ref.py <out.npz>
+Run: python tests/_torch_zero1_ref.py <out.npz> [runs]
 """
 import os
 import re
@@ -72,12 +75,14 @@ def _flat(prefix, tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def main(dst):
+def main(dst, names=None):
     cfg = get_config("qwen3-1.7b").scaled_down()
     model = build(cfg, recipe=None)
     params = jax.jit(model.init)(jax.random.PRNGKey(0))
     out = _flat("init/", params)
     for tag, world, kw in RUNS:
+        if names is not None and (tag or "f32") not in names:
+            continue
         sync = GradSyncConfig(use_fused_kernel=False, **kw)
         losses, final = train(model, cfg, params, sync, world)
         out.update(_flat(tag + "final/", final))
@@ -113,4 +118,4 @@ def train(model, cfg, params, sync, world, steps=STEPS):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2].split(",") if len(sys.argv) > 2 else None)

@@ -148,6 +148,36 @@ def test_restore_falls_back_on_corrupt_newest(setup):
         mgr.restore(2, params)  # explicit step: surface the corruption
 
 
+@pytest.mark.parametrize("damage", ["flip", "truncate", "compressed"])
+def test_restore_falls_back_on_a_corrupt_member(setup, damage):
+    """A member's bytes are read straight from the file: a flipped byte
+    fails its CRC-32 and a cut member its size, as ``zipfile`` would
+    find, and a compressed member (no writer of the format makes one) is
+    refused; restore(None) falls back to the previous checkpoint, an
+    explicit step raises."""
+    cfg, model, params, d = setup
+    mgr = CheckpointManager(d)
+    mgr.save(1, params, {"tag": np.int32(1)}, {"data_cursor": 1})
+    mgr.save(2, params, {"tag": np.int32(2)}, {"data_cursor": 2})
+    path = os.path.join(d, "step_2", "arrays.npz")
+    data = bytearray(open(path, "rb").read())
+    if damage == "flip":
+        data[len(data) // 3] ^= 0x40  # inside the first leaf's data
+    elif damage == "truncate":
+        del data[len(data) // 3:len(data) // 3 + 64]
+    if damage == "compressed":
+        with np.load(path) as z:
+            np.savez_compressed(path, **{k: z[k] for k in z.files})
+    else:
+        with open(path, "wb") as f:
+            f.write(bytes(data))
+    with pytest.warns(RuntimeWarning, match="step_2 is unreadable"):
+        step, _, opt, _ = mgr.restore(None, params)
+    assert step == 1 and int(opt["tag"]) == 1
+    with pytest.raises(CheckpointError):
+        mgr.restore(2, params)
+
+
 def test_restore_transient_io_fault_propagates_not_falls_back(setup):
     """A transient io_hook failure during restore is retryable: it must
     propagate, not silently fall back to an older step."""

@@ -9,9 +9,10 @@
   the launchers keep their in-process worlds;
 * in torchrun's environment (set here, no process group made): a mesh
   or a serving width that differs from the world exits with a message
-  before any process group is made; tensor parallelism and
-  ``fsdp_auto`` of a family other than the dense one, and the elastic
-  drill over processes, are refused citing ROADMAP.md queue 1 item 11.2;
+  before any process group is made (a checkpoint directory with tensor
+  parallelism or ``fsdp_auto`` is accepted: it goes on to that check);
+  the elastic drill over processes is refused citing ROADMAP.md queue 1
+  item 11.2;
   a ``cuda`` world without a card is refused;
 * ``--mesh 1x2 --mode fsdp_auto`` under torchrun (a second spawn)
   trains tensor parallel over gloo, on the in-process run's losses.
@@ -129,10 +130,14 @@ def test_serve_width_that_differs_from_the_world_is_refused(torchrun_env,
 def test_tensor_parallelism_and_fsdp_refused_citing_11_2(torchrun_env, argv,
                                                          tmp_path):
     """Tensor parallelism and fsdp_auto train these families under
-    torchrun (``test_torch_dist_train.py``'s hymba 2x2 world); a
-    checkpoint directory with either is still refused, before the world
-    is joined."""
-    with pytest.raises(SystemExit, match="item 11.2"):
+    torchrun (``test_torch_dist_train.py``'s hymba 2x2 world) and
+    checkpoint there (its 2x2 checkpoint resumed on 4x1): a checkpoint
+    directory is accepted, and the launcher goes on to the world, whose
+    width it checks before any process group is made (here a mesh of 4
+    ranks against torchrun's 2); nothing is written.  Only the drill
+    over processes still cites item 11.2 (below)."""
+    argv = [x.replace("2", "4") if x in ("1x2", "2x1") else x for x in argv]
+    with pytest.raises(SystemExit, match="world of 4 processes"):
         train.main(TRAIN + argv + ["--ckpt-dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
 

@@ -44,6 +44,10 @@ in-process run of the same argv (virtual ranks of a ``LocalComm`` or a
   bitwise; the 3-process checkpoint resumed by 2 processes gives the
   in-process p' = 2 resume's losses and states, bitwise; its
   ``arrays.npz`` is byte-equal to the in-process run's.
+* A tensor-parallel checkpoint (qwen3-1.7b on a 2x2 ``DistMesh``, int8
+  wire with EF) resumed by the 4 processes on 4x1: its ``arrays.npz``
+  byte-equal to the in-process run's, the resumed steps bitwise the
+  in-process resume's.
 """
 import os
 import shutil
@@ -60,6 +64,7 @@ from _torch_arch_cases import one_torch_thread  # noqa: F401
 from repro_torch import tree as T
 from repro_torch.comm import LocalComm
 from repro_torch.convert import params_to_numpy
+from repro_torch.ft import SimulatedFailure
 from repro_torch.launch import bootstrap, train
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -145,6 +150,12 @@ def world(tmp_path_factory):
     shutil.copytree(tmp / "ck2" / "step_2", tmp / "local2" / "step_2")
     train.main(W.ckpt_argv("2x1", str(tmp / "local2")),
                on_step=_record(local, "resume2"))
+    # the tensor-parallel checkpoint in process: 2x2 to step 2, then 4x1
+    local4 = str(tmp / "local4")
+    with pytest.raises(SimulatedFailure):
+        train.main(W.tp_ckpt_argv("2x2", local4) + ["--fail-at-step", "2"])
+    train.main(W.tp_ckpt_argv("4x1", local4),
+               on_step=_record(local, "tp_restore"))
     log = ref.communicate(timeout=300)[0]
     assert ref.returncode == 0, log
     return local, outs, dict(np.load(tmp / "ref.npz")), tmp
@@ -293,6 +304,24 @@ def test_checkpoint_of_three_processes_resumed_by_two(world):
         assert outs[r]["resume2/loss"].tolist() == local["resume2/loss"]
         assert len(local["resume2/loss"]) == 2  # steps 2 and 3
         _state_equal("resume2", local, outs[r], "resume2", r)
+
+
+def test_tp_checkpoint_of_processes_restored_on_4x1(world):
+    """A 2x2 tensor-parallel checkpoint (int8 wire with EF) written by 4
+    processes (every leaf gathered over the data axis, then over the
+    model axis) and restored by 4 processes on a 4x1 mesh: its bytes
+    are the in-process run's, and the resumed steps (losses, grad norms,
+    every rank's state) are the in-process resume's, bitwise."""
+    local, outs, _, tmp = world
+    mine = (tmp / "ck4" / "step_2" / "arrays.npz").read_bytes()
+    assert mine == (tmp / "local4" / "step_2" / "arrays.npz").read_bytes()
+    for r in range(4):
+        assert outs[r]["tp_restore/loss"].tolist() == \
+            local["tp_restore/loss"]
+        assert len(local["tp_restore/loss"]) == 2  # steps 2 and 3
+        assert outs[r]["tp_restore/gnorm"].tolist() == \
+            local["tp_restore/gnorm"]
+        _state_equal("tp_restore", local, outs[r], "tp_restore", r)
 
 
 def test_checkpoint_of_processes_is_byte_equal_in_process(world):

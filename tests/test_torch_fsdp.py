@@ -15,13 +15,14 @@ across model ranks after every step, one backward's gradient blocks
 against the unsharded model's (the data ranks' sum for a leaf split over
 them) ``rtol=1e-4`` / ``atol=1e-6``.  The launcher's ``--mode
 fsdp_auto`` on qwen3-1.7b (recipe mode ``tp``) prints the reference's
-losses, and runs at ``--mesh 2x1``; ``--ckpt-dir`` with it is refused,
-citing ROADMAP item 11.2.
+losses, and runs at ``--mesh 2x1``, where ``--ckpt-dir`` writes the
+whole moments and a rerun resumes on the uninterrupted run's losses.
 """
 import pytest
 
 import _torch_tp_cases as C
 from _torch_arch_cases import one_torch_thread  # noqa: F401
+from repro_torch.ft import SimulatedFailure
 from repro_torch.launch import train
 
 RUNS = ("fsdp_2x2_tp_fsdp", "fsdp_1x4_tp_fsdp")
@@ -84,8 +85,22 @@ def test_cli_fsdp_auto_prints_reference_losses(ref, one_torch_thread):  # noqa: 
         assert max(abs(a - b) for a, b in zip(got.losses, zero1)) < 1e-5
 
 
-def test_ckpt_with_fsdp_auto_refused(tmp_path):
-    with pytest.raises(SystemExit, match="item 11.2"):
-        train.build(["--arch", "qwen3-1.7b", "--scale-down", "--device",
-                     "cpu", "--mesh", "2x1", "--mode", "fsdp_auto",
-                     "--ckpt-dir", str(tmp_path)])
+def test_ckpt_with_fsdp_auto_refused(tmp_path, one_torch_thread):  # noqa: F811
+    """``--mode fsdp_auto --ckpt-dir`` is no longer refused: it
+    checkpoints the whole ``m`` and ``v`` of every leaf and the step (the
+    reference's ``AdamState``), and a rerun resumes from it on the
+    uninterrupted run's losses."""
+    argv = ["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
+            "--mesh", "2x1", "--mode", "fsdp_auto", "--steps", "2",
+            "--seq-len", "8", "--global-batch", "2"]
+    straight = train.main(argv).losses
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    with pytest.raises(SimulatedFailure):
+        train.main(argv + ck + ["--fail-at-step", "1"])
+    z, man = C.checkpoint(tmp_path, 1)
+    n = man["n_param_leaves"]
+    assert (man["world"], man["mesh"]) == (2, "2x1")
+    assert [z[f"opt_leaf_{i}"].shape for i in range(n)] == \
+        [z[f"p_{i}"].shape for i in range(n)]
+    assert int(z[f"opt_leaf_{2 * n}"]) == 1
+    assert train.main(argv + ck).losses == straight[1:]

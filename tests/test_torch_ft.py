@@ -1,39 +1,16 @@
-"""Fault tolerance of the port against the reference's.
-
-* the watchdog, failure-plan and elastic-controller scenarios of the
-  reference's ``tests/test_ft.py`` run through BOTH packages with the
-  same injected clock: the same verdicts, reports (phase names and
-  seconds, retries, fallbacks, evictions, re-plans) and backoff sleeps,
-  and each holds the reference test's own assertions;
-* ``resize_zero1_state`` is bitwise the reference's on the same numpy
-  global state, p -> p' for (4, 3), (3, 4), (2, 5), (5, 2), without and
-  with EF residuals, and p -> p' -> p is lossless (EF: mass conserved);
-* the scaled-down drill (qwen3-1.7b, 8 steps, checkpoints every 3) on
-  the CPU: shrink 4 -> 3 and grow 3 -> 4 exact, and shrink 4 -> 3 on the
-  int8 wire with EF.  The post-resume losses are bitwise the p'
-  reference run's (f32), within 0.05 of it and of the exact drill's
-  (int8 + EF, the reference's gate).  The params after the first
-  resumed step, restored from the drill's checkpoint, are held against
-  the reference's ``zero1_step`` driven directly at p' from the same
-  checkpoint read and resized by the reference (worker
-  ``_torch_elastic_ref.py``, 4 fake CPU devices): loss 1e-5, params
-  ``rtol=1e-5`` with ``atol=1e-9`` exact and, on the int8 wire, a tenth
-  of the step's learning rate (``test_torch_zero1.py``'s rule, which
-  gives its 6e-6 at lr 6e-5; here lr is 1e-3, and one element of 16,384
-  lands 1.75e-5 apart);
-* the launcher's restart drill (``--ckpt-dir --ckpt-every
-  --fail-at-step``) resumes on the uninterrupted run's trajectory.
+"""Fault tolerance of the port against the reference's: the watchdog,
+failure-plan and elastic-controller scenarios of the reference's
+``tests/test_ft.py`` run through BOTH packages with the same injected
+clock: the same verdicts, reports (phase names and seconds, retries,
+fallbacks, evictions, re-plans) and backoff sleeps, and each holds the
+reference test's own assertions.  The ZeRO-1 state's resize and the
+launcher's restart drill: ``test_torch_ft_state.py``; the elastic drills
+on the CPU against the reference's step: ``test_torch_ft_drill.py``.
 """
-import json
-import os
-import subprocess
-import sys
 import types
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import repro.checkpoint as ref_ckpt
 import repro.ft as ref_ft
@@ -42,14 +19,8 @@ from repro.core.plan import plan as ref_plan
 import repro_torch.checkpoint as port_ckpt
 import repro_torch.ft as port_ft
 import repro_torch.optim.zero1 as port_zero1
-from repro_torch import tree as T
-from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.plan import plan as port_plan
-from repro_torch.launch import bootstrap, train
-from repro_torch.launch.elastic import run_drill
-from repro_torch.optim import adamw
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 REF = types.SimpleNamespace(ft=ref_ft, ckpt=ref_ckpt, zero1=ref_zero1,
                             clear=ref_plan.clear)
 PORT = types.SimpleNamespace(ft=port_ft, ckpt=port_ckpt, zero1=port_zero1,
@@ -340,206 +311,3 @@ def test_controller_matches_reference(name):
         assert all(r[:3] == (4, 3, True) for r in s["report"][8])
     else:
         assert got[2]["report"][4] == 0  # a no-op resize keeps its plans
-
-
-def test_active_specs_are_the_data_role_specs():
-    from repro_torch.train.steps import collective_specs
-    sync = port_zero1.GradSyncConfig()
-    assert set(port_ft.active_specs(sync)) == {
-        sp for role, sp in collective_specs(sync) if role == "data"}
-
-
-# ---------------------------------------------------------------------------
-# resize_zero1_state: bitwise the reference's on the same global state
-# ---------------------------------------------------------------------------
-
-SHAPES = {"big": (10, 128), "tiny": (4,), "scalar": ()}
-
-
-def _global_state(world, with_ef, min_numel=1024):
-    """A synthetic GLOBAL state at ``world`` as numpy trees: zero leaves
-    padded to the world multiple with zero rows, EF one row per rank."""
-    rng = np.random.default_rng(world)
-
-    def mv(shape):
-        arr = rng.normal(size=shape).astype(np.float32)
-        if port_zero1.is_zero_leaf(shape, world, min_numel):
-            pad = (-shape[0]) % world
-            arr = np.concatenate([arr, np.zeros((pad, *shape[1:]),
-                                                np.float32)])
-        return arr
-
-    m = {k: mv(s) for k, s in SHAPES.items()}
-    v = {k: mv(s) for k, s in SHAPES.items()}
-    ef = None
-    if with_ef:
-        ef = {k: rng.normal(size=(world if port_zero1.is_zero_leaf(
-            s, world, min_numel) else 1, *s)).astype(np.float32)
-            for k, s in SHAPES.items()}
-    return m, v, ef
-
-
-def _resize(pkg, m, v, ef, world, sync_kw):
-    sync = pkg.zero1.GradSyncConfig(**sync_kw)
-    if pkg is REF:
-        params = {k: jnp.zeros(s) for k, s in SHAPES.items()}
-        state = ref_zero1.Zero1State(
-            m={k: jnp.asarray(a) for k, a in m.items()},
-            v={k: jnp.asarray(a) for k, a in v.items()},
-            step=jnp.asarray(7, jnp.int32),
-            ef=None if ef is None else {k: jnp.asarray(a)
-                                        for k, a in ef.items()})
-    else:
-        params = {k: torch.zeros(s) for k, s in SHAPES.items()}
-        state = port_zero1.Zero1State(m=m, v=v, step=7, ef=ef)
-    out = pkg.zero1.resize_zero1_state(state, params, world, sync)
-    conv = lambda t: None if t is None else {  # noqa: E731
-        k: np.asarray(a) for k, a in t.items()}
-    return conv(out.m), conv(out.v), conv(out.ef), int(out.step)
-
-
-def _same(a, b):
-    assert (a is None) == (b is None)
-    for k in a or {}:
-        assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, k
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
-@pytest.mark.parametrize("ef", [False, True], ids=["f32", "ef"])
-@pytest.mark.parametrize("p,p2", [(4, 3), (3, 4), (2, 5), (5, 2)])
-def test_resize_matches_reference_and_round_trips(p, p2, ef):
-    sync_kw = dict(wire_dtype="int8") if ef else {}
-    m, v, e = _global_state(p, ef)
-    got = _resize(PORT, m, v, e, p2, sync_kw)
-    want = _resize(REF, m, v, e, p2, sync_kw)
-    for a, b in zip(got[:3], want[:3]):
-        _same(a, b)
-    assert got[3] == want[3] == 7
-    assert got[0]["big"].shape[0] % p2 == 0
-    back = _resize(PORT, *got[:3], p, sync_kw)
-    _same(back[0], m)
-    _same(back[1], v)
-    if ef:
-        for k in e:  # mass conserved into row 0, at p' and back at p
-            np.testing.assert_array_equal(got[2][k].sum(0), e[k].sum(0))
-            np.testing.assert_array_equal(got[2][k][1:], 0.0)
-            np.testing.assert_array_equal(back[2][k].sum(0), e[k].sum(0))
-
-
-def test_resize_refuses_to_drop_ef_mass():
-    m, v, e = _global_state(4, True)
-    with pytest.raises(ValueError):
-        _resize(PORT, m, v, e, 2, {})
-
-
-# ---------------------------------------------------------------------------
-# The scaled-down drill on the CPU, held against the reference's step
-# ---------------------------------------------------------------------------
-
-COMMON = dict(arch="qwen3-1.7b", scale_down=True, steps=8, seq_len=16,
-              global_batch=12, ckpt_every=3, device="cpu")
-#: tag -> (run_drill kwargs, world, new world)
-DRILLS = {"shrink": (dict(world=4, shrink_at_step=5, fail_rank=2), 4, 3),
-          "grow": (dict(world=3, grow_at_step=4, grow_to=4), 3, 4),
-          "shrink_int8": (dict(world=4, shrink_at_step=5, fail_rank=2,
-                               wire_dtype="int8", io_faults=1), 4, 3)}
-
-
-@pytest.fixture(scope="module")
-def drills(tmp_path_factory):
-    """Every drill, its checkpoints kept; then the reference's first step
-    after each resize from the same checkpoint (one worker)."""
-    root = tmp_path_factory.mktemp("drills")
-    res, runs = {}, []
-    for tag, (kw, world, new) in DRILLS.items():
-        d = str(root / tag)
-        res[tag] = r = run_drill(ckpt_dir=d, **COMMON, **kw)
-        runs.append({"tag": tag, "ckpt_dir": d, "step": r["resumed_step"],
-                     "world": world, "new_world": new,
-                     "wire_dtype": kw.get("wire_dtype"),
-                     "steps": COMMON["steps"], "lr": 1e-3, "warmup": 2,
-                     "global_batch": COMMON["global_batch"],
-                     "seq_len": COMMON["seq_len"]})
-    with open(root / "in.json", "w") as f:
-        json.dump(runs, f)
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)  # the worker sets its own device count
-    env["PYTHONPATH"] = os.pathsep.join(
-        [os.path.join(HERE, "..", "src"), env.get("PYTHONPATH", "")])
-    proc = subprocess.run(
-        [sys.executable, os.path.join(HERE, "_torch_elastic_ref.py"),
-         str(root / "in.json"), str(root / "out.npz")],
-        capture_output=True, text=True, env=env, timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    return res, runs, dict(np.load(root / "out.npz"))
-
-
-@pytest.mark.parametrize("tag", sorted(DRILLS))
-def test_drill_resumes_on_the_reference_trajectory(drills, tag):
-    res = drills[0][tag]
-    rep = res["report"]
-    assert not rep.restarted and rep.replans
-    assert all(r.verified and r.new_p == res["new_world"]
-               for r in rep.replans)
-    assert [n for n, _ in rep.phases] == ["drain", "replan", "reshard",
-                                          "resume"]
-    assert [s for s, _ in res["post"]] == list(range(res["resumed_step"], 8))
-    if tag == "grow":
-        assert res["lost_steps"] == 0 and res["resumed_step"] == 4
-    else:
-        assert res["resumed_step"] == 3 and res["lost_steps"] == 2
-        assert rep.evicted >= 1
-    if tag == "shrink_int8":
-        assert rep.io_failures == 1 and "ckpt_io" in res["fired"]
-        assert res["max_abs_diff"] <= 0.05
-        exact = drills[0]["shrink"]["post"]
-        assert max(abs(a - b) for (_, a), (_, b)
-                   in zip(res["post"], exact)) <= 0.05
-    else:
-        assert res["bitwise"], (res["post"], res["ref"])
-
-
-@pytest.mark.parametrize("tag", sorted(DRILLS))
-def test_first_resumed_step_matches_reference_step(drills, tag):
-    _, runs, ref = drills
-    run = next(r for r in runs if r["tag"] == tag)
-    sess = bootstrap.build_session(
-        arch="qwen3-1.7b", scale_down=True, steps=8, seq_len=16,
-        global_batch=12, dp=run["new_world"], mode="zero1",
-        wire_dtype=run["wire_dtype"], lr=1e-3, warmup=2, device="cpu",
-        init_state=False)
-    step, man = bootstrap.restore_session(sess, CheckpointManager(
-        run["ckpt_dir"]), step=run["step"])
-    assert step == run["step"] and man["world"] == run["world"]
-    loss = float(bootstrap.run_step(sess, step)["loss"])
-    assert abs(loss - float(ref[f"{tag}/loss"])) <= 1e-5
-    # the resumed drill's own first loss is this one
-    assert drills[0][tag]["post"][0] == (step, loss)
-    # int8 wire: a tenth of this step's learning rate, the rule behind
-    # test_torch_zero1.py's 6e-6 (there at lr 6e-5): below any update a
-    # code that moved a grid step would flip.
-    lr = float(adamw.lr_at(sess.opt_cfg, sess.opt[0].step))
-    atol = lr / 10 if run["wire_dtype"] else 1e-9
-    for path, t in T.flatten(sess.params[0]):
-        np.testing.assert_allclose(t.numpy(), ref[tag + "/" + "/".join(path)],
-                                   rtol=1e-5, atol=atol,
-                                   err_msg=".".join(path))
-
-
-# ---------------------------------------------------------------------------
-# The launcher's restart drill
-# ---------------------------------------------------------------------------
-
-def test_launcher_restart_drill(tmp_path):
-    argv = ["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
-            "--mesh", "3x1", "--mode", "zero1", "--steps", "6",
-            "--seq-len", "16", "--global-batch", "3", "--wire-dtype", "int8"]
-    straight = train.main(argv)
-    ck = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
-    with pytest.raises(port_ft.SimulatedFailure):
-        train.main(argv + ck + ["--fail-at-step", "5"])
-    assert CheckpointManager(str(tmp_path / "ck")).completed_steps() == [
-        2, 4]
-    tail = train.main(argv + ck)
-    assert tail.first_step == 4 and len(tail.losses) == 2
-    assert tail.losses == straight.losses[4:]

@@ -168,24 +168,48 @@ def test_train_cli_moe_ep_on_cpu():
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "2x2", "--mode", "fsdp_auto",
-                                    "--moe-dispatch", "ep"],
-                                   ["--mesh", "2x2", "--moe-dispatch",
-                                    "rowwise", "--ckpt-dir", "{tmp}"],
-                                   ["--mesh", "2x2", "--moe-dispatch",
-                                    "global", "--ckpt-dir", "{tmp}"]])
+                                    "--moe-dispatch", "ep"]])
 def test_train_cli_refuses_unported_moe_flags(extra, tmp_path):
-    """The MoE flags the port still refuses: ep under fsdp_auto (ep runs
-    in mode zero1 only, as the reference's), and a checkpoint directory
-    with a model axis under either single-pool dispatch (resharding
-    checkpoints across meshes waits for ROADMAP item 11.2).  Tensor
-    parallelism itself trains: ``test_torch_tp_moe.py``."""
+    """The MoE flags the port refuses: ep under fsdp_auto (ep runs in
+    mode zero1 only, as the reference's).  Tensor parallelism trains:
+    ``test_torch_tp_moe.py``."""
     from repro_torch.launch import train
-    extra = [str(tmp_path) if x == "{tmp}" else x for x in extra]
     with pytest.raises(SystemExit):
         train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--scale-down",
                     "--device", "cpu", "--steps", "1", "--seq-len", "8",
                     "--global-batch", "2", *extra])
     assert not any(tmp_path.iterdir())
+
+
+def _checkpoint(directory, step):
+    """The manifest and the optimizer arrays' shapes of a checkpoint."""
+    import json
+    import numpy as np
+    path = os.path.join(str(directory), f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        man = json.load(f)
+    z = np.load(os.path.join(path, "arrays.npz"))
+    return man, {k: z[k].shape for k in z.files}
+
+
+@pytest.mark.parametrize("extra", [["--moe-dispatch", "rowwise"],
+                                   ["--moe-dispatch", "global"]])
+def test_train_cli_checkpoints_moe_on_a_model_axis(extra, tmp_path):
+    """A checkpoint directory with a model axis under either single-pool
+    dispatch is accepted: one step writes the whole leaves and the
+    moments of the data world (the layout and the resharding are held
+    against the reference in ``test_torch_tp_ckpt.py`` and
+    ``test_torch_tp_reshard.py``)."""
+    from repro_torch.launch import train
+    train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--scale-down", "--device",
+                "cpu", "--mesh", "2x2", "--steps", "1", "--seq-len", "8",
+                "--global-batch", "2", "--ckpt-dir", str(tmp_path),
+                "--ckpt-every", "1", *extra])
+    man, shapes = _checkpoint(tmp_path, 1)
+    n = man["n_param_leaves"]
+    assert (man["world"], man["mesh"]) == (2, "2x2")
+    assert sum(k.startswith("opt_") for k in shapes) == 2 * n + 1
+    assert shapes["opt_leaf_0"][1:] == shapes["p_0"][1:]
 
 
 @pytest.mark.parametrize("extra", [
@@ -218,19 +242,12 @@ def test_train_cli_on_step_sees_each_step():
 
 @pytest.mark.parametrize("extra", [["--ckpt-every", "0"],
                                    ["--fail-at-step", "-1"],
-                                   ["--arch", "hymba-1.5b", "--mesh", "1x3",
-                                    "--ckpt-dir", "{tmp}"],
-                                   ["--arch", "xlstm-125m", "--mode",
-                                    "fsdp_auto", "--ckpt-dir", "{tmp}"],
                                    ["--grad-sync", "ring", "--bucket-bytes",
                                     "1000"], ["--bucket-bytes", "0"]])
 def test_train_cli_refuses_unported_flags(extra, tmp_path):
-    """Unported features (a checkpoint directory with tensor parallelism
-    or fsdp_auto: resharding across meshes waits for ROADMAP item 11.2;
-    both train without one, ``test_train_cli_runs_tensor_parallel_and_
-    fsdp_auto``), the checkpoint flags' bounds (a positive interval, a
-    step >= 0) and the sync's own refusals (bucketing is circulant only
-    and takes a positive size) exit with a message."""
+    """The checkpoint flags' bounds (a positive interval, a step >= 0)
+    and the sync's own refusals (bucketing is circulant only and takes a
+    positive size) exit with a message."""
     from repro_torch.launch import train
     extra = [str(tmp_path) if x == "{tmp}" else x for x in extra]
     with pytest.raises(SystemExit):
@@ -238,6 +255,29 @@ def test_train_cli_refuses_unported_flags(extra, tmp_path):
                     "--mesh", "3x1", "--steps", "1", "--seq-len", "8",
                     "--global-batch", "3", *extra])
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("extra", [["--arch", "hymba-1.5b", "--mesh", "1x3"],
+                                   ["--arch", "xlstm-125m", "--mode",
+                                    "fsdp_auto"]])
+def test_train_cli_checkpoints_tensor_parallel_and_fsdp_auto(extra,
+                                                             tmp_path):
+    """A checkpoint directory with tensor parallelism or fsdp_auto is
+    accepted: one step writes every leaf whole, and its moments (zero1
+    on a data world of 1; fsdp_auto's whole ``m`` and ``v``) of the
+    parameters' shapes (the layout and the resharding are held against
+    the reference in ``test_torch_tp_ckpt.py`` and
+    ``test_torch_tp_reshard.py``)."""
+    from repro_torch.launch import train
+    train.main(["--arch", "qwen3-1.7b", "--scale-down", "--device", "cpu",
+                "--mesh", "3x1", "--steps", "1", "--seq-len", "8",
+                "--global-batch", "3", "--ckpt-dir", str(tmp_path),
+                "--ckpt-every", "1", *extra])
+    man, shapes = _checkpoint(tmp_path, 1)
+    n = man["n_param_leaves"]
+    assert man["mesh"] == ("1x3" if "--mesh" in extra else "3x1")
+    assert [shapes[f"opt_leaf_{i}"] for i in range(n)] == \
+        [shapes[f"p_{i}"] for i in range(n)]
 
 
 @pytest.mark.parametrize("arch, extra", [
@@ -272,9 +312,12 @@ def test_elastic_cli_shrinks_on_cpu(capsys):
 
 
 def test_elastic_cli_refuses_model_axis_and_cuda_without_card():
+    """A model axis of no rank, and the card where there is none, exit
+    with a message (the drill on a model axis of 2:
+    ``test_torch_tp_reshard.py``)."""
     from repro_torch.launch import elastic
-    with pytest.raises(SystemExit):
-        elastic.main(["--scale-down", "--device", "cpu", "--mp", "2",
+    with pytest.raises(SystemExit, match="mp must be positive"):
+        elastic.main(["--scale-down", "--device", "cpu", "--mp", "0",
                       "--shrink-at-step", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):

@@ -5,7 +5,9 @@ The reference's ``zero1_step`` is driven directly under
 ``_torch_zero1_ref.py``); its initial weights are carried into the port
 with ``repro_torch.convert``, and the port trains the same 4 steps at
 p = 3 on a ``LocalComm``, with the fused round on (its plain version on
-the CPU) and off.
+the CPU) and off.  The reference's other grad-sync modes are held in
+``test_torch_zero1_sync.py`` (the two files share
+``_torch_zero1_cases.py``; each spawns the worker for its own runs).
 
 Tolerances: per-step losses within 1e-5 absolute and parameters after
 step 4 within ``rtol=1e-5``.  The reduce-scatter folds are bitwise equal
@@ -39,14 +41,6 @@ leave ``rtol`` than in the exact run; ``atol`` is a sixtieth of the last
 step's learning rate, below any flipped update (observed: 2,763 of the
 90,496 parameters beyond ``rtol``, at most 3.0e-7 apart).
 
-The reference's other grad-sync modes are held the same way, each
-against the reference's run of the same mode, with the tolerance of its
-exact or int8 counterpart above: the bucketed, pipelined sync
-(``bucket_bytes``, buckets that split the larger leaves) exact and on
-the int8 wire with error feedback, and the ``ring``, ``xla`` and
-``allreduce`` impls.  Within the port, the bucketed exact sync is
-bitwise the per-leaf one (the fold order of every element depends only
-on its block index); on the int8 wire the quantization groups differ.
 ``plan_grad_buckets`` is the reference's, on the model's shapes and on
 its edge cases.
 
@@ -59,17 +53,15 @@ would fit AdamW's first step amplifying a gradient near ``eps``; the
 cause is not confirmed.
 """
 import dataclasses
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
+import _torch_zero1_cases as C
 from repro_torch import tree as T
 from repro_torch.comm import LocalComm
-from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.convert import params_to_numpy
 from repro_torch.kernels.quantize import MAX_GROUP
 from repro_torch.launch import bootstrap
 from repro_torch.optim.zero1 import (GradSyncConfig, ef_quantize,
@@ -77,91 +69,39 @@ from repro_torch.optim.zero1 import (GradSyncConfig, ef_quantize,
                                      local_rows, plan_grad_buckets)
 from repro_torch.train.steps import build_zero1
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-STEPS = 4
+#: the reference's runs this file reads (``_torch_zero1_ref.RUNS``)
+RUNS = ("", "int8_", "bf16_", "p2_", "p4_")
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("zero1") / "ref.npz"
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [os.path.join(HERE, "..", "src"), env.get("PYTHONPATH", "")])
-    proc = subprocess.run([sys.executable,
-                           os.path.join(HERE, "_torch_zero1_ref.py"), str(out)],
-                          capture_output=True, text=True, env=env, timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    z = np.load(out)
-
-    def tree(prefix):
-        return T.unflatten((tuple(k[len(prefix):].split("/")), z[k])
-                           for k in z.files if k.startswith(prefix))
-
-    runs = {pre: (z[pre + "losses"], tree(pre + "final/"))
-            for pre in ("bucket_", "bucket_int8_", "ring_", "xla_",
-                        "allreduce_", "p2_", "p4_")}
-    return (tree("init/"), z["losses"], tree("final/"), z["int8_losses"],
-            tree("int8_final/"), z["bf16_losses"], tree("bf16_final/"), runs)
-
-
-#: bucket size of the bucketed runs (= _torch_zero1_ref.BUCKET).
-BUCKET = 30_000
-
-
-def _train(init, mode, fused=None, wire=None, rs_dtype="float32", dp=None,
-           arch="qwen3-1.7b", steps=STEPS, **kw):
-    dp = dp or (3 if mode == "zero1" else 1)
-    sess = bootstrap.build_session(
-        arch=arch, scale_down=True, steps=steps, seq_len=16,
-        global_batch=dp if mode == "zero1" else 3, dp=dp, mode=mode,
-        use_fused_kernel=fused, wire_dtype=wire, device="cpu",
-        init_state=False, **kw)
-    if rs_dtype != sess.sync.rs_dtype:  # no launcher flag sets it
-        sess.sync = dataclasses.replace(sess.sync, rs_dtype=rs_dtype)
-        sess.built = build_zero1(sess.model, sess.comm, sess.opt_cfg,
-                                 sess.sync, sess.device)
-    params = params_from_numpy(init, sess.cfg)
-    sess.params = ([params] + [T.map_leaves(torch.clone, params)
-                               for _ in range(dp - 1)]
-                   if mode == "zero1" else params)
-    sess.opt = sess.built.init_opt(sess.params)
-    losses = [float(bootstrap.run_step(sess, s)["loss"])
-              for s in range(steps)]
-    return sess, losses
-
-
-def _assert_params_close(got: dict, want: dict, atol: float = 1e-9):
-    assert [p for p, _ in T.flatten(got)] == [p for p, _ in T.flatten(want)]
-    for (path, a), (_, b) in zip(T.flatten(got), T.flatten(want)):
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol,
-                                   err_msg=".".join(map(str, path)))
+    return C.reference(tmp_path_factory.mktemp("zero1"), RUNS)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["eager", "fused"])
 def test_zero1_trajectory_matches_reference(reference, fused):
-    init, ref_losses, ref_final = reference[:3]
-    sess, losses = _train(init, "zero1", fused)
+    init, (ref_losses, ref_final) = reference["init"], reference[""]
+    sess, losses = C.train(init, "zero1", fused)
     np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-5)
     finals = [params_to_numpy(p) for p in sess.params]
     for final in finals:
-        _assert_params_close(final, ref_final)
+        C.assert_params_close(final, ref_final)
     for final in finals[1:]:  # the allgather replicates bitwise
         for a, b in zip(T.leaves(final), T.leaves(finals[0])):
             np.testing.assert_array_equal(a, b)
     # ceil(log2 3) = 2 exchanges per RS and per AG, per zero leaf per step
     n_zero = sum(is_zero_leaf(a.shape, 3, 1024) for a in T.leaves(init))
-    assert sess.comm.exchanges == STEPS * n_zero * 2 * 2
+    assert sess.comm.exchanges == C.STEPS * n_zero * 2 * 2
 
 
 def test_zero1_equals_single(reference):
     """Within the port, ZeRO-1 at p = 3 trains like one rank on the whole
     batch (same tolerance: only summation orders differ)."""
-    init = reference[0]
-    z1, z_losses = _train(init, "zero1", False)
-    single, s_losses = _train(init, "single")
+    init = reference["init"]
+    z1, z_losses = C.train(init, "zero1", False)
+    single, s_losses = C.train(init, "single")
     np.testing.assert_allclose(z_losses, s_losses, rtol=0, atol=1e-5)
-    _assert_params_close(params_to_numpy(z1.params[0]),
+    C.assert_params_close(params_to_numpy(z1.params[0]),
                          params_to_numpy(single.params))
 
 
@@ -179,13 +119,14 @@ def test_zero1_state_is_sharded():
 
 @pytest.mark.parametrize("fused", [False, True], ids=["eager", "fused"])
 def test_zero1_int8_ef_trajectory_matches_reference(reference, fused):
-    init, f32_losses, _, ref_losses, ref_final = reference[:5]
-    sess, losses = _train(init, "zero1", fused, wire="int8")
+    init, f32_losses = reference["init"], reference[""][0]
+    ref_losses, ref_final = reference["int8_"]
+    sess, losses = C.train(init, "zero1", fused, wire="int8")
     np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-5)
     assert np.abs(np.asarray(losses) - f32_losses).max() < 0.05
     finals = [params_to_numpy(p) for p in sess.params]
     for final in finals:
-        _assert_params_close(final, ref_final, atol=6e-6)
+        C.assert_params_close(final, ref_final, atol=6e-6)
     for final in finals[1:]:
         for a, b in zip(T.leaves(final), T.leaves(finals[0])):
             np.testing.assert_array_equal(a, b)
@@ -197,8 +138,8 @@ def test_zero1_int8_ef_trajectory_matches_reference(reference, fused):
             if is_zero_leaf(p.shape, 3, 1024):
                 n_zero += 1
                 assert float(e.abs().max()) > 0, path
-    assert sess.comm.exchanges == STEPS * (n_zero // 3) * 2 * 2
-    _, losses_f32 = _train(init, "zero1", fused)
+    assert sess.comm.exchanges == C.STEPS * (n_zero // 3) * 2 * 2
+    _, losses_f32 = C.train(init, "zero1", fused)
     assert np.abs(np.asarray(losses) - np.asarray(losses_f32)).max() < 0.05
 
 
@@ -207,79 +148,31 @@ def test_zero1_bf16_rs_trajectory_matches_reference(reference, fused):
     """``rs_dtype="bfloat16"``: each gradient is rounded to bfloat16 before
     the exact reduce-scatter, folded in bfloat16 and averaged there, as
     the reference's run does."""
-    init, ref_losses, ref_final = reference[0], *reference[5:7]
-    sess, losses = _train(init, "zero1", fused, rs_dtype="bfloat16")
+    init, (ref_losses, ref_final) = reference["init"], reference["bf16_"]
+    sess, losses = C.train(init, "zero1", fused, rs_dtype="bfloat16")
     np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-5)
     finals = [params_to_numpy(p) for p in sess.params]
     for final in finals:
-        _assert_params_close(final, ref_final, atol=1e-6)
+        C.assert_params_close(final, ref_final, atol=1e-6)
     for final in finals[1:]:
         for a, b in zip(T.leaves(final), T.leaves(finals[0])):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw,err", [
-    (dict(wire_dtype="int8", rs_dtype="bfloat16"), ValueError),
-    (dict(rs_dtype="float16"), ValueError),
-    (dict(impl="xla"), None),
-    (dict(impl="allreduce"), None),
-    (dict(bucket_bytes=0), ValueError),
-    (dict(impl="ring"), None),
-    (dict(impl="ring", bucket_bytes=1 << 20), ValueError),
-    (dict(bucket_bytes=1 << 20), None)])
-def test_unported_sync_fields_raise(kw, err):
-    """The config's refusals, and for every impl and ``bucket_bytes``
-    the reference's behaviour: its specs, its error-feedback rule, and
-    its ``ValueError`` for ``bucket_bytes <= 0`` or with an impl other
-    than circulant.  (The impls and ``bucket_bytes`` raised
-    ``NotImplementedError`` before they were ported.)"""
-    from repro.optim.zero1 import GradSyncConfig as RefConfig
-    if err is not None:
-        with pytest.raises(err) as mine:
-            GradSyncConfig(**kw)
-        if "rs_dtype" not in kw:  # the reference does not check rs_dtype
-            with pytest.raises(err) as ref:
-                RefConfig(**kw)
-            assert str(mine.value) == str(ref.value)
-        return
-    mine, ref = GradSyncConfig(**kw), RefConfig(**kw)
-    fields = ("kind", "schedule", "op", "wire_dtype", "wire_group",
-              "use_fused_kernel", "counts")
-    for a, b in ((mine.rs_spec(), ref.rs_spec()),
-                 (mine.ag_spec(), ref.ag_spec())):
-        assert [getattr(a, f) for f in fields] == \
-            [getattr(b, f) for f in fields]
-    assert mine.uses_error_feedback == ref.uses_error_feedback
-    wired = dict(kw, wire_dtype="int8")
-    assert GradSyncConfig(**wired).uses_error_feedback == \
-        RefConfig(**wired).uses_error_feedback
-    params = {"big": torch.zeros(28, 64), "tiny": torch.zeros(5)}
-    st = init_zero1_state(params, 3, GradSyncConfig(**kw))
-    full = kw.get("impl") == "allreduce"  # no ZeRO: full moments
-    assert tuple(st.m["big"].shape) == ((28, 64) if full else (10, 64))
-
-
-def _assert_run_matches(sess, losses, ref, atol=1e-9):
-    ref_losses, ref_final = ref
-    np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-5)
-    finals = [params_to_numpy(p) for p in sess.params]
-    for final in finals:
-        _assert_params_close(final, ref_final, atol=atol)
-    for final in finals[1:]:  # the allgather replicates bitwise
-        for a, b in zip(T.leaves(final), T.leaves(finals[0])):
-            np.testing.assert_array_equal(a, b)
-
-
-def _zero_shapes(init, world):
-    return [a.shape for a in T.leaves(init)
-            if is_zero_leaf(a.shape, world, 1024)]
+@pytest.mark.parametrize("p", [2, 4])
+def test_zero1_trajectory_other_worlds(reference, p):
+    """The exact sync at p = 2 and 4, global batch p (see the module
+    docstring for p = 5)."""
+    init, runs = reference["init"], reference
+    sess, losses = C.train(init, "zero1", dp=p)
+    C.assert_run_matches(sess, losses, runs[f"p{p}_"])
 
 
 def test_plan_grad_buckets_equal_reference(reference):
     from repro.optim.zero1 import plan_grad_buckets as ref_buckets
-    init = reference[0]
-    cases = [(_zero_shapes(init, w), w, b, i)
-             for w in (2, 3, 4) for b in (1, 4096, BUCKET, 1 << 30)
+    init = reference["init"]
+    cases = [(C.zero_shapes(init, w), w, b, i)
+             for w in (2, 3, 4) for b in (1, 4096, C.BUCKET, 1 << 30)
              for i in (2, 4)]
     cases += [
         ([(10, 4), (3, 4)], 3, 192, 4),  # exact fit: 4 rows x 48 B
@@ -299,56 +192,6 @@ def test_plan_grad_buckets_equal_reference(reference):
         [[(0, 0, 4)], [(1, 0, 1)]]  # a full bucket closes at once
     with pytest.raises(ValueError, match="positive"):
         plan_grad_buckets([(10, 4)], 3, 0)
-
-
-@pytest.mark.parametrize("fused", [False, True], ids=["eager", "fused"])
-@pytest.mark.parametrize("wire", [None, "int8"], ids=["f32", "int8"])
-def test_bucketed_trajectory_matches_reference(reference, wire, fused):
-    init, runs = reference[0], reference[7]
-    sess, losses = _train(init, "zero1", fused, wire=wire,
-                          bucket_bytes=BUCKET)
-    pre = "bucket_int8_" if wire else "bucket_"
-    _assert_run_matches(sess, losses, runs[pre],
-                        atol=6e-6 if wire else 1e-9)
-    buckets = plan_grad_buckets(_zero_shapes(init, 3), 3, BUCKET)
-    leaves = [[li for li, _, _ in b] for b in buckets]
-    assert max(map(len, leaves)) > 1  # a bucket holds several leaves
-    assert len({li for b in leaves for li in b}) < sum(map(len, leaves))
-    # ceil(log2 3) = 2 exchanges per bucket's RS and AG, per step
-    assert sess.comm.exchanges == STEPS * len(buckets) * 2 * 2
-    if wire is None:  # bitwise the per-leaf sync, every rank
-        one, one_losses = _train(init, "zero1", fused)
-        assert losses == one_losses
-        for a, b in zip(sess.params, one.params):
-            for x, y in zip(T.leaves(a), T.leaves(b)):
-                assert torch.equal(x, y)
-
-
-@pytest.mark.parametrize("impl", ["ring", "xla", "allreduce"])
-def test_baseline_impl_trajectory_matches_reference(reference, impl):
-    init, runs = reference[0], reference[7]
-    sess, losses = _train(init, "zero1", grad_sync=impl)
-    _assert_run_matches(sess, losses, runs[impl + "_"])
-    n_zero = len(_zero_shapes(init, 3))
-    # ring: p - 1 = 2 rounds per RS and the circulant AG's 2; xla and
-    # allreduce: native calls only
-    want = STEPS * n_zero * (2 + 2) if impl == "ring" else 0
-    assert sess.comm.exchanges == want
-    assert sess.comm.natives > 0
-    m = T.leaves(sess.opt[0].m)
-    big = [a for a in T.leaves(init) if is_zero_leaf(a.shape, 3, 1024)][0]
-    assert any(tuple(x.shape) == (big.shape if impl == "allreduce" else
-                                  (-(-big.shape[0] // 3), *big.shape[1:]))
-               for x in m)
-
-
-@pytest.mark.parametrize("p", [2, 4])
-def test_zero1_trajectory_other_worlds(reference, p):
-    """The exact sync at p = 2 and 4, global batch p (see the module
-    docstring for p = 5)."""
-    init, runs = reference[0], reference[7]
-    sess, losses = _train(init, "zero1", dp=p)
-    _assert_run_matches(sess, losses, runs[f"p{p}_"])
 
 
 def test_wire_sync_config():

@@ -35,7 +35,7 @@ import pytest
 from repro_torch import tree as T
 from repro_torch.convert import params_to_numpy
 from repro_torch.optim.zero1 import is_zero_leaf
-from test_torch_zero1 import _assert_params_close, _train
+from _torch_zero1_cases import assert_params_close, train
 from _torch_arch_cases import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -74,11 +74,11 @@ def test_zero1_trajectory_matches_reference(reference, arch):
     equal), ``ceil_log2(3) = 2`` exchanges per RS and per AG of every
     zero leaf per step."""
     init, ref_losses, ref_final = reference[arch]
-    sess, losses = _train(init, "zero1", arch=arch, steps=STEPS)
+    sess, losses = train(init, "zero1", arch=arch, steps=STEPS)
     np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-5)
     finals = [params_to_numpy(p) for p in sess.params]
     for final in finals:
-        _assert_params_close(final, ref_final, atol=ATOL[arch])
+        assert_params_close(final, ref_final, atol=ATOL[arch])
     for final in finals[1:]:
         for a, b in zip(T.leaves(final), T.leaves(finals[0])):
             np.testing.assert_array_equal(a, b)
